@@ -7,7 +7,7 @@ Phases, each printed with its wall time:
 1. device: the card's name and power limit, and the build of every CUDA
    kernel of the port from ``vihmc_torch/csrc`` (one ``nvcc`` per source, all
    started together);
-2. kernels against their plain PyTorch versions on the card, at a ragged
+2. ``paired_sums`` against its plain PyTorch version on the card, at a ragged
    shape and at the operator row's shape, on real features at q0 and at q1
    one leapfrog trajectory away, with a float64 evaluation as a third
    reference; the kernel's time beside its bound and the plain version's;
@@ -15,20 +15,36 @@ Phases, each printed with its wall time:
    DeepONet, B = 1000 x P = 10,201, 2048-dim subspace, 48 chains, L = 4,
    bf16 Gram trajectory gradients, the fused paired delta, a low-rank
    metric), with only its depth cut; the kernel launch counts of that run
-   must show that every draw went through the kernel;
-4. where a draw's time goes: the trajectory field, the delta's feature
+   must show that every draw went through ``paired_sums``;
+4. where a row draw's time goes: the trajectory field, the delta's feature
    forwards and the kernel timed alone at 48 chains, beside the sampling
-   wall per draw.
+   wall per draw;
+5. the stage-3 kernels against their plain versions on the card:
+   ``merge_sums`` at a ragged shape and at the stage-3 shape (16 chains,
+   B = 1000, P = 10,201, K = 100) on real features at the VI mean and one
+   L = 31 trajectory from it, with a float64 evaluation; the ll of
+   ``fused_merge_nll`` and its gradient against autograd of the plain f32
+   ``merge_nll_reference``; ``fused_leapfrog_update`` at (16, 81,131); each
+   kernel's time beside its bound and its plain version's;
+6. the stage-3 operator pipeline at full width through ``run_stage3``
+   (reference DeepONet, the 81,131-dim 90 % subspace, 16 chains, L = 31,
+   the f32 Gram trajectory field, the fused merge-NLL density, validation
+   scoring), with only its depth cut; ``merge_sums`` must have run once per
+   density evaluation (2 per draw, 1 at init); then a draw's split;
+7. the same pipeline with ``use_gram=False`` (autograd through the fused
+   density on every leapfrog step) at a small depth, with its launch count.
 
-The second-to-last line is a JSON object describing every kernel; the last
-line is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
-script exits non-zero and prints no result. It needs a CUDA device and the
-rest of the repository; it imports nothing of JAX.
+Before each driven path (3, 6, 7) every kernel count is set to 0, and it is
+read just after. The second-to-last line is a JSON object describing every
+kernel; the last line is ``{"ok": true, "device": {...}}``. Any failed check
+raises, so the script exits non-zero and prints no result. It needs a CUDA
+device and the rest of the repository; it imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import subprocess
@@ -42,13 +58,24 @@ from vihmc_torch.bench_operator import (build_operator_problem, operator_fns,
                                         run_operator_row)
 from vihmc_torch.core.precision import true_f32
 from vihmc_torch.core.ravel import scatter_subspace
-from vihmc_torch.data.burgers import load_port_inputs
+from vihmc_torch.data.burgers import (get_burgers, load_port_inputs,
+                                      load_stage12_artifacts)
 from vihmc_torch.hmc.integrators import leapfrog_grad_only
-from vihmc_torch.models.deeponet import deeponet_features, unravel_deeponet
+from vihmc_torch.hmc.kernel import clipped_grad_fn
+from vihmc_torch.hmc.subspace import make_subspace_grad
+from vihmc_torch.models.deeponet import (DeepONetConfig, deeponet_features,
+                                         unravel_deeponet)
 from vihmc_torch.ops import cuda_build
-from vihmc_torch.ops.deeponet_merge import (close_paired_sums, paired_sums,
+from vihmc_torch.ops.deeponet_merge import (close_paired_sums, fused_merge_nll,
+                                            merge_nll_reference, merge_sums,
+                                            merge_sums_reference, paired_sums,
                                             paired_sums_reference, y_sums)
 from vihmc_torch.ops.gram_merge import make_gram_grad_full
+from vihmc_torch.ops.leapfrog import (fused_leapfrog_update,
+                                      leapfrog_update_reference)
+from vihmc_torch.pipelines.common import make_deeponet_nll_log_posterior
+from vihmc_torch.pipelines.vi_hmc import (build_subspace_posterior, run_stage3,
+                                          stage3_config)
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12
@@ -56,11 +83,27 @@ PEAK_BYTES_PER_S = 3.35e12
 DLL_ATOL = 1e-2      # nats: the paired form's stated float error (pipelines/common.py:165-166)
 LP1_RTOL = 1e-5
 BURGERS_ATOL = 1e-4  # f32 pseudo-spectral solve, 2000 steps, |u| <= ~3.4: cuFFT vs XLA rounding
+# merge_sums: each sum within this fraction of the sum of its terms'
+# magnitudes (f32 products and per-cell terms round at ~6e-8 of them; the
+# sums are f64); the ll within the same fraction of its terms' magnitudes
+MERGE_RTOL_MAG = 1e-7
+GRAD_REL_TOL = 1e-4          # fused_merge_nll gradient vs autograd of the f32 reference
+GRAD_COS_MIN = 1.0 - 1e-6
+LEAPFROG_ULPS = 1            # kernel vs plain: the same roundings in the same order
+SLEEP_CYCLES = 400_000_000  # ~0.2 s of GPU clock: time for the host to queue the timed calls
+SPLIT_REPS = 3               # calls of many-op functions: few enough to stay in the launch queue
+L2_ROTATION = 8              # input copies cycled per timing: 8 x 15.6 MB exceeds the 50 MB L2
 
 KERNELS = {
     "paired_sums": {"route": "cuda", "source": "vihmc_torch/csrc/paired_sums.cu",
                     "replaces": "vihmc_tpu/ops/deeponet_merge.py:349"},
+    "merge_sums": {"route": "cuda", "source": "vihmc_torch/csrc/merge_sums.cu",
+                   "replaces": "vihmc_tpu/ops/deeponet_merge.py:108"},
+    "leapfrog_update": {"route": "cuda", "source": "vihmc_torch/csrc/leapfrog_update.cu",
+                        "replaces": "vihmc_tpu/ops/leapfrog.py:46"},
 }
+COUNTERS = {"paired_sums": paired_sums, "merge_sums": merge_sums,
+            "leapfrog_update": fused_leapfrog_update}
 
 
 def check(cond: bool, msg: str):
@@ -72,20 +115,46 @@ def phase(name: str, t0: float):
     print(f"[phase] {name}: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
-def time_cuda(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` launches (CUDA events)."""
+def reset_counts():
+    torch.cuda.synchronize()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in COUNTERS.items()}
+
+
+def time_device(label: str, fn, reps: int, warmup: int = 2) -> float:
+    """Mean device milliseconds per call of ``fn()`` over ``reps`` calls
+    queued back to back behind a GPU sleep (CUDA events around the calls).
+    The host enqueues the calls while the card sleeps, so the events bracket
+    device work only; one event pair per call would also count the host's
+    dispatch, which is longer than a small kernel. When the card reaches the
+    first event before the host has queued every call (a full launch queue),
+    the time includes host dispatch, and a line says so."""
     for _ in range(warmup):
         fn()
-    times = []
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    b.record()
+    if a.query():
+        print(f"  (timing of {label}: the card caught up with the host; the time "
+              f"includes host dispatch)")
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def bound(flops: float, nbytes: float):
+    """``(ms, 'operations' | 'bytes')``: the larger of the two times."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def paired_sums_f64(bout1, tout1, bout0, tout0, y) -> torch.Tensor:
@@ -101,10 +170,20 @@ def paired_sums_f64(bout1, tout1, bout0, tout0, y) -> torch.Tensor:
 
 
 def paired_sums_bound_ms(c, b, p, k):
-    flops = 4.0 * c * b * p * k + 12.0 * c * b * p   # two products + the epilogue
-    nbytes = 4.0 * (2 * c * b * k + 2 * c * p * k + b * p + 5 * c)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    # two products + the epilogue; each input read once, the sums written once
+    return bound(4.0 * c * b * p * k + 12.0 * c * b * p,
+                 4.0 * (2 * c * b * k + 2 * c * p * k + b * p + 5 * c))
+
+
+def merge_sums_bound_ms(c, b, p, k):
+    # the product + the epilogue (m - 2y, the product, two adds)
+    return bound(2.0 * c * b * p * k + 4.0 * c * b * p,
+                 4.0 * (c * b * k + c * p * k + b * p) + 8.0 * 2 * c)
+
+
+def leapfrog_bound_ms(n, d_im):
+    # q, p, g and the (D,) mass read once, q_new and p_half written once
+    return bound(5.0 * n, 4.0 * (5 * n + d_im))
 
 
 def compare_paired(label, feats, biases, y, tau=1.0):
@@ -142,13 +221,189 @@ def compare_paired(label, feats, biases, y, tau=1.0):
     return err_dll
 
 
+def merge_f64(bout, tout, bias, y, tau):
+    """Per chain: ``(S1, S2)``, their terms' magnitudes, the ll and its
+    terms' magnitude, all in float64."""
+    var = max(float(tau), 1e-6)
+    y64 = y.double()
+    s, mag, ll, ll_mag = [], [], [], []
+    for c in range(bout.shape[0]):
+        m = bout[c].double() @ tout[c].double().T
+        s.append(torch.stack([(m * (m - 2 * y64)).sum(), m.sum()]))
+        mag.append(torch.stack([(m * m + 2 * (m * y64).abs()).sum(), m.abs().sum()]))
+        b = bias[c].double()
+        ll.append(-0.5 * (y.numel() * math.log(var) + ((m + b - y64) ** 2).sum() / var))
+        ll_mag.append(0.5 * ((m.abs() + b.abs() + y64.abs()) ** 2).sum() / var)
+    return torch.stack(s), torch.stack(mag), torch.stack(ll), torch.stack(ll_mag)
+
+
+def compare_merge(label, bout, tout, bias, y, tau=1.0):
+    """merge_sums and fused_merge_nll vs plain vs f64; returns the max
+    |ll kernel - ll plain| in nats."""
+    s_k = merge_sums(bout, tout, y)
+    torch.cuda.synchronize()
+    s_p = merge_sums_reference(bout, tout, y)
+    s_64, mag, ll_64, ll_mag = merge_f64(bout, tout, bias, y, tau)
+    for i, n in enumerate(("S1", "S2")):
+        e_p = ((s_k[:, i] - s_p[:, i]).abs() / mag[:, i]).max().item()
+        e_64 = ((s_k[:, i] - s_64[:, i]).abs() / mag[:, i]).max().item()
+        e_p64 = ((s_p[:, i] - s_64[:, i]).abs() / mag[:, i]).max().item()
+        print(f"  {label} {n}: kernel-plain {e_p:.3g}, kernel-f64 {e_64:.3g}, plain-f64 "
+              f"{e_p64:.3g} of the terms' magnitudes (|{n}| up to "
+              f"{s_64[:, i].abs().max().item():.4g})")
+        check(e_p <= MERGE_RTOL_MAG and e_64 <= MERGE_RTOL_MAG,
+              f"{label} {n}: kernel differs by {max(e_p, e_64)} of its terms' magnitudes")
+    ll_k = fused_merge_nll(bout, tout, bias, y, tau)
+    ll_p = merge_nll_reference(bout, tout, bias, y, tau)
+    err_p = (ll_k.double() - ll_p.double()).abs().max().item()
+    err_64 = (ll_k.double() - ll_64).abs()
+    print(f"  {label} ll: kernel-plain max abs {err_p:.4g} nats, kernel-f64 "
+          f"{err_64.max().item():.4g}, plain-f64 {(ll_p.double() - ll_64).abs().max().item():.4g}"
+          f" (|ll| up to {ll_64.abs().max().item():.4g}, terms' magnitude up to "
+          f"{ll_mag.max().item():.4g})")
+    check(bool(torch.isfinite(ll_k).all()), f"{label}: non-finite ll")
+    check(bool((err_64 <= MERGE_RTOL_MAG * ll_mag).all()),
+          f"{label}: ll kernel-f64 {err_64.max().item()} beyond {MERGE_RTOL_MAG} of "
+          f"its terms' magnitude")
+    return err_p
+
+
+def stage3_kernels(dev, train, arts, reps):
+    """Phase 5: merge_sums, fused_merge_nll and the leapfrog kernel on the
+    card against their plain versions; returns the kernel rows' numbers."""
+    cfg_d = DeepONetConfig()
+    grid = load_port_inputs()
+    n_data = int(grid["n_train"]) * int(grid["nx"]) * int(grid["nt"])
+    cfg = stage3_config(len(arts["indices"]), n_data)
+    bx, tx, y = train["branch_in"], train["trunk_in"], train["solution"]
+    lp = make_deeponet_nll_log_posterior(cfg_d, bx, tx, y, cfg.tau_out)
+    _, aux, spec, prior, inv_mass = build_subspace_posterior(
+        cfg, None, y, arts, seed=0, full_ll=lp, device=dev)
+    field = clipped_grad_fn(make_subspace_grad(
+        make_gram_grad_full(cfg_d, bx, tx, y, cfg.tau_out), spec, prior=prior),
+        cfg.clip_grad, inv_mass=inv_mass)
+    c, d = cfg.num_chains, spec.subspace_dim
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    q0 = spec.sub_mu().expand(c, -1).clone()          # the stage-3 inits: the VI mean
+    p0 = torch.randn((c, d), generator=gen, device=dev) / torch.sqrt(inv_mass)
+    g0 = field(q0, aux)
+    q1, p1, g1 = leapfrog_grad_only(lambda q: field(q, aux), q0, p0, g0, cfg.step_size,
+                                    cfg.L, inv_mass)
+
+    def feats(q):
+        params = unravel_deeponet(cfg_d, scatter_subspace(aux, q, spec.idx))
+        with true_f32():
+            bo, to = deeponet_features(cfg_d, params, bx, tx)
+        return bo.contiguous(), to.contiguous(), params["b"].contiguous()
+
+    err = 0.0
+    for name, q in (("VI mean", q0), ("one trajectory", q1)):
+        bo, to, b = feats(q)
+        if name == "VI mean":
+            compare_merge("ragged C=3 B=130 P=301 K=12", bo[:3, :130, :12].contiguous(),
+                          to[:3, :301, :12].contiguous(), b[:3], y[:130, :301].contiguous())
+        err = max(err, compare_merge(f"{name} C={c} B={bo.shape[1]} P={to.shape[1]} "
+                                     f"K={bo.shape[2]}", bo, to, b, y))
+    # the gradient against autograd of the plain f32 reference, at q1
+    leaves = [t.clone().requires_grad_(True) for t in (bo, to, b)]
+    g_k = torch.autograd.grad(fused_merge_nll(*leaves, y, cfg.tau_out).sum(), leaves)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (bo, to, b)]
+    g_p = torch.autograd.grad(merge_nll_reference(*ref_leaves, y, cfg.tau_out).sum(),
+                              ref_leaves)
+    fk = torch.cat([g.flatten().double() for g in g_k])
+    fp = torch.cat([g.flatten().double() for g in g_p])
+    rel = ((fk - fp).norm() / fp.norm()).item()
+    cos = torch.nn.functional.cosine_similarity(fk, fp, dim=0).item()
+    bias_rel = ((g_k[2] - g_p[2]).abs() / g_p[2].abs().clamp(min=1e-30)).max().item()
+    print(f"  fused_merge_nll gradient vs autograd of merge_nll_reference (f32): relative "
+          f"error {rel:.3g}, cosine {cos:.9f}; bias gradient max rel {bias_rel:.3g}")
+    check(rel <= GRAD_REL_TOL and cos >= GRAD_COS_MIN, f"gradient rel {rel}, cosine {cos}")
+    del leaves, ref_leaves, g_k, g_p, fk, fp
+
+    cb, b_, k = bo.shape
+    p = to.shape[1]
+    ms = time_device("merge_sums", lambda: merge_sums(bo, to, y), reps)
+    plain_ms = time_device("merge_sums plain", lambda: merge_sums_reference(bo, to, y),
+                           SPLIT_REPS, warmup=1)
+    bound_ms, bound_by = merge_sums_bound_ms(cb, b_, p, k)
+    print(f"  merge_sums at C={cb} B={b_} P={p} K={k}: kernel {ms:.3f} ms (mean of {reps} "
+          f"queued launches), bound {bound_ms:.3f} ms ({bound_by}), plain {plain_ms:.3f} ms, "
+          f"library_ms n/a (no single PyTorch call computes S1 and S2)")
+    rows = {"merge_sums": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by)}
+
+    # the leapfrog update at the trajectory's shapes: (C, d) and a (d,) mass
+    eps = cfg.step_size
+    lf_err = 0.0
+    for label, im in (("diagonal", inv_mass), ("scalar", 0.5)):
+        qk, pk = fused_leapfrog_update(q1, p1, g1, eps, im)
+        torch.cuda.synchronize()
+        im_t = torch.as_tensor(im, dtype=torch.float32, device=dev)
+        qr, pr = leapfrog_update_reference(q1, p1, g1, eps, im_t)
+        for a, r, n in ((qk, qr, "q_new"), (pk, pr, "p_half")):
+            diff = (a - r).abs()
+            ulp = torch.finfo(torch.float32).eps * r.abs().clamp(
+                min=torch.finfo(torch.float32).tiny)
+            worst = (diff / ulp).max().item()
+            lf_err = max(lf_err, diff.max().item())
+            print(f"  leapfrog {label} mass {n}: max abs {diff.max().item():.3g}, "
+                  f"{worst:.3g} ulp; bit-equal {bool(torch.equal(a, r))}")
+            check(worst <= LEAPFROG_ULPS, f"leapfrog {label} {n}: {worst} ulp")
+    # cycle over input copies larger than the L2 in all, so that each call
+    # reads its inputs from device memory, as the bound counts them
+    sets = itertools.cycle([(q1.clone(), p1.clone(), g1.clone()) for _ in range(L2_ROTATION)])
+    lf_ms = time_device("leapfrog_update",
+                        lambda: fused_leapfrog_update(*next(sets), eps, inv_mass), reps)
+    lf_plain = time_device("leapfrog_update plain",
+                           lambda: leapfrog_update_reference(*next(sets), eps, inv_mass), reps)
+    lf_bound, lf_by = leapfrog_bound_ms(q1.numel(), d)
+    print(f"  leapfrog_update at ({c}, {d}): kernel {lf_ms * 1e3:.2f} us, bound "
+          f"{lf_bound * 1e3:.2f} us ({lf_by}), plain {lf_plain * 1e3:.2f} us, library_ms n/a "
+          f"(no single PyTorch call computes both outputs)")
+    rows["leapfrog_update"] = dict(max_abs_err=lf_err, ms=lf_ms, plain_ms=lf_plain,
+                                   bound_ms=lf_bound, bound_by=lf_by)
+    return rows
+
+
+def run_stage3_path(label, dev, data, arts, want_launches, **kw):
+    """Drive ``run_stage3`` with every count at 0 before and read after;
+    check the launches and the outputs. Returns ``(summary, out, counts)``."""
+    reset_counts()
+    summary, out = run_stage3(device=dev, data=data, artifacts=arts, **kw)
+    counts = read_counts()
+    print(f"  {label} launches: {counts}; merge_sums expected {want_launches}")
+    check(counts["merge_sums"] == want_launches,
+          f"{label}: merge_sums launched {counts['merge_sums']} times, expected {want_launches}")
+    check(counts["paired_sums"] == 0 and counts["leapfrog_update"] == 0,
+          f"{label}: unexpected launches {counts}")
+    res, met = out["result"], out["metrics"]
+    check(bool(np.isfinite(res.samples).all()), f"{label}: non-finite samples")
+    acc = res.acceptance_rate
+    check(math.isfinite(acc) and acc > 0.0, f"{label}: acceptance {acc}")
+    for k_, v in met.items():
+        check(bool(np.isfinite(v).all()), f"{label}: metric {k_} = {v}")
+    check(math.isfinite(summary["mean_relative_l2"]), f"{label}: relative L2")
+    print(f"  {label}: acceptance {acc:.4f}, draws/s {summary['draws_per_s']:.3f}, "
+          f"samples {list(res.samples.shape)}, divergent {res.num_divergent}")
+    print(f"  {label} summary: " + json.dumps(
+        {k_: v for k_, v in summary.items() if k_ != "phases_s"}))
+    print(f"  {label} phases (s): " + ", ".join(f"{k_} {v:.2f}"
+                                                 for k_, v in summary["phases_s"].items()))
+    return summary, out, counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke run on one GPU")
-    ap.add_argument("--draws", type=int, default=240, help="main-path draws")
+    ap.add_argument("--draws", type=int, default=240, help="operator-row draws")
     ap.add_argument("--segment", type=int, default=120)
     ap.add_argument("--burn", type=int, default=48)
     ap.add_argument("--init-opt", type=int, default=800)
     ap.add_argument("--rank", type=int, default=32)
+    ap.add_argument("--s3-draws", type=int, default=30, help="stage-3 draws")
+    ap.add_argument("--s3-burn", type=int, default=15)
+    ap.add_argument("--s3-segment", type=int, default=15)
+    ap.add_argument("--autodiff-draws", type=int, default=6)
     ap.add_argument("--timing-reps", type=int, default=20)
     args = ap.parse_args(argv)
 
@@ -175,7 +430,7 @@ def main(argv=None) -> int:
                 print(f"  ptxas {n}: {line.strip()}")
     phase("1 device+build", t0)
 
-    # ---- phase 2: the kernel against its plain version ----
+    # ---- phase 2: paired_sums against its plain version ----
     t0 = time.perf_counter()
     problem = build_operator_problem(dev)
     torch.cuda.synchronize()
@@ -226,18 +481,21 @@ def main(argv=None) -> int:
     c, b, k = feats[0].shape
     p = feats[1].shape[1]
     err_main = compare_paired(f"main C={c} B={b} P={p} K={k}", feats, biases, y)
-    ms = time_cuda(lambda: paired_sums(*feats, y), args.timing_reps)
-    plain_ms = time_cuda(lambda: paired_sums_reference(*feats, y), 5, warmup=1)
+    ms = time_device("paired_sums", lambda: paired_sums(*feats, y), args.timing_reps)
+    plain_ms = time_device("paired_sums plain", lambda: paired_sums_reference(*feats, y), 2,
+                           warmup=1)
     bound_ms, bound_by = paired_sums_bound_ms(c, b, p, k)
-    print(f"  paired_sums at C={c} B={b} P={p} K={k}: kernel {ms:.3f} ms (median of "
-          f"{args.timing_reps}), bound {bound_ms:.3f} ms ({bound_by}; f32 "
+    print(f"  paired_sums at C={c} B={b} P={p} K={k}: kernel {ms:.3f} ms (mean of "
+          f"{args.timing_reps} queued launches), bound {bound_ms:.3f} ms ({bound_by}; f32 "
           f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s, {PEAK_BYTES_PER_S / 1e12:.2f} TB/s), "
           f"plain {plain_ms:.3f} ms, library_ms n/a (no single PyTorch call "
           f"computes these five sums)")
+    kernel_rows = {"paired_sums": dict(max_abs_err=err_main, ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by)}
     del feats, ragged, bout1, tout1, bout0, tout0
-    phase("2 kernels vs plain", t0)
+    phase("2 paired_sums vs plain", t0)
 
-    # ---- phase 3: the main path at full width ----
+    # ---- phase 3: the operator row at full width ----
     t0 = time.perf_counter()
     cuts = {"init_opt": (args.init_opt, 800), "lowrank_rank": (args.rank, 256),
             "draws": (args.draws, 2880), "burn": (args.burn, 288),
@@ -245,17 +503,17 @@ def main(argv=None) -> int:
     for key_, (val, full_val) in cuts.items():
         if val != full_val:
             print(f"  depth cut: {key_} {val} (recipe {full_val})")
-    torch.cuda.synchronize()
-    paired_sums.launches = 0
+    reset_counts()
     stats = run_operator_row(device=dev, draws=args.draws, burn=args.burn, thin=3,
                              chains=48, L=4, target=0.25, init_opt=args.init_opt,
                              lowrank_rank=args.rank, segment=args.segment, seed=2,
                              problem=problem)
-    torch.cuda.synchronize()
-    launches = {"paired_sums": paired_sums.launches}
-    print(f"  launches in the main path: {launches} for {args.draws} draws")
-    check(launches["paired_sums"] == args.draws,
-          f"paired_sums launched {launches['paired_sums']} times for {args.draws} draws")
+    row_counts = read_counts()
+    print(f"  launches in the operator row: {row_counts} for {args.draws} draws")
+    check(row_counts["paired_sums"] == args.draws,
+          f"paired_sums launched {row_counts['paired_sums']} times for {args.draws} draws")
+    check(row_counts["merge_sums"] == 0 and row_counts["leapfrog_update"] == 0,
+          f"unexpected launches in the row: {row_counts}")
     acc = stats["acceptance"]
     steps = stats["step_quartiles"]
     check(math.isfinite(acc) and acc > 0.0, f"acceptance {acc}")
@@ -274,12 +532,11 @@ def main(argv=None) -> int:
     print("  diagnostics (reduced depth): " + json.dumps(
         {k_: stats.get(k_) for k_ in ("ess_median", "ess_bulk_median", "ess_min",
                                       "rhat_max")}))
-    phase("3 main path", t0)
+    phase("3 operator row", t0)
 
-    # ---- phase 4: where a draw's time goes (after the counts were read) ----
+    # ---- phase 4: where a row draw's time goes (after the counts were read) ----
     t0 = time.perf_counter()
-    reps = args.timing_reps
-    grad_ms = time_cuda(lambda: field(q0, aux), reps)
+    grad_ms = time_device("row Gram field", lambda: field(q0, aux), SPLIT_REPS)
 
     def feature_forwards():
         with true_f32():
@@ -287,20 +544,74 @@ def main(argv=None) -> int:
                 deeponet_features(cfg, unravel_deeponet(cfg, scatter_subspace(aux, q, spec.idx)),
                                   problem.branch_x, problem.trunk_x)
 
-    feat_ms = time_cuda(feature_forwards, reps)
-    delta_ms = time_cuda(lambda: fns.delta_fn(q1, q0, aux), reps)
+    feat_ms = time_device("row feature forwards", feature_forwards, SPLIT_REPS)
+    delta_ms = time_device("row delta", lambda: fns.delta_fn(q1, q0, aux), SPLIT_REPS)
     draw_ms = 1e3 * stats["phases_s"]["sampling_s"] / args.draws
     parts = {"gram_field_x4": 4 * grad_ms, "delta_feature_forwards": feat_ms,
              "paired_sums": ms, "delta_rest": delta_ms - feat_ms - ms}
     parts["rest_of_draw"] = draw_ms - sum(parts.values())
-    print(f"  per draw at C=48 (CUDA events, median of {reps}): sampling wall {draw_ms:.2f} ms = "
+    print(f"  per draw at C=48 (device time, mean of {SPLIT_REPS} queued calls): sampling "
+          f"wall {draw_ms:.2f} ms = "
           + ", ".join(f"{k_} {v:.2f}" for k_, v in parts.items()) + " ms")
-    phase("4 per-draw breakdown", t0)
+    del problem, fns, field, q0, q1, p0
+    torch.cuda.empty_cache()
+    phase("4 row per-draw breakdown", t0)
 
-    print(json.dumps({"kernels": [dict(
-        name="paired_sums", **KERNELS["paired_sums"], launches=launches["paired_sums"],
-        max_abs_err=err_main, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None)]}))
+    # ---- phase 5: the stage-3 kernels against their plain versions ----
+    t0 = time.perf_counter()
+    data = get_burgers(dev)
+    arts = load_stage12_artifacts()
+    print(f"  stage-3 data: train y {tuple(data[0]['solution'].shape)}, valid y "
+          f"{tuple(data[1]['solution'].shape)}, subspace {len(arts['indices'])}")
+    kernel_rows.update(stage3_kernels(dev, data[0], arts, args.timing_reps))
+    torch.cuda.empty_cache()
+    phase("5 stage-3 kernels vs plain", t0)
+
+    # ---- phase 6: the stage-3 pipeline at full width, reduced depth ----
+    t0 = time.perf_counter()
+    s3 = dict(draws=args.s3_draws, burn=args.s3_burn, chains=16, L=31,
+              segment=args.s3_segment, thin=3)
+    for key_, full_val in (("draws", 450), ("burn", 90), ("segment", 90)):
+        if s3[key_] != full_val:
+            print(f"  depth cut: {key_} {s3[key_]} (stage-3 config {full_val})")
+    # 1 density at init, then lp0 (recomputed) and lp1 per draw
+    summary, out, s3_counts = run_stage3_path("stage 3", dev, data, arts,
+                                              1 + 2 * s3["draws"], **s3)
+    n_lf = s3["L"]
+    q, aux = out["result"].final_state.position, out["frozen"]
+    grad_ms = time_device("stage-3 Gram field", lambda: out["grad_fn"](q, aux), SPLIT_REPS)
+    dens_ms = time_device("stage-3 density", lambda: out["log_prob"](q, aux), SPLIT_REPS)
+    draw_ms = 1e3 * summary["sampling_seconds"] / s3["draws"]
+    parts = {f"gram_field_x{n_lf}": n_lf * grad_ms, "fused_density_x2": 2 * dens_ms}
+    parts["rest_of_draw"] = draw_ms - sum(parts.values())
+    print(f"  per stage-3 draw at C=16 (device time, mean of {SPLIT_REPS} queued calls): "
+          f"sampling wall {draw_ms:.2f} ms = "
+          + ", ".join(f"{k_} {v:.2f}" for k_, v in parts.items())
+          + f" ms (one Gram field {grad_ms:.3f} ms, one fused density {dens_ms:.3f} ms, of "
+          f"which merge_sums {kernel_rows['merge_sums']['ms']:.3f} ms)")
+    del out
+    torch.cuda.empty_cache()
+    phase("6 stage-3 pipeline", t0)
+
+    # ---- phase 7: the autograd trajectory through the fused density ----
+    t0 = time.perf_counter()
+    s3a = dict(draws=args.autodiff_draws, burn=2, chains=16, L=4,
+               segment=args.autodiff_draws, thin=1, use_gram=False)
+    # init: the density and its clipped gradient (2); per draw: lp0, L
+    # trajectory gradients (each runs the forward) and lp1
+    run_stage3_path("stage 3, use_gram=False", dev, data, arts,
+                    2 + s3a["draws"] * (s3a["L"] + 2), **s3a)
+    phase("7 autograd trajectory", t0)
+
+    launches = {"paired_sums": row_counts["paired_sums"],
+                "merge_sums": s3_counts["merge_sums"],
+                "leapfrog_update": s3_counts["leapfrog_update"]}
+    print("  launches per kernel on its main path: paired_sums in the operator row, "
+          "merge_sums in stage 3; leapfrog_update is on no path (no sampler calls it, "
+          "as in the JAX package): " + json.dumps(launches))
+    print(json.dumps({"kernels": [dict(name=n, **KERNELS[n], launches=launches[n],
+                                       **kernel_rows[n], library_ms=None)
+                                  for n in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -183,7 +183,10 @@ print("ok", len(mods))
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
     from vihmc_torch.bench_operator import run_operator_row
-    from vihmc_torch.data.burgers import get_burgers_train
+    from vihmc_torch.data.burgers import get_burgers, get_burgers_train
+    from vihmc_torch.models.deeponet import DeepONetConfig
+    from vihmc_torch.pipelines.configs import VIHMCRunConfig
+    from vihmc_torch.pipelines.vi_hmc import main, run_operator, run_stage3
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device is usable")
@@ -191,6 +194,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         run_operator_row()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_burgers_train()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_burgers()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_operator(VIHMCRunConfig(frozen_policy="draw"), DeepONetConfig(), {})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_stage3()
+    for argv in ([], ["--no-gram", "--draws", "3"]):  # the stage-3 entry's CLI
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions
+and float64: ``paired_sums``, ``merge_sums`` (with ``fused_merge_nll``) and
+``fused_leapfrog_update``.
 
 This file imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -12,9 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from vihmc_torch.ops.deeponet_merge import (close_paired_sums, fused_paired_delta,
+from vihmc_torch.ops.deeponet_merge import (close_paired_sums, fused_merge_nll,
+                                            fused_paired_delta, merge_nll_reference,
+                                            merge_sums, merge_sums_reference,
                                             paired_sums, paired_sums_reference,
                                             y_sums)
+from vihmc_torch.ops.leapfrog import (fused_leapfrog_update,
+                                      leapfrog_update_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -98,3 +104,101 @@ def test_paired_sums_kernel_is_deterministic_and_checks_inputs(cuda_device):
     with pytest.raises(ValueError):
         paired_sums(feats[0], feats[1], feats[2], feats[3], feats[4].cpu())
     assert paired_sums.launches == n
+
+
+def _merge_features(seed, c, b, p, k, device):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(a.astype(np.float32), device=device) for a in
+            (rng.normal(size=(c, b, k)), rng.normal(size=(c, p, k)),
+             rng.normal(size=(b, p)))]
+
+
+def _merge_sums_f64(bout, tout, y):
+    """S1, S2 in float64, and for each the sum of its terms' magnitudes."""
+    b, t, yy = (a.double() for a in (bout, tout, y))
+    m = b @ t.transpose(-1, -2)
+    sums = torch.stack([(m * (m - 2 * yy)).sum((1, 2)), m.sum((1, 2))], -1)
+    mags = torch.stack([(m * m + 2 * (m * yy).abs()).sum((1, 2)), m.abs().sum((1, 2))], -1)
+    return sums, mags
+
+
+@pytest.mark.parametrize("b,p,k", [(200, 1000, 100), (130, 301, 12), (1, 1, 1)])
+def test_merge_sums_kernel_matches_plain_and_float64(cuda_device, b, p, k):
+    """Each sum within 1e-5 of its terms' magnitudes of the float64 sums and
+    of the plain version (f32 products round at that scale; the sums are
+    f64 on both sides). K = 100 leaves a ragged last K chunk, 130 x 301 a
+    ragged tile edge, 1 x 1 x 1 a block that is all edge."""
+    feats = _merge_features(8, 2, b, p, k, cuda_device)
+    n = merge_sums.launches
+    got = merge_sums(*feats)
+    torch.cuda.synchronize()
+    assert merge_sums.launches == n + 1
+    assert got.dtype == torch.float64 and got.shape == (2, 2)
+    want, mag = _merge_sums_f64(*feats)
+    plain = merge_sums_reference(*feats)
+    for ref in (want, plain):
+        err = ((got - ref).abs() / mag.clamp(min=1e-30)).max().item()
+        assert err < 1e-5, err
+
+
+def test_merge_sums_kernel_is_deterministic_and_checks_inputs(cuda_device):
+    """Two launches agree bit for bit (fixed-order f64 reduction); a wrong
+    dtype, shape or device raises before any launch."""
+    feats = _merge_features(9, 3, 257, 515, 33, cuda_device)
+    a = merge_sums(*feats)
+    b = merge_sums(*feats)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    n = merge_sums.launches
+    with pytest.raises(TypeError):
+        merge_sums(feats[0].double(), *feats[1:])
+    with pytest.raises(ValueError):
+        merge_sums(feats[0], feats[1][:, :, :-1].contiguous(), feats[2])
+    with pytest.raises(ValueError):
+        merge_sums(feats[0], feats[1], feats[2].cpu())
+    assert merge_sums.launches == n
+
+
+def test_fused_merge_nll_on_the_card(cuda_device):
+    """ll through the kernel against the plain f32 reference (rtol 1e-5) and
+    its gradient against autograd of the reference (relative error 1e-4)."""
+    bout, tout, y = _merge_features(10, 3, 300, 700, 20, cuda_device)
+    bout, tout = 0.1 * bout, 0.1 * tout
+    bias = torch.tensor([0.3, -0.2, 0.05], device=cuda_device)
+    leaves = [t.clone().requires_grad_(True) for t in (bout, tout, bias)]
+    got = fused_merge_nll(*leaves, y, 0.9)
+    g_got = torch.autograd.grad(got.sum(), leaves)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (bout, tout, bias)]
+    ref = merge_nll_reference(*ref_leaves, y, 0.9)
+    g_ref = torch.autograd.grad(ref.sum(), ref_leaves)
+    np.testing.assert_allclose(got.detach().cpu().numpy(), ref.detach().cpu().numpy(),
+                               rtol=1e-5)
+    flat_got = torch.cat([g.flatten() for g in g_got])
+    flat_ref = torch.cat([g.flatten() for g in g_ref])
+    rel = ((flat_got - flat_ref).norm() / flat_ref.norm()).item()
+    assert rel < 1e-4, rel
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("mass", ["scalar", "diagonal"])
+def test_leapfrog_kernel_matches_plain_version(cuda_device, aligned, mass):
+    """(16, 4099) batch (odd D: the float4 groups straddle rows and leave a
+    tail), through the float4 kernel or, on a 4-byte-offset view, the scalar
+    one: within one ulp of the plain version (both round each product and
+    sum separately, in the same order; nvcc may not contract them)."""
+    c, d = 16, 4099
+    rng = np.random.default_rng(11)
+    bufs = [torch.as_tensor(rng.normal(size=c * d + 1).astype(np.float32), device=cuda_device)
+            for _ in range(3)]
+    q, p, g = ((bf[:-1] if aligned else bf[1:]).view(c, d) for bf in bufs)
+    im = 0.37 if mass == "scalar" else torch.as_tensor(
+        (0.5 + rng.random(d)).astype(np.float32), device=cuda_device)
+    n = fused_leapfrog_update.launches
+    qk, pk = fused_leapfrog_update(q, p, g, 3e-3, im)
+    torch.cuda.synchronize()
+    assert fused_leapfrog_update.launches == n + 1
+    im_t = torch.as_tensor(im, dtype=torch.float32, device=cuda_device)
+    qr, pr = leapfrog_update_reference(q, p, g, 3e-3, im_t)
+    for a, r in ((qk, qr), (pk, pr)):
+        ulp = torch.finfo(torch.float32).eps * r.abs().clamp(min=torch.finfo(torch.float32).tiny)
+        assert bool(((a - r).abs() <= ulp).all()), (a - r).abs().max().item()

@@ -1,0 +1,363 @@
+"""PyTorch port parity: the stage-3 operator VI-HMC pipeline.
+
+The subspace posterior (log-density, inverse mass, prior), one unpaired HMC
+transition with JAX's own draws injected (lp0 recomputed in-step), the
+posterior-predictive evaluation and its diagnostics, the run store and the
+config, and ``run_operator`` end to end on the CPU at a tiny size in both
+trajectory modes. Inputs are numpy arrays handed to both sides.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_parity_helpers import tiny_problem
+
+import vihmc_torch.ops.deeponet_merge as tmerge
+from vihmc_tpu.chains.diagnostics import summarize_np as j_summarize
+from vihmc_tpu.hmc import HMCConfig as JConfig
+from vihmc_tpu.hmc import clipped_grad_fn as j_clip
+from vihmc_tpu.hmc import make_subspace_grad as j_sub_grad
+from vihmc_tpu.hmc.kernel import init_state as j_init_state
+from vihmc_tpu.hmc.kernel import make_kernel as j_make_kernel
+from vihmc_tpu.io import RunStore as JStore
+from vihmc_tpu.ops.gram_merge import make_gram_grad_full as j_gram
+from vihmc_tpu.pipelines import configs as JC
+from vihmc_tpu.pipelines import postprocess as jpost
+from vihmc_tpu.pipelines import vi_hmc as jv
+from vihmc_tpu.pipelines.common import make_deeponet_nll_log_posterior as j_make_lp
+from vihmc_tpu.pipelines.common import make_flat_deeponet as j_make_flat
+from vihmc_torch.chains.diagnostics import summarize_np
+from vihmc_torch.hmc.kernel import (HMCConfig, TransitionNoise, clipped_grad_fn,
+                                    init_state, make_kernel)
+from vihmc_torch.hmc.subspace import make_subspace_grad
+from vihmc_torch.io.artifacts import RunStore
+from vihmc_torch.models.deeponet import DeepONetConfig
+from vihmc_torch.ops.gram_merge import make_gram_grad_full
+from vihmc_torch.pipelines import postprocess as tpost
+from vihmc_torch.pipelines import vi_hmc as tv
+from vihmc_torch.pipelines.common import (make_deeponet_nll_log_posterior,
+                                          make_flat_deeponet)
+from vihmc_torch.pipelines.configs import VIHMCRunConfig
+
+TINY_DEEPONET_KW = dict(in_branch=9, in_trunk=5, width_branch=8, width_trunk=8,
+                        depth_branch=3, depth_trunk=3)
+
+
+def _artifacts(tp, seed):
+    scores = (np.random.default_rng(seed).random(tp.mu.size) * 1e-4).astype(np.float32)
+    return {"mu": tp.mu, "sigma": tp.sigma, "indices": tp.idx, "scores": scores}
+
+
+def _posteriors(tp, cfg_kw, fused=True):
+    """The subspace posterior on both sides; the port takes JAX's frozen draw."""
+    arts = _artifacts(tp, 1)
+    jcfg, tcfg = JC.VIHMCRunConfig(**cfg_kw), VIHMCRunConfig(**cfg_kw)
+    bx, tx, y = jnp.asarray(tp.bx), jnp.asarray(tp.tx), jnp.asarray(tp.y)
+    j_apply, _, _ = j_make_flat(tp.jcfg)
+    j_ll = j_make_lp(tp.jcfg, bx, tx, y, tp.tau)[0] if fused else None
+    jpost_ = jv.build_subspace_posterior(jcfg, lambda f: j_apply(f, bx, tx), y, arts,
+                                         jax.random.key(3), full_ll=j_ll)
+    t_apply = make_flat_deeponet(tp.tcfg)
+    t_ll = (make_deeponet_nll_log_posterior(tp.tcfg, tp.t("bx"), tp.t("tx"), tp.t("y"), tp.tau)
+            if fused else None)
+    tpost_ = tv.build_subspace_posterior(
+        tcfg, lambda f: t_apply(f, tp.t("bx"), tp.t("tx")), tp.t("y"), arts,
+        frozen=np.asarray(jpost_[1]), full_ll=t_ll, device="cpu")
+    return jpost_, tpost_
+
+
+@pytest.mark.parametrize("mass,fused", [("vi", True), ("laplace", True), ("unit", False)])
+def test_build_subspace_posterior_matches_jax(mass, fused):
+    """log_prob of 3 chains (rtol 1e-5), the inverse mass (VI variances,
+    conditional Laplace, or 1; rtol 1e-6) and the prior (the VI posterior, or
+    N(0, prior_var) when load_prior is off; rtol 1e-6), with the fused and
+    the composed likelihood."""
+    tp = tiny_problem(seed=20)
+    cfg_kw = dict(frozen_policy="draw", loss="NLL", tau_out=tp.tau,
+                  vi_mass=mass == "vi", laplace_mass=mass == "laplace",
+                  laplace_n_data=tp.y.size, load_prior=mass != "unit", prior_var=0.3)
+    (jlp, jaux, _, _, jprior, jim), (tlp, taux, spec, tprior, tim) = _posteriors(
+        tp, cfg_kw, fused)
+    np.testing.assert_array_equal(taux.numpy(), np.asarray(jaux))
+    rng = np.random.default_rng(20)
+    q = (tp.mu[tp.idx][None] + tp.sigma[tp.idx][None] * rng.normal(size=(3, len(tp.idx)))
+         ).astype(np.float32)
+    got = tlp(torch.as_tensor(q), taux)
+    got_prior = tprior.log_prob(torch.as_tensor(q))
+    for c in range(3):
+        np.testing.assert_allclose(float(got[c]), float(jlp(jnp.asarray(q[c]), jaux)),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(got_prior[c]), float(jprior.log_prob(jnp.asarray(q[c]))),
+                                   rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(tim, np.float32) * np.ones(len(tp.idx)),
+                               np.asarray(jim) * np.ones(len(tp.idx)), rtol=1e-6)
+    assert spec.subspace_dim == len(tp.idx)
+
+
+def _jax_draws(key, d):
+    """One JAX transition's draws with a diagonal metric: the split of
+    kernel.py:494, the momentum normals of metric.py:216, the jitter
+    (kernel.py:552) and accept (kernel.py:649) uniforms."""
+    key_mom, key_u, _key_aux, key_jit = jax.random.split(key, 4)
+    return (np.asarray(jax.random.normal(key_mom, (d,), jnp.float32)),
+            float(jax.random.uniform(key_jit, ())), float(jax.random.uniform(key_u)))
+
+
+@pytest.mark.parametrize("field", ["gram_clipped", "autodiff"])
+def test_unpaired_transition_with_injected_jax_draws(field):
+    """Three fixed-step transitions of 4 chains on the fused density (the
+    stage-3 path: sampler 'hmc', jitter_eps, the unpaired MH test) against the
+    JAX kernel with its own draws injected: the same accept decisions, steps
+    (rtol 1e-6), accept probabilities (atol 1e-4) and positions (rtol 1e-4,
+    atol 5e-5). The trajectory runs on the clipped f32 Gram field, or on
+    autograd of the density (value-and-grad leapfrog). The port's carried
+    log_prob is poisoned before each step: lp0 must be recomputed in-step."""
+    tp = tiny_problem(seed=21)
+    d, c = len(tp.idx), 4
+    cfg_kw = dict(frozen_policy="draw", loss="NLL", tau_out=tp.tau, vi_mass=True)
+    (jlp, jaux, _, jspec, jprior, jim), (tlp, taux, spec, tprior, tim) = _posteriors(tp, cfg_kw)
+    jfield = tfield = None
+    if field == "gram_clipped":
+        jg, _, _ = j_gram(tp.jcfg, jnp.asarray(tp.bx), jnp.asarray(tp.tx), jnp.asarray(tp.y),
+                          tp.tau)
+        jfield = j_clip(j_sub_grad(jg, jspec, prior=jprior), 40.0, inv_mass=jim)
+        tg = make_gram_grad_full(tp.tcfg, tp.t("bx"), tp.t("tx"), tp.t("y"), tp.tau)
+        tfield = clipped_grad_fn(make_subspace_grad(tg, spec, prior=tprior), 40.0,
+                                 inv_mass=tim)
+    jcfg = JConfig(num_samples=3, num_leapfrog=4, step_size=1.5, sampler="hmc",
+                   jitter_eps=True, jitter_low_frac=0.5)
+    tcfg = HMCConfig(num_samples=3, num_leapfrog=4, step_size=1.5, sampler="hmc",
+                     jitter_eps=True, jitter_low_frac=0.5)
+    rng = np.random.default_rng(21)
+    inits = (tp.mu[tp.idx][None] + 0.5 * tp.sigma[tp.idx][None]
+             * rng.normal(size=(c, d))).astype(np.float32)
+    jkernel = j_make_kernel(jlp, jcfg, inv_mass=jim, grad_fn=jfield)
+    jstate = jax.vmap(lambda q: j_init_state(jlp, q, jcfg, aux=jaux, inv_mass=jim,
+                                             grad_fn=jfield))(jnp.asarray(inits))
+    tstate = init_state(tlp, torch.as_tensor(inits), tcfg, taux, tfield)
+    np.testing.assert_allclose(tstate.log_prob.numpy(), np.asarray(jstate.log_prob), rtol=1e-5)
+    np.testing.assert_allclose(tstate.grad.numpy(), np.asarray(jstate.grad), rtol=1e-4,
+                               atol=1e-4 * float(np.abs(np.asarray(jstate.grad)).max()))
+    tkernel = make_kernel(tcfg, tim, tfield, None, tlp)
+    step = jax.vmap(jkernel, in_axes=(0, 0, None))
+    n_accept = 0
+    for it in range(3):
+        keys = jax.random.split(jax.random.key(200 + it), c)
+        draws = [_jax_draws(k, d) for k in keys]
+        noise = TransitionNoise(z1=torch.as_tensor(np.stack([x[0] for x in draws])), z2=None,
+                                u_jitter=torch.tensor([x[1] for x in draws]),
+                                u_accept=torch.tensor([x[2] for x in draws]))
+        jstate, jinfo = step(jstate, keys, it)
+        tstate = dataclasses.replace(tstate, log_prob=tstate.log_prob + 1e3)  # poison
+        tstate, tinfo = tkernel(tstate, noise)
+        np.testing.assert_array_equal(tinfo["accepted"].numpy(), np.asarray(jinfo["accepted"]))
+        np.testing.assert_allclose(tinfo["step_size"].numpy(), np.asarray(jinfo["step_size"]),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(tinfo["accept_prob"].numpy(),
+                                   np.asarray(jinfo["accept_prob"]), rtol=1e-3, atol=1e-4)
+        np.testing.assert_allclose(tstate.position.numpy(), np.asarray(jstate.position),
+                                   rtol=1e-4, atol=5e-5)
+        np.testing.assert_allclose(tinfo["log_prob"].numpy(), np.asarray(jinfo["log_prob"]),
+                                   rtol=1e-5)
+        n_accept += int(tinfo["accepted"].sum())
+    assert 0 < n_accept < 3 * c  # both branches of the MH test were taken
+
+
+@pytest.mark.parametrize("base", ["shared", "per_chain"])
+def test_evaluate_samples_matches_jax(base):
+    """The same (C, S, d) samples and frozen base on both sides: every metric
+    (rtol 1e-5), the kept predictions and the mean prediction (rtol 1e-5,
+    atol 1e-6), with the pooled-sample cap thinning; summarize_np bit-equal
+    to the JAX copy on the same samples."""
+    tp = tiny_problem(seed=22)
+    cfg_kw = dict(num_samples=6, burn=2, frozen_policy="draw", loss="NLL", tau_out=tp.tau)
+    jcfg, tcfg = JC.VIHMCRunConfig(**cfg_kw), VIHMCRunConfig(**cfg_kw)
+    rng = np.random.default_rng(22)
+    c, s, d = 3, 6, len(tp.idx)
+    samples = (tp.mu[tp.idx] + tp.sigma[tp.idx] * rng.normal(size=(c, s, d))).astype(np.float32)
+    frozen = tp.frozen if base == "shared" else (
+        tp.frozen[None] + 0.01 * rng.normal(size=(c, tp.mu.size))).astype(np.float32)
+    j_apply, _, _ = j_make_flat(tp.jcfg)
+    t_apply = make_flat_deeponet(tp.tcfg)
+    want = jv.evaluate_samples(jcfg, tp.jspec, tp.jprior,
+                               lambda f: j_apply(f, jnp.asarray(tp.bx), jnp.asarray(tp.tx)),
+                               jnp.asarray(tp.y), samples, keep_predictions=5,
+                               max_metric_samples=10, frozen_base=jnp.asarray(frozen))
+    got = tv.evaluate_samples(tcfg, tp.tspec, tp.tprior,
+                              lambda f: t_apply(f, tp.t("bx"), tp.t("tx")), tp.t("y"),
+                              samples, keep_predictions=5, max_metric_samples=10,
+                              frozen_base=torch.as_tensor(frozen))
+    assert sorted(got["metrics"]) == sorted(want["metrics"])
+    for k, v in want["metrics"].items():
+        np.testing.assert_allclose(np.asarray(got["metrics"][k]), np.asarray(v), rtol=1e-5)
+    for k in ("predictions", "mean_prediction"):
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), rtol=1e-5, atol=1e-6)
+    assert got["predictions"].shape == (5, *tp.y.shape)
+    assert sorted(got["diagnostics"]) == sorted(want["diagnostics"])
+    for k, v in want["diagnostics"].items():
+        np.testing.assert_array_equal(np.asarray(got["diagnostics"][k]), np.asarray(v))
+
+
+def test_summarize_np_and_error_metrics_are_bit_equal():
+    """summarize_np (with the rank-dim subset) and the stage-3 error metrics
+    give the JAX package's exact numbers on the same arrays."""
+    rng = np.random.default_rng(23)
+    x = rng.normal(size=(3, 40, 30)).cumsum(1)
+    for kw in ({}, {"rank_dims": 12}, {"rank_normalized": False}):
+        want, got = j_summarize(x, **kw), summarize_np(x, **kw)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]))
+    preds = rng.normal(size=(6, 4, 5 * 9))
+    truth = rng.normal(size=(4, 5 * 9))
+    lp = rng.normal(size=6)
+    for fn, args in ((lambda m: m.error_report(preds, truth, log_probs=lp), ()),
+                     (lambda m: m.error_sigma_correlation(preds, truth, nt=5, nx=9), ())):
+        want, got = fn(jpost), fn(tpost)
+        for k in want:
+            np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]))
+    np.testing.assert_array_equal(tpost.l2_relative_error(preds, truth[None]),
+                                  jpost.l2_relative_error(preds, truth[None]))
+
+
+def test_predictive_metrics_match_jax():
+    """predictive_metrics over stacked predictions (with and without
+    log-probs) and posterior_predictive in chunks: rtol 1e-6 of the JAX
+    functions on the same arrays."""
+    from vihmc_tpu.pipelines import predict as jpred
+    from vihmc_torch.pipelines import predict as tpred
+
+    rng = np.random.default_rng(25)
+    preds = rng.normal(size=(7, 4, 9)).astype(np.float32)
+    y = rng.normal(size=(4, 9)).astype(np.float32)
+    lps = rng.normal(size=7).astype(np.float32)
+    for lp in (None, lps):
+        want = jpred.predictive_metrics(jnp.asarray(preds), jnp.asarray(y),
+                                        None if lp is None else jnp.asarray(lp))
+        got = tpred.predictive_metrics(torch.as_tensor(preds), torch.as_tensor(y),
+                                       None if lp is None else torch.as_tensor(lp))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-6)
+    rows = rng.normal(size=(7, 3)).astype(np.float32)
+    w = rng.normal(size=(3, 5)).astype(np.float32)
+    j_lp, j_pred = jpred.posterior_predictive(
+        lambda r: (jnp.sum(r), r @ jnp.asarray(w)), jnp.asarray(rows), chunk_size=3)
+    t_lp, t_pred = tpred.posterior_predictive(
+        lambda r: (r.sum(-1), r @ torch.as_tensor(w)), torch.as_tensor(rows), chunk_size=3)
+    np.testing.assert_allclose(t_lp.numpy(), np.asarray(j_lp), rtol=1e-6)
+    np.testing.assert_allclose(t_pred.numpy(), np.asarray(j_pred), rtol=1e-6)
+
+
+def test_run_store_layout_matches_jax(tmp_path):
+    """A run directory written by either package loads in the other: arrays
+    as .npy, the config as JSON."""
+    cfg = VIHMCRunConfig(num_samples=7, clip_grad=3.5)
+    a = np.arange(12, dtype=np.float32).reshape(3, 4)
+    st = RunStore(str(tmp_path), uid="port_run")
+    st.save_array("hmc_params", a)
+    st.save_config(cfg)
+    js = JStore.open(str(tmp_path), "port_run")
+    np.testing.assert_array_equal(js.load_array("hmc_params"), a)
+    assert js.load_config() == dataclasses.asdict(cfg)
+    js2 = JStore(str(tmp_path), uid="jax_run")
+    js2.save_array("sample_mse", a[0])
+    js2.save_config(JC.VIHMCRunConfig(num_samples=7, clip_grad=3.5))
+    back = RunStore.open(str(tmp_path), "jax_run")
+    np.testing.assert_array_equal(back.load_array("sample_mse"), a[0])
+    assert back.load_config() == dataclasses.asdict(cfg)
+    with pytest.raises(FileNotFoundError):
+        RunStore.open(str(tmp_path), "missing")
+
+
+def test_vihmc_config_matches_jax():
+    """Every field and default of VIHMCRunConfig, and the derived L and burn."""
+    jf = {f.name: f.default for f in dataclasses.fields(JC.VIHMCRunConfig)}
+    tf = {f.name: f.default for f in dataclasses.fields(VIHMCRunConfig)}
+    assert tf == jf
+    for kw in ({}, {"num_leapfrog": 31}, {"burn": 7, "step_size": 1e-4, "post_std": 0.0214}):
+        j, t = JC.VIHMCRunConfig(**kw), VIHMCRunConfig(**kw)
+        assert (t.L, t.burn_) == (j.L, j.burn_)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("algorithm", "nuts"), ("frozen_policy", "refresh"), ("frozen_policy", "mean"),
+    ("gauss_field", 1.0), ("lowrank_rank", 4), ("adapt_mass", True),
+    ("coarse_stride", 2), ("fn_stride", 2), ("sample_data", True),
+    ("save_vi_trace", True), ("jitter_l", True), ("adapt_step_size", True),
+])
+def test_run_operator_raises_on_unported_settings(field, value):
+    """Settings the port does not run yet raise NotImplementedError before
+    any data is touched."""
+    cfg = dataclasses.replace(VIHMCRunConfig(frozen_policy="draw"), **{field: value})
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tv.run_operator(cfg, DeepONetConfig(), {}, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def tiny_burgers_run():
+    """The tiny Burgers data of tests/test_pipelines.py:35-39 and JAX's
+    run_operator on it with the fused density (for its metric keys)."""
+    from vihmc_tpu.data import get_burgers
+    from vihmc_tpu.models import DeepONetConfig as JCfg
+
+    data = get_burgers(jax.random.key(0), 8, 4, nx=9, nt=5)
+    d = DeepONetConfig(**TINY_DEEPONET_KW).num_params
+    rng = np.random.default_rng(24)
+    arts = {"mu": (0.05 * rng.normal(size=d)).astype(np.float32),
+            "sigma": (0.02 + 0.05 * rng.random(d)).astype(np.float32),
+            "indices": np.sort(rng.choice(d, size=12, replace=False))}
+    cfg_kw = dict(num_samples=12, step_size=1e-3, post_std=0.02, num_chains=2,
+                  num_leapfrog=4, loss="NLL", tau_out=1.0, frozen_policy="draw",
+                  vi_mass=True, clip_grad=13.0 * 12 ** 0.5, jitter_eps=True,
+                  jitter_low_frac=0.5)
+    jout = jv.run_operator(JC.VIHMCRunConfig(**cfg_kw), JCfg(**TINY_DEEPONET_KW), arts,
+                           key=jax.random.key(1), data=data, use_fused=True,
+                           segment_size=6, sample_thin=3)
+    np_data = tuple({k: np.asarray(v) for k, v in s.items()} for s in data)
+    return np_data, arts, cfg_kw, jout
+
+
+@pytest.mark.parametrize("use_gram", [None, False])
+def test_run_operator_end_to_end_on_cpu(tiny_burgers_run, use_gram, monkeypatch, tmp_path):
+    """run_operator(device='cpu', use_fused=True) on the tiny Burgers data,
+    with the Gram field (use_gram None resolves to it) and with autograd
+    through the fused density: finite samples and metrics with JAX's metric
+    keys and sample shape; the fused density is evaluated 1 + 2 * draws times
+    on the Gram path (init, then lp0 and lp1 per draw) and
+    2 + draws * (L + 2) times on the autograd path (each clipped trajectory
+    gradient runs the forward too); the store holds the samples."""
+    data, arts, cfg_kw, jout = tiny_burgers_run
+    calls = []
+    real = tmerge.merge_sums_reference
+
+    def counted(*a):
+        calls.append(1)
+        return real(*a)
+
+    monkeypatch.setattr(tmerge, "merge_sums_reference", counted)
+    cfg = VIHMCRunConfig(**cfg_kw)
+    store = RunStore(str(tmp_path), uid="run")
+    out = tv.run_operator(cfg, DeepONetConfig(**TINY_DEEPONET_KW), arts, data=data,
+                          store=store, use_fused=True, use_gram=use_gram, segment_size=6,
+                          sample_thin=3, device="cpu")
+    draws, n_lf = cfg.num_samples, cfg.L
+    want_calls = 1 + 2 * draws if use_gram is None else 2 + draws * (n_lf + 2)
+    n_eval = len(calls)
+    assert n_eval == want_calls, (n_eval, want_calls)
+    res = out["result"]
+    assert res.samples.shape == np.asarray(jout["result"].samples).shape == (2, 4, 12)
+    assert np.isfinite(res.samples).all()
+    assert 0.0 < res.acceptance_rate <= 1.0
+    assert sorted(out["metrics"]) == sorted(jout["metrics"])
+    assert all(np.isfinite(v).all() for v in out["metrics"].values())
+    assert out["predictions"].shape[1:] == np.asarray(jout["predictions"]).shape[1:]
+    assert np.isfinite(out["ess"]).all()
+    assert set(out["phases_s"]) == {"data_s", "setup_s", "sampling_s", "evaluate_s"}
+    np.testing.assert_array_equal(store.load_array("hmc_params"), res.samples)
+    assert store.load_config()["num_samples"] == draws

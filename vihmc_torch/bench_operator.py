@@ -45,7 +45,7 @@ from vihmc_torch.chains.resume import sample_chains_resumable
 from vihmc_torch.core.device import resolve_device
 from vihmc_torch.core.precision import true_f32
 from vihmc_torch.data.burgers import (STAGE12_ASSET, get_burgers_train,
-                                      load_port_inputs)
+                                      load_port_inputs, load_stage12_artifacts)
 from vihmc_torch.dists.priors import DiagonalGaussianPrior
 from vihmc_torch.hmc.kernel import HMCConfig, clipped_grad_fn
 from vihmc_torch.hmc.metric import (lanczos_eigs, lowrank_from_eigs,
@@ -54,7 +54,8 @@ from vihmc_torch.hmc.subspace import (SubspaceSpec, make_subspace_grad,
                                       make_subspace_log_prob)
 from vihmc_torch.models.deeponet import DeepONetConfig
 from vihmc_torch.ops.gram_merge import make_gram_grad_full
-from vihmc_torch.pipelines.common import (make_fused_paired_subspace_delta,
+from vihmc_torch.pipelines.common import (conditional_warm_start,
+                                          make_fused_paired_subspace_delta,
                                           make_nll_log_likelihood)
 
 CLIP = 600.0          # preconditioned grad-norm clip at 2048 dims (bench.py:55)
@@ -125,8 +126,8 @@ def build_operator_problem(device="cuda", sub_dim: int = SUB_DIM) -> OperatorPro
     """Load the asset and the exported draws, solve the Burgers training data
     on ``device``, and take the top-``sub_dim`` subspace (``bench.py:382``)."""
     dev = resolve_device(device)
-    with np.load(STAGE12_ASSET) as z:
-        mu, sigma, scores = z["mu"], z["sigma"], z["scores"]
+    arts = load_stage12_artifacts()
+    mu, sigma, scores = arts["mu"], arts["sigma"], arts["scores"]
     data = get_burgers_train(dev)
     frozen = load_port_inputs()["frozen_draw"]
     idx = np.sort(np.argsort(-scores)[:sub_dim])
@@ -141,31 +142,6 @@ def build_operator_problem(device="cuda", sub_dim: int = SUB_DIM) -> OperatorPro
         inv_mass_diag=torch.as_tensor(laplace_inv_mass(scores, sigma, idx, n_eff),
                                       device=dev),
         tag=f"{os.path.basename(STAGE12_ASSET)[:-4]}_d{sub_dim}")
-
-
-def conditional_warm_start(grad_fn, aux, q0, inv_mass_diag, n_steps: int,
-                           n_chains: int, generator: torch.Generator,
-                           spread: float = 0.5, lr: float = 0.1):
-    """Chain inits at the conditional's approximate mode (``bench.py:883-922``):
-    ``n_steps`` of Adam (optax defaults b1 0.9, b2 0.999, eps 1e-8) on
-    ``-log p`` in the preconditioned space ``q = q0 + scale z``, then
-    ``spread * scale`` Gaussian jitter per chain. Returns ``(C, d)``."""
-    b1, b2, eps = 0.9, 0.999, 1e-8
-    scale = torch.sqrt(inv_mass_diag)
-    z = torch.zeros_like(q0)[None, :]
-    m = torch.zeros_like(z)
-    v = torch.zeros_like(z)
-    for t in range(1, n_steps + 1):
-        g = -(scale * grad_fn(q0 + scale * z, aux))   # gradient of -log p in z
-        m = (1 - b1) * g + b1 * m
-        v = (1 - b2) * g * g + b2 * v
-        m_hat = m / (1 - b1 ** t)
-        v_hat = v / (1 - b2 ** t)
-        z = z - lr * (m_hat / (torch.sqrt(v_hat) + eps))
-    q_star = q0 + scale * z[0]
-    jitter = spread * scale * torch.randn((n_chains, q0.shape[0]), generator=generator,
-                                          device=q0.device)
-    return q_star[None, :] + jitter
 
 
 def lowrank_metric(log_prob, aux, q_center, inv_mass_diag, rank: int,

@@ -1,10 +1,11 @@
-"""Host-side MCMC diagnostics (numpy): pooled ESS, bulk ESS, rank R-hat.
+"""Host-side MCMC diagnostics (numpy): pooled, bulk and tail ESS, R-hat.
 
 Exact copies of the numpy functions of ``vihmc_tpu/chains/diagnostics.py``
 (``effective_sample_size_np`` :74, ``_rank_normalize_np``, ``ess_bulk_np``
-:141, ``rhat_rank_np`` :166 and the ``potential_scale_reduction_np`` it
-calls), so the port reads its chains with the same estimator as the JAX
-package. They import neither JAX nor torch.
+:141, ``ess_tail_np`` :151, ``rhat_rank_np`` :166,
+``potential_scale_reduction_np`` :179 and ``summarize_np`` :207), so the
+port reads its chains with the same estimators as the JAX package. They
+import neither JAX nor torch.
 """
 
 from __future__ import annotations
@@ -72,6 +73,17 @@ def ess_bulk_np(samples):
     return effective_sample_size_np(_rank_normalize_np(np.asarray(samples)))
 
 
+def ess_tail_np(samples, prob: float = 0.05):
+    """Rank-normalized tail ESS: min over the ``prob`` and ``1-prob``
+    quantile-indicator ESSs (Vehtari et al. 2021 section 4.3)."""
+    x = np.asarray(samples)
+    lo = x <= np.quantile(x, prob, axis=(0, 1), keepdims=True)
+    hi = x <= np.quantile(x, 1.0 - prob, axis=(0, 1), keepdims=True)
+    ess_lo = effective_sample_size_np(_rank_normalize_np(lo.astype(np.float64)))
+    ess_hi = effective_sample_size_np(_rank_normalize_np(hi.astype(np.float64)))
+    return np.minimum(ess_lo, ess_hi)
+
+
 def rhat_rank_np(samples):
     """Rank-normalized split-R-hat, max of the bulk and folded variants."""
     x = np.asarray(samples)
@@ -95,3 +107,31 @@ def potential_scale_reduction_np(samples):
     var_plus = (half - 1) / half * w + b / half
     with np.errstate(divide="ignore", invalid="ignore"):
         return np.sqrt(var_plus / w)  # NaN for constant dims, as in Stan
+
+
+def summarize_np(samples, rank_normalized: bool = True,
+                 rank_dims: int = 16384) -> dict:
+    """Summary over (C, S, D) samples: mean, std, split-R-hat, pooled ESS
+    and, with ``rank_normalized``, ``ess_bulk``, ``ess_tail``, ``r_hat_rank``
+    (on a fixed random subset of ``rank_dims`` dims when D is larger) and
+    ``tau_floor_frac``, the share of dims where the raw tau hit its floor."""
+    x = np.asarray(samples)
+    ess, raw_tau, tau_floor = effective_sample_size_np(x, return_tau=True)
+    out = {
+        "mean": x.mean(axis=(0, 1)),
+        "std": x.std(axis=(0, 1)),
+        "r_hat": potential_scale_reduction_np(x),
+        "ess": ess,
+    }
+    if rank_normalized:
+        xr = x
+        if x.shape[2] > rank_dims:
+            sub = np.random.default_rng(0).choice(x.shape[2], rank_dims,
+                                                  replace=False)
+            xr = x[:, :, np.sort(sub)]
+            out["rank_dims_subsampled"] = int(rank_dims)
+        out["ess_bulk"] = ess_bulk_np(xr)
+        out["ess_tail"] = ess_tail_np(xr)
+        out["r_hat_rank"] = rhat_rank_np(xr)
+        out["tau_floor_frac"] = float(np.mean(raw_tau < tau_floor))
+    return out

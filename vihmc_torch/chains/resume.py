@@ -2,10 +2,13 @@
 
 Counterpart of ``sample_chains_resumable`` in ``vihmc_tpu/chains/resume.py``
 (:63-176), without the checkpoint/resume half: ``config.num_samples`` draws
-run in segments of ``segment_size``; within a segment every draw advances all
-chains with one call of the transition, the kept positions (every
-``thin``-th) stay on the device, and the segment's samples and per-draw info
-arrays go to the host once, at its end. Each segment draws its random numbers
+run in segments of ``segment_size``, with the transition paths of
+:func:`vihmc_torch.hmc.kernel.make_kernel` (paired or unpaired MH test,
+fixed or adapted step, gradient-only or autograd trajectory); within a
+segment every draw advances all chains with one call of the transition, the
+kept positions (every ``thin``-th) stay on the device, and the segment's
+samples and per-draw info arrays go to the host once, at its end. Each
+segment draws its random numbers
 from a generator seeded with ``(seed, segment index)``, so a later resume can
 replay a segment exactly. Resume from ``torch.save`` state is not ported yet.
 """
@@ -38,6 +41,10 @@ class SampleResult:
     def acceptance_rate(self) -> float:
         return float(np.mean(self.accepted))
 
+    @property
+    def num_divergent(self) -> int:
+        return int(np.sum(self.divergent))
+
 
 def segment_generator(device, seed: int, segment: int) -> torch.Generator:
     gen = torch.Generator(device=device)
@@ -47,10 +54,14 @@ def segment_generator(device, seed: int, segment: int) -> torch.Generator:
 
 def sample_chains_resumable(log_prob_fn: Callable, init_positions: torch.Tensor,
                             config: HMCConfig, segment_size: int, inv_mass,
-                            aux: torch.Tensor, grad_fn: Callable,
-                            delta_fn: Callable, thin: int = 1, seed: int = 0,
+                            aux: torch.Tensor, grad_fn: Optional[Callable] = None,
+                            delta_fn: Optional[Callable] = None, thin: int = 1,
+                            seed: int = 0,
                             progress: Optional[Callable] = None) -> SampleResult:
     """Run ``config.num_samples`` draws of all chains (see module doc).
+
+    ``grad_fn`` None: the trajectory differentiates ``log_prob_fn`` by
+    autograd; ``delta_fn`` None: the unpaired MH test on ``log_prob_fn``.
 
     ``progress(segment, n_segments, state)`` is called after each segment,
     once its samples are on the host.
@@ -61,7 +72,7 @@ def sample_chains_resumable(log_prob_fn: Callable, init_positions: torch.Tensor,
     if thin < 1 or segment_size % thin:
         raise ValueError("thin must divide segment_size")
     dev = init_positions.device
-    kernel = make_kernel(config, inv_mass, grad_fn, delta_fn)
+    kernel = make_kernel(config, inv_mass, grad_fn, delta_fn, log_prob_fn)
     state = init_state(log_prob_fn, init_positions, config, aux, grad_fn)
 
     collected = []

@@ -91,6 +91,13 @@ def load_port_inputs(path: str = PORT_INPUTS) -> dict:
         return {k: z[k] for k in z.files}
 
 
+def load_stage12_artifacts(path: str = STAGE12_ASSET) -> dict:
+    """``mu``, ``sigma``, ``indices`` (the 90 % set) and ``scores`` of the
+    stage-1/2 asset, as numpy arrays."""
+    with np.load(path) as z:
+        return {k: z[k] for k in ("mu", "sigma", "indices", "scores")}
+
+
 def get_burgers_train(device="cuda", n_rows=None, path: str = PORT_INPUTS) -> dict:
     """The operator row's training split (rows ``[0:n_train]``), solved on ``device``.
 
@@ -102,3 +109,25 @@ def get_burgers_train(device="cuda", n_rows=None, path: str = PORT_INPUTS) -> di
     n = n_train if n_rows is None else min(int(n_rows), n_train)
     u0 = torch.as_tensor(z["u0"][:n], device=dev)
     return burgers_dataset(u0, nx=int(z["nx"]), nt=int(z["nt"]))
+
+
+def get_burgers(device="cuda", n_train=None, n_valid=None, path: str = PORT_INPUTS):
+    """``(train, valid)`` splits solved on ``device`` from the exported ``u0``:
+    rows ``[0:n_train]`` and ``[n_train:n_train + n_valid]``, the reference
+    loader's slicing (``get_burgers`` of the JAX package). Defaults: the
+    export's ``n_train`` (1000) and ``n_valid`` (200)."""
+    dev = resolve_device(device)
+    z = load_port_inputs(path)
+    n_train = int(z["n_train"]) if n_train is None else int(n_train)
+    n_valid = int(z["n_valid"]) if n_valid is None else int(n_valid)
+    if n_train + n_valid > z["u0"].shape[0]:
+        raise ValueError(f"{n_train} + {n_valid} rows asked, {z['u0'].shape[0]} exported")
+    u0 = torch.as_tensor(z["u0"][:n_train + n_valid], device=dev)
+    data = burgers_dataset(u0, nx=int(z["nx"]), nt=int(z["nt"]))
+
+    def rows(lo, hi):
+        return {"branch_in": data["branch_in"][lo:hi].contiguous(),
+                "trunk_in": data["trunk_in"],
+                "solution": data["solution"][lo:hi].contiguous()}
+
+    return rows(0, n_train), rows(n_train, n_train + n_valid)

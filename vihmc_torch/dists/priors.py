@@ -1,7 +1,8 @@
-"""Diagonal Gaussian prior over chain-batched flat vectors.
+"""Gaussian priors over chain-batched flat vectors.
 
-Counterpart of ``DiagonalGaussianPrior`` in ``vihmc_tpu/dists/priors.py``
-(same math as ``torch.distributions.Normal.log_prob``, summed).
+Counterpart of ``IsotropicGaussianPrior`` and ``DiagonalGaussianPrior`` in
+``vihmc_tpu/dists/priors.py`` (same math as
+``torch.distributions.Normal.log_prob``, summed).
 """
 
 from __future__ import annotations
@@ -12,6 +13,22 @@ import math
 import torch
 
 _LOG_2PI = math.log(2 * math.pi)
+
+
+@dataclasses.dataclass
+class IsotropicGaussianPrior:
+    """``N(0, scale^2 I)`` -- the subspace prior when ``load_prior`` is off."""
+
+    scale: float = 1.0
+
+    def log_prob(self, q: torch.Tensor) -> torch.Tensor:
+        """``(C, d) -> (C,)``."""
+        z = q / self.scale
+        return (-0.5 * z * z - math.log(self.scale) - 0.5 * _LOG_2PI).sum(-1)
+
+    def grad(self, q: torch.Tensor) -> torch.Tensor:
+        """d log_prob / dq, ``(C, d)``."""
+        return -q / (self.scale * self.scale)
 
 
 @dataclasses.dataclass

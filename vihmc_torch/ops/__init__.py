@@ -1,16 +1,24 @@
-"""Merge reductions of the DeepONet likelihood (counterpart of ``vihmc_tpu.ops``).
+"""Merge reductions of the DeepONet likelihood and the leapfrog update
+(counterpart of ``vihmc_tpu.ops``).
 
-``deeponet_merge.paired_sums`` is the hand-written CUDA kernel of this slice;
-``gram_merge`` is plain matmul work.
+The hand-written CUDA kernels: ``deeponet_merge.paired_sums`` and
+``deeponet_merge.merge_sums`` (behind ``fused_merge_nll``), and
+``leapfrog.fused_leapfrog_update``; ``gram_merge`` is plain matmul work.
 """
 
-from vihmc_torch.ops.deeponet_merge import (fused_paired_delta,
+from vihmc_torch.ops.deeponet_merge import (fused_merge_nll,
+                                            fused_paired_delta, merge_nll_reference,
+                                            merge_sums, merge_sums_reference,
                                             paired_delta_reference,
                                             paired_sums,
                                             paired_sums_reference)
 from vihmc_torch.ops.gram_merge import (make_gram_grad_full,
                                         merge_nll_gram_cotangents)
+from vihmc_torch.ops.leapfrog import (fused_leapfrog_update,
+                                      leapfrog_update_reference)
 
-__all__ = ["fused_paired_delta", "paired_delta_reference", "paired_sums",
-           "paired_sums_reference", "make_gram_grad_full",
-           "merge_nll_gram_cotangents"]
+__all__ = ["fused_merge_nll", "fused_paired_delta", "merge_nll_reference",
+           "merge_sums", "merge_sums_reference", "paired_delta_reference",
+           "paired_sums", "paired_sums_reference", "make_gram_grad_full",
+           "merge_nll_gram_cotangents", "fused_leapfrog_update",
+           "leapfrog_update_reference"]

@@ -29,7 +29,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"
                            "-Xptxas", "-v"]
 
 #: kernel library name -> its source under csrc/
-SOURCES = {"paired_sums": "paired_sums.cu"}
+SOURCES = {"paired_sums": "paired_sums.cu", "merge_sums": "merge_sums.cu",
+           "leapfrog_update": "leapfrog_update.cu"}
 
 #: ctypes signatures of each library's C functions
 _SIGNATURES = {
@@ -37,6 +38,16 @@ _SIGNATURES = {
         "vihmc_paired_sums_scratch": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
         "vihmc_paired_sums": (ctypes.c_int, [ctypes.c_void_p] * 7
                               + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    },
+    "merge_sums": {
+        "vihmc_merge_sums_scratch": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
+        "vihmc_merge_sums": (ctypes.c_int, [ctypes.c_void_p] * 5
+                             + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    },
+    "leapfrog_update": {
+        "vihmc_leapfrog_update": (ctypes.c_int, [ctypes.c_void_p] * 6
+                                  + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     },
 }
 

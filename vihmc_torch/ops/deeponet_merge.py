@@ -1,8 +1,22 @@
-"""Fused paired MH log-density difference of the DeepONet merge.
+"""Fused DeepONet merge + Gaussian NLL, and the fused paired MH delta.
 
-Counterpart of the paired half of ``vihmc_tpu/ops/deeponet_merge.py``
-(``fused_paired_delta``, ``paired_delta_reference``). The MH test of the
-operator row needs, per chain,
+Counterpart of ``vihmc_tpu/ops/deeponet_merge.py``, both halves.
+
+**The merge half** (``merge_nll_reference``, ``fused_merge_nll``, :51-238).
+The exact density of the unpaired MH test is
+
+    ll = -sum 0.5 (log var + (bout @ tout^T + b - y)^2 / var)
+
+over the (B, P) grid. :func:`merge_sums` computes ``S1 = sum m (m - 2 y)``
+and ``S2 = sum m`` of ``m = bout @ tout^T`` in one CUDA kernel
+(``csrc/merge_sums.cu``) for all chains, without writing the (B, P) product,
+and :func:`fused_merge_nll` closes the scalar-bias algebra in f64:
+``SSE = S1 + sum y^2 + 2 b (S2 - sum y) + N b^2``. Its backward is the
+composed VJP of the JAX ``_bwd``: the prediction is rematerialized with
+``torch.matmul`` (XLA in JAX, not Pallas). :func:`merge_sums_reference` is
+the plain version.
+
+**The paired half.** The MH test of the operator row needs, per chain,
 
     ll(q1) - ll(q0) = -0.5/var * sum (e1 - e0)(e1 + e0),   e_i = m_i + b_i - y,
 
@@ -14,8 +28,8 @@ side as torch ops on the device. The MH-critical sums D and Bd add SMALL
 per-cell differences, so the f32 error stays far below a nat.
 
 :func:`paired_sums_reference` is the plain version: it materializes both
-products per chain. CPU tensors take it; CUDA tensors launch the kernel or
-raise -- there is no fallback.
+products per chain. For both kernels, CPU tensors take the plain version;
+CUDA tensors launch the kernel or raise -- there is no fallback.
 """
 
 from __future__ import annotations
@@ -30,6 +44,132 @@ from vihmc_torch.ops import cuda_build
 
 GNLL_EPS = 1e-6
 N_SUMS = 5  # D, Bd, Sm, Q1, C1
+N_MERGE_SUMS = 2  # S1, S2
+
+
+def _check_merge_inputs(bout, tout, y):
+    ts = (bout, tout, y)
+    if any(not isinstance(t, torch.Tensor) for t in ts):
+        raise TypeError("merge_sums takes torch tensors")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError(f"merge_sums takes float32 tensors, got {[t.dtype for t in ts]}")
+    if any(t.device != bout.device for t in ts):
+        raise ValueError("merge_sums inputs must share one device")
+    if bout.ndim != 3 or tout.ndim != 3 or y.ndim != 2:
+        raise ValueError("merge_sums takes bout (C, B, K), tout (C, P, K), y (B, P)")
+    c, b, k = bout.shape
+    p = tout.shape[1]
+    if tuple(tout.shape) != (c, p, k) or tuple(y.shape) != (b, p):
+        raise ValueError(f"shape mismatch: bout {tuple(bout.shape)}, tout "
+                         f"{tuple(tout.shape)}, y {tuple(y.shape)}")
+    if min(c, b, p, k) < 1:
+        raise ValueError("merge_sums needs non-empty inputs")
+    if any(not t.is_contiguous() for t in ts):
+        raise ValueError("merge_sums takes contiguous tensors")
+    return c, b, p, k
+
+
+def merge_sums_reference(bout, tout, y) -> torch.Tensor:
+    """Plain version: ``(C, 2)`` f64 sums ``[S1, S2]``; the product and each
+    cell's term in IEEE f32, the sums in f64."""
+    _check_merge_inputs(bout, tout, y)
+    rows = []
+    with true_f32():
+        for c in range(bout.shape[0]):
+            m = bout[c] @ tout[c].T
+            rows.append(torch.stack([(m * (m - 2.0 * y)).sum(dtype=torch.float64),
+                                     m.sum(dtype=torch.float64)]))
+    return torch.stack(rows)
+
+
+def merge_sums(bout, tout, y) -> torch.Tensor:
+    """``(C, 2)`` f64 sums ``[S1, S2]`` per chain (see module doc).
+
+    CUDA tensors: one launch of the hand-written kernel for all chains (plus
+    its fixed-order reduction), counted in ``merge_sums.launches``. CPU
+    tensors: :func:`merge_sums_reference`. Anything else raises. The result
+    is f64, not the f32 of JAX: ``S1`` is about ``-sum y^2`` (~1.7e6) at
+    reference scale, where rounding it to f32 alone moves ll by up to 0.03
+    nats, and f32 accumulation across tiles by more.
+    """
+    c, b, p, k = _check_merge_inputs(bout, tout, y)
+    dev = bout.device
+    if dev.type == "cpu":
+        return merge_sums_reference(bout, tout, y)
+    if dev.type != "cuda":
+        raise ValueError(f"merge_sums runs on CUDA or CPU tensors, not {dev}")
+    lib = cuda_build.load("merge_sums")
+    with torch.cuda.device(dev):
+        scratch = torch.empty((c, lib.vihmc_merge_sums_scratch(b, p)),
+                              dtype=torch.float64, device=dev)
+        out = torch.empty((c, N_MERGE_SUMS), dtype=torch.float64, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.vihmc_merge_sums(bout.data_ptr(), tout.data_ptr(), y.data_ptr(),
+                                   scratch.data_ptr(), out.data_ptr(), c, b, p, k,
+                                   ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"merge_sums kernel launch failed: CUDA error {err}")
+    merge_sums.launches += 1
+    return out
+
+
+merge_sums.launches = 0
+
+
+def merge_nll_reference(bout, tout, bias, y, tau) -> torch.Tensor:
+    """Materialized reference, per chain: ``-sum gaussian_nll(bout @ tout^T +
+    bias, y, tau)``; ``bout`` (C, B, K), ``tout`` (C, P, K), ``bias`` (C,) ->
+    (C,). Differentiable by autograd."""
+    var = max(float(tau), GNLL_EPS)
+    with true_f32():
+        pred = torch.matmul(bout, tout.transpose(-1, -2)) + bias[:, None, None]
+    return -(0.5 * (math.log(var) + (pred - y) ** 2 / var)).flatten(1).sum(-1)
+
+
+class _FusedMergeNLL(torch.autograd.Function):
+    """Forward: one :func:`merge_sums` launch and the f64 closure (JAX
+    ``_fused_nll_call`` :176-186). Backward: the composed VJP of JAX ``_bwd``
+    (:194-212) with ``pred`` rematerialized in IEEE f32."""
+
+    @staticmethod
+    def forward(ctx, bout, tout, bias, y, tau, sum_y, sum_y2):
+        n = y.shape[0] * y.shape[1]
+        var = max(float(tau), GNLL_EPS)
+        s1, s2 = merge_sums(bout, tout, y).unbind(-1)
+        b = bias.double()
+        sse = s1 + sum_y2 + 2.0 * b * (s2 - sum_y) + n * b * b
+        ctx.save_for_backward(bout, tout, bias, y)
+        ctx.var, ctx.sum_y, ctx.n = var, sum_y, n
+        return (-0.5 * (n * math.log(var) + sse / var)).float()
+
+    @staticmethod
+    def backward(ctx, ct):
+        bout, tout, bias, y = ctx.saved_tensors
+        var = ctx.var
+        with true_f32():
+            pred = torch.matmul(bout, tout.transpose(-1, -2)) + bias[:, None, None]
+            dpred = ct[:, None, None] * (-(pred - y) / var)
+            g_bout = torch.matmul(dpred, tout)
+            g_tout = torch.matmul(dpred.transpose(-1, -2), bout)
+        # closed-form bias gradient: S2 = sum(pred - b) taken per cell, which
+        # avoids the cancellation of sum(pred) - N b over large grids
+        s2 = (pred - bias[:, None, None]).flatten(1).sum(-1)
+        g_bias = ct * (-(s2 - ctx.sum_y.to(s2.dtype) + ctx.n * bias) / var)
+        return g_bout, g_tout, g_bias, None, None, None, None
+
+
+def fused_merge_nll(bout, tout, bias, y, tau, y_sum_pair=None) -> torch.Tensor:
+    """``-sum gaussian_nll(bout @ tout^T + bias, y, tau)`` per chain, ``(C,)``
+    f32, without materializing the (B, P) prediction in the forward.
+
+    ``bout`` (C, B, K), ``tout`` (C, P, K), ``bias`` (C,), ``y`` (B, P), all
+    f32 on one device; differentiable in ``bout``, ``tout`` and ``bias``.
+    ``y_sum_pair`` is :func:`y_sums` of ``y``, computed once by the caller
+    (recomputed here when omitted). The variance is ``max(tau, 1e-6)``.
+    """
+    sum_y, sum_y2 = y_sums(y) if y_sum_pair is None else y_sum_pair
+    return _FusedMergeNLL.apply(bout.contiguous(), tout.contiguous(), bias, y,
+                                float(tau), sum_y, sum_y2)
 
 
 def _check_inputs(bout1, tout1, bout0, tout0, y):

@@ -1,9 +1,12 @@
-"""Flat-vector DeepONet closures and the paired MH delta evaluators.
+"""Flat-vector DeepONet closures, log-densities and the MH delta evaluators.
 
 Counterpart of ``vihmc_tpu/pipelines/common.py``: ``make_flat_deeponet``
-(:50-66), ``make_paired_subspace_delta`` (:154-192, the composed plain path)
-and ``make_fused_paired_subspace_delta`` (:195-226, the kernel path the
-operator row runs on the card). Every closure takes chain-batched tensors:
+(:50-66), ``make_deeponet_nll_log_posterior`` (:98-128, the fused merge-NLL
+density of the stage-3 pipeline), ``make_paired_subspace_delta`` (:154-192,
+the composed plain path) and ``make_fused_paired_subspace_delta`` (:195-226,
+the kernel path the operator row runs on the card), plus the preconditioned
+Adam warm start both operator entry points share (``bench.py:883-922``,
+``pipelines/vi_hmc.py:364-406``). Every closure takes chain-batched tensors:
 flat ``(C, D)``, subspace ``(C, d)``; the frozen vector ``aux`` is ``(D,)``.
 """
 
@@ -18,7 +21,8 @@ from vihmc_torch.core.ravel import scatter_subspace
 from vihmc_torch.dists.likelihoods import GNLL_EPS, nll_log_likelihood
 from vihmc_torch.models.deeponet import (DeepONetConfig, deeponet_apply,
                                          deeponet_features, unravel_deeponet)
-from vihmc_torch.ops.deeponet_merge import fused_paired_delta, y_sums
+from vihmc_torch.ops.deeponet_merge import (fused_merge_nll, fused_paired_delta,
+                                            merge_nll_reference, y_sums)
 
 
 def make_flat_deeponet(cfg: DeepONetConfig, compute_dtype=None):
@@ -37,6 +41,62 @@ def make_flat_deeponet(cfg: DeepONetConfig, compute_dtype=None):
         return out.float()
 
     return apply_flat
+
+
+def make_deeponet_nll_log_posterior(cfg: DeepONetConfig, branch_x, trunk_x, y,
+                                    tau_var: float, prior=None, use_fused: bool = True):
+    """``log_prob(flat (C, D)) -> (C,)``: the DeepONet Gaussian-NLL
+    log-likelihood (plus ``prior.log_prob(flat)`` when given) through
+    :func:`~vihmc_torch.ops.deeponet_merge.fused_merge_nll` -- one
+    ``merge_sums`` launch for all chains on the card, the (B, P) prediction
+    never materialized in the forward -- or, with ``use_fused=False``,
+    through the materialized ``merge_nll_reference``. The feature stacks run
+    in IEEE f32. Differentiable by autograd. (The JAX function also returns
+    an initial flat vector and its unravel, which the port does not need.)
+    """
+    tau = float(tau_var)
+    y = y.contiguous()
+    sums_y = y_sums(y)
+
+    def log_prob(flat):
+        params = unravel_deeponet(cfg, flat)
+        with true_f32():
+            bout, tout = deeponet_features(cfg, params, branch_x, trunk_x)
+        if use_fused:
+            ll = fused_merge_nll(bout, tout, params["b"], y, tau, y_sum_pair=sums_y)
+        else:
+            ll = merge_nll_reference(bout, tout, params["b"], y, tau)
+        if prior is not None:
+            ll = ll + prior.log_prob(flat)
+        return ll
+
+    return log_prob
+
+
+def conditional_warm_start(grad_fn, aux, q0, inv_mass_diag, n_steps: int,
+                           n_chains: int, generator: torch.Generator,
+                           spread: float = 0.5, lr: float = 0.1):
+    """Chain inits at the conditional's approximate mode: ``n_steps`` of Adam
+    (optax defaults b1 0.9, b2 0.999, eps 1e-8) on ``-log p`` in the
+    preconditioned space ``q = q0 + scale z``, ``scale = sqrt(inv_mass_diag)``,
+    then ``spread * scale`` Gaussian jitter per chain. Returns ``(C, d)``."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    scale = torch.sqrt(torch.as_tensor(inv_mass_diag, dtype=q0.dtype, device=q0.device)
+                       * torch.ones_like(q0))
+    z = torch.zeros_like(q0)[None, :]
+    m = torch.zeros_like(z)
+    v = torch.zeros_like(z)
+    for t in range(1, n_steps + 1):
+        g = -(scale * grad_fn(q0 + scale * z, aux))   # gradient of -log p in z
+        m = (1 - b1) * g + b1 * m
+        v = (1 - b2) * g * g + b2 * v
+        m_hat = m / (1 - b1 ** t)
+        v_hat = v / (1 - b2 ** t)
+        z = z - lr * (m_hat / (torch.sqrt(v_hat) + eps))
+    q_star = q0 + scale * z[0]
+    jitter = spread * scale * torch.randn((n_chains, q0.shape[0]), generator=generator,
+                                          device=q0.device)
+    return q_star[None, :] + jitter
 
 
 def make_paired_subspace_delta(apply_flat, branch_x, trunk_x, y, tau_var,
