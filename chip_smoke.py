@@ -10,7 +10,10 @@ Phases, each printed with its wall time:
 2. ``paired_sums`` against its plain PyTorch version on the card, at a ragged
    shape and at the operator row's shape, on real features at q0 and at q1
    one leapfrog trajectory away, with a float64 evaluation as a third
-   reference; the kernel's time beside its bound and the plain version's;
+   reference (at the main shape the kernel's Delta ll error against float64
+   may be at most twice the plain version's plus 1e-3 nats); the kernel's
+   time beside both bounds (f32 FMA, and the split tensor-core one of six
+   bf16 products) and the plain version's;
 3. the operator row at full width through ``run_operator_row`` (reference
    DeepONet, B = 1000 x P = 10,201, 2048-dim subspace, 48 chains, L = 4,
    bf16 Gram trajectory gradients, the fused paired delta, a low-rank
@@ -24,8 +27,10 @@ Phases, each printed with its wall time:
    B = 1000, P = 10,201, K = 100) on real features at the VI mean and one
    L = 31 trajectory from it, with a float64 evaluation; the ll of
    ``fused_merge_nll`` and its gradient against autograd of the plain f32
-   ``merge_nll_reference``; ``fused_leapfrog_update`` at (16, 81,131); each
-   kernel's time beside its bound and its plain version's;
+   ``merge_nll_reference`` (at the stage-3 shape the ll's error against
+   float64 may be at most twice the plain version's plus 1e-3 nats);
+   ``fused_leapfrog_update`` at (16, 81,131); each kernel's time beside its
+   bounds and its plain version's;
 6. the stage-3 operator pipeline at full width through ``run_stage3``
    (reference DeepONet, the 81,131-dim 90 % subspace, 16 chains, L = 31,
    the f32 Gram trajectory field, the fused merge-NLL density, validation
@@ -79,7 +84,11 @@ from vihmc_torch.pipelines.vi_hmc import (build_subspace_posterior, run_stage3,
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+SPLIT_PRODUCTS = 6   # bf16 part products per f32 product in the merge kernels
+F64_ERR_FACTOR = 2.0  # kernel's error vs float64 <= this x the plain version's + F64_ERR_NATS
+F64_ERR_NATS = 1e-3
 DLL_ATOL = 1e-2      # nats: the paired form's stated float error (pipelines/common.py:165-166)
 LP1_RTOL = 1e-5
 BURGERS_ATOL = 1e-4  # f32 pseudo-spectral solve, 2000 steps, |u| <= ~3.4: cuFFT vs XLA rounding
@@ -151,10 +160,21 @@ def time_device(label: str, fn, reps: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     """``(ms, 'operations' | 'bytes')``: the larger of the two times."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def split_tc_ms(product_flops: float, nbytes: float) -> float:
+    """The split tensor-core bound: six bf16 part products per f32 product at
+    the dense bf16 peak, or the bytes if they take longer."""
+    return bound(SPLIT_PRODUCTS * product_flops, nbytes, PEAK_BF16_FLOPS)[0]
+
+
+def bound_line(ms: float, f32_ms: float, tc_ms: float) -> str:
+    return (f"bound f32 FMA {f32_ms:.3f} ms ({100 * f32_ms / ms:.1f} % of it reached), split "
+            f"tensor core {tc_ms:.3f} ms ({100 * tc_ms / ms:.1f} %)")
 
 
 def paired_sums_f64(bout1, tout1, bout0, tout0, y) -> torch.Tensor:
@@ -170,15 +190,19 @@ def paired_sums_f64(bout1, tout1, bout0, tout0, y) -> torch.Tensor:
 
 
 def paired_sums_bound_ms(c, b, p, k):
-    # two products + the epilogue; each input read once, the sums written once
-    return bound(4.0 * c * b * p * k + 12.0 * c * b * p,
-                 4.0 * (2 * c * b * k + 2 * c * p * k + b * p + 5 * c))
+    """``(f32 ms, bound_by, split tensor-core ms)``: two products + the
+    epilogue; each input read once, the sums written once."""
+    nbytes = 4.0 * (2 * c * b * k + 2 * c * p * k + b * p + 5 * c)
+    f32_ms, by = bound(4.0 * c * b * p * k + 12.0 * c * b * p, nbytes)
+    return f32_ms, by, split_tc_ms(4.0 * c * b * p * k, nbytes)
 
 
 def merge_sums_bound_ms(c, b, p, k):
-    # the product + the epilogue (m - 2y, the product, two adds)
-    return bound(2.0 * c * b * p * k + 4.0 * c * b * p,
-                 4.0 * (c * b * k + c * p * k + b * p) + 8.0 * 2 * c)
+    """``(f32 ms, bound_by, split tensor-core ms)``: the product + the
+    epilogue (m - 2y, the product, two adds)."""
+    nbytes = 4.0 * (c * b * k + c * p * k + b * p) + 8.0 * 2 * c
+    f32_ms, by = bound(2.0 * c * b * p * k + 4.0 * c * b * p, nbytes)
+    return f32_ms, by, split_tc_ms(2.0 * c * b * p * k, nbytes)
 
 
 def leapfrog_bound_ms(n, d_im):
@@ -186,8 +210,10 @@ def leapfrog_bound_ms(n, d_im):
     return bound(5.0 * n, 4.0 * (5 * n + d_im))
 
 
-def compare_paired(label, feats, biases, y, tau=1.0):
-    """Kernel vs plain vs f64 on one input set; returns the kernel's max |dDll|."""
+def compare_paired(label, feats, biases, y, tau=1.0, main=False):
+    """Kernel vs plain vs f64 on one input set; returns the kernel's max |dDll|
+    against the plain version. ``main``: also hold the kernel's error against
+    float64 to twice the plain version's plus 1e-3 nats."""
     bout1, tout1, bout0, tout0 = feats
     b1, b0 = biases
     c, b, k = bout1.shape
@@ -209,10 +235,14 @@ def compare_paired(label, feats, biases, y, tau=1.0):
               f"kernel-f64 max abs {ad64:.4g}")
     err_dll = (d_k.double() - d_p.double()).abs().max().item()
     err_lp1 = ((lp_k.double() - lp_p.double()).abs() / lp_p.double().abs()).max().item()
+    err_k64 = (d_k.double() - d_64.double()).abs().max().item()
+    err_p64 = (d_p.double() - d_64.double()).abs().max().item()
     print(f"  {label} dll: kernel-plain max abs {err_dll:.4g} nats, kernel-f64 "
-          f"{(d_k.double() - d_64.double()).abs().max().item():.4g}, plain-f64 "
-          f"{(d_p.double() - d_64.double()).abs().max().item():.4g} "
-          f"(|dll| up to {d_64.abs().max().item():.4g})")
+          f"{err_k64:.4g}, plain-f64 {err_p64:.4g} (|dll| up to {d_64.abs().max().item():.4g})")
+    if main:
+        check(err_k64 <= F64_ERR_FACTOR * err_p64 + F64_ERR_NATS,
+              f"{label}: dll kernel-f64 {err_k64} > {F64_ERR_FACTOR} x plain-f64 {err_p64} + "
+              f"{F64_ERR_NATS} nats")
     print(f"  {label} lp1: kernel-plain max rel {err_lp1:.3g}, kernel-f64 rel "
           f"{((lp_k.double() - lp_64.double()).abs() / lp_64.abs()).max().item():.3g}")
     check(bool(torch.isfinite(s_k).all()), f"{label}: non-finite kernel sums")
@@ -237,9 +267,10 @@ def merge_f64(bout, tout, bias, y, tau):
     return torch.stack(s), torch.stack(mag), torch.stack(ll), torch.stack(ll_mag)
 
 
-def compare_merge(label, bout, tout, bias, y, tau=1.0):
+def compare_merge(label, bout, tout, bias, y, tau=1.0, main=False):
     """merge_sums and fused_merge_nll vs plain vs f64; returns the max
-    |ll kernel - ll plain| in nats."""
+    |ll kernel - ll plain| in nats. ``main``: also hold the ll's error against
+    float64 to twice the plain version's plus 1e-3 nats."""
     s_k = merge_sums(bout, tout, y)
     torch.cuda.synchronize()
     s_p = merge_sums_reference(bout, tout, y)
@@ -265,6 +296,11 @@ def compare_merge(label, bout, tout, bias, y, tau=1.0):
     check(bool((err_64 <= MERGE_RTOL_MAG * ll_mag).all()),
           f"{label}: ll kernel-f64 {err_64.max().item()} beyond {MERGE_RTOL_MAG} of "
           f"its terms' magnitude")
+    if main:
+        err_p64 = (ll_p.double() - ll_64).abs().max().item()
+        check(err_64.max().item() <= F64_ERR_FACTOR * err_p64 + F64_ERR_NATS,
+              f"{label}: ll kernel-f64 {err_64.max().item()} > {F64_ERR_FACTOR} x plain-f64 "
+              f"{err_p64} + {F64_ERR_NATS} nats")
     return err_p
 
 
@@ -304,7 +340,7 @@ def stage3_kernels(dev, train, arts, reps):
             compare_merge("ragged C=3 B=130 P=301 K=12", bo[:3, :130, :12].contiguous(),
                           to[:3, :301, :12].contiguous(), b[:3], y[:130, :301].contiguous())
         err = max(err, compare_merge(f"{name} C={c} B={bo.shape[1]} P={to.shape[1]} "
-                                     f"K={bo.shape[2]}", bo, to, b, y))
+                                     f"K={bo.shape[2]}", bo, to, b, y, main=True))
     # the gradient against autograd of the plain f32 reference, at q1
     leaves = [t.clone().requires_grad_(True) for t in (bo, to, b)]
     g_k = torch.autograd.grad(fused_merge_nll(*leaves, y, cfg.tau_out).sum(), leaves)
@@ -326,12 +362,12 @@ def stage3_kernels(dev, train, arts, reps):
     ms = time_device("merge_sums", lambda: merge_sums(bo, to, y), reps)
     plain_ms = time_device("merge_sums plain", lambda: merge_sums_reference(bo, to, y),
                            SPLIT_REPS, warmup=1)
-    bound_ms, bound_by = merge_sums_bound_ms(cb, b_, p, k)
+    bound_ms, bound_by, tc_ms = merge_sums_bound_ms(cb, b_, p, k)
     print(f"  merge_sums at C={cb} B={b_} P={p} K={k}: kernel {ms:.3f} ms (mean of {reps} "
-          f"queued launches), bound {bound_ms:.3f} ms ({bound_by}), plain {plain_ms:.3f} ms, "
+          f"queued launches); {bound_line(ms, bound_ms, tc_ms)}; plain {plain_ms:.3f} ms, "
           f"library_ms n/a (no single PyTorch call computes S1 and S2)")
     rows = {"merge_sums": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by)}
+                               bound_by=bound_by, bound_tc_ms=tc_ms)}
 
     # the leapfrog update at the trajectory's shapes: (C, d) and a (d,) mass
     eps = cfg.step_size
@@ -361,8 +397,9 @@ def stage3_kernels(dev, train, arts, reps):
     print(f"  leapfrog_update at ({c}, {d}): kernel {lf_ms * 1e3:.2f} us, bound "
           f"{lf_bound * 1e3:.2f} us ({lf_by}), plain {lf_plain * 1e3:.2f} us, library_ms n/a "
           f"(no single PyTorch call computes both outputs)")
+    # no products: its tensor-core bound is its byte bound
     rows["leapfrog_update"] = dict(max_abs_err=lf_err, ms=lf_ms, plain_ms=lf_plain,
-                                   bound_ms=lf_bound, bound_by=lf_by)
+                                   bound_ms=lf_bound, bound_by=lf_by, bound_tc_ms=lf_bound)
     return rows
 
 
@@ -480,18 +517,19 @@ def main(argv=None) -> int:
     feats = [t.contiguous() for t in (bout1, tout1, bout0, tout0)]
     c, b, k = feats[0].shape
     p = feats[1].shape[1]
-    err_main = compare_paired(f"main C={c} B={b} P={p} K={k}", feats, biases, y)
+    err_main = compare_paired(f"main C={c} B={b} P={p} K={k}", feats, biases, y, main=True)
     ms = time_device("paired_sums", lambda: paired_sums(*feats, y), args.timing_reps)
     plain_ms = time_device("paired_sums plain", lambda: paired_sums_reference(*feats, y), 2,
                            warmup=1)
-    bound_ms, bound_by = paired_sums_bound_ms(c, b, p, k)
+    bound_ms, bound_by, tc_ms = paired_sums_bound_ms(c, b, p, k)
     print(f"  paired_sums at C={c} B={b} P={p} K={k}: kernel {ms:.3f} ms (mean of "
-          f"{args.timing_reps} queued launches), bound {bound_ms:.3f} ms ({bound_by}; f32 "
-          f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s, {PEAK_BYTES_PER_S / 1e12:.2f} TB/s), "
-          f"plain {plain_ms:.3f} ms, library_ms n/a (no single PyTorch call "
-          f"computes these five sums)")
+          f"{args.timing_reps} queued launches); {bound_line(ms, bound_ms, tc_ms)} (f32 "
+          f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s, bf16 {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s); plain {plain_ms:.3f} ms, library_ms n/a (no "
+          f"single PyTorch call computes these five sums)")
     kernel_rows = {"paired_sums": dict(max_abs_err=err_main, ms=ms, plain_ms=plain_ms,
-                                       bound_ms=bound_ms, bound_by=bound_by)}
+                                       bound_ms=bound_ms, bound_by=bound_by,
+                                       bound_tc_ms=tc_ms)}
     del feats, ragged, bout1, tout1, bout0, tout0
     phase("2 paired_sums vs plain", t0)
 
@@ -552,7 +590,7 @@ def main(argv=None) -> int:
     parts["rest_of_draw"] = draw_ms - sum(parts.values())
     print(f"  per draw at C=48 (device time, mean of {SPLIT_REPS} queued calls): sampling "
           f"wall {draw_ms:.2f} ms = "
-          + ", ".join(f"{k_} {v:.2f}" for k_, v in parts.items()) + " ms")
+          + ", ".join(f"{k_} {v:.2f} ms ({100 * v / draw_ms:.1f} %)" for k_, v in parts.items()))
     del problem, fns, field, q0, q1, p0
     torch.cuda.empty_cache()
     phase("4 row per-draw breakdown", t0)
@@ -586,8 +624,8 @@ def main(argv=None) -> int:
     parts["rest_of_draw"] = draw_ms - sum(parts.values())
     print(f"  per stage-3 draw at C=16 (device time, mean of {SPLIT_REPS} queued calls): "
           f"sampling wall {draw_ms:.2f} ms = "
-          + ", ".join(f"{k_} {v:.2f}" for k_, v in parts.items())
-          + f" ms (one Gram field {grad_ms:.3f} ms, one fused density {dens_ms:.3f} ms, of "
+          + ", ".join(f"{k_} {v:.2f} ms ({100 * v / draw_ms:.1f} %)" for k_, v in parts.items())
+          + f" (one Gram field {grad_ms:.3f} ms, one fused density {dens_ms:.3f} ms, of "
           f"which merge_sums {kernel_rows['merge_sums']['ms']:.3f} ms)")
     del out
     torch.cuda.empty_cache()

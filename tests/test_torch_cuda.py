@@ -73,13 +73,17 @@ def test_paired_sums_kernel_matches_plain_version(cuda_device):
     np.testing.assert_allclose(lp_k.cpu().numpy(), lp_p.cpu().numpy(), rtol=1e-5)
 
 
-@pytest.mark.parametrize("b,p,k", [(200, 1000, 100), (64, 64, 16), (1, 1, 1)])
+@pytest.mark.parametrize("b,p,k", [(200, 1000, 100), (64, 64, 16), (1, 1, 1), (130, 301, 1),
+                                   (257, 515, 12), (129, 129, 33), (1000, 1021, 100),
+                                   (131, 300, 113)])
 def test_paired_sums_kernel_matches_float64(cuda_device, b, p, k):
     """Against a float64 evaluation: each of the five sums within 1e-5 of
     the sum of its terms' operand magnitudes (f32 products and f32 sums
     inside a block round at that scale; D and Bd add small differences, so a
-    bound relative to the sums themselves would not hold). K = 100 leaves a
-    ragged last K chunk, 1 x 1 x 1 a block that is all edge."""
+    bound relative to the sums themselves would not hold). K that is not a
+    multiple of the mma depth 16 (1, 12, 33, 100, 113) leaves a ragged last K
+    chunk, and K % 4 != 0 takes the 4-byte copies; B, P off the 128 x 128
+    tile leave ragged edges; 1 x 1 x 1 is a block that is all edge."""
     feats = _features(6, 2, b, p, k, cuda_device)
     got = paired_sums(*feats).double()
     want, mag = _sums_f64(*feats)
@@ -103,7 +107,68 @@ def test_paired_sums_kernel_is_deterministic_and_checks_inputs(cuda_device):
         paired_sums(feats[0], bad, *feats[2:])
     with pytest.raises(ValueError):
         paired_sums(feats[0], feats[1], feats[2], feats[3], feats[4].cpu())
+    with pytest.raises(TypeError):
+        paired_sums(feats[0].half(), *feats[1:])
+    with pytest.raises(ValueError):
+        paired_sums(feats[0], feats[1], feats[2][:, :-1].contiguous(), *feats[3:])
     assert paired_sums.launches == n
+
+
+def test_paired_sums_equal_endpoints_give_zero_delta(cuda_device):
+    """q1 = q0: both products run the same instructions on the same bits, so
+    D and Bd are exactly 0 and Sm is exactly 2 sum m1."""
+    bout1, tout1, _, _, y = _features(13, 3, 300, 700, 100, cuda_device)
+    got = paired_sums(bout1, tout1, bout1.clone(), tout1.clone(), y)
+    torch.cuda.synchronize()
+    assert bool((got[:, 0] == 0).all()) and bool((got[:, 1] == 0).all()), got[:, :2]
+
+
+def test_paired_sums_at_reference_scale(cuda_device):
+    """Features whose merge reaches |m| ~ 10 over a y of the Burgers data's
+    scale: each sum within 1e-5 of its terms' magnitudes of float64, and the
+    closed Delta ll's error against float64 at most twice the plain IEEE f32
+    version's plus 1e-3 nats."""
+    c, b, p, k = 2, 1000, 1021, 100
+    rng = np.random.default_rng(14)
+    bout0 = rng.normal(scale=0.7, size=(c, b, k)).astype(np.float32)
+    tout0 = rng.normal(scale=0.7, size=(c, p, k)).astype(np.float32)
+    bout1 = (bout0 + 1e-3 * rng.normal(size=bout0.shape)).astype(np.float32)
+    tout1 = (tout0 + 1e-3 * rng.normal(size=tout0.shape)).astype(np.float32)
+    y = rng.normal(scale=1.3, size=(b, p)).astype(np.float32)
+    feats = [torch.as_tensor(a, device=cuda_device) for a in (bout1, tout1, bout0, tout0, y)]
+    got = paired_sums(*feats)
+    want, mag = _sums_f64(*feats)
+    torch.cuda.synchronize()
+    assert (want[:, 3].sqrt() / (b * p) ** 0.5).max().item() > 4.0  # rms |m1| ~ 4.9, max ~ 25
+    err = ((got.double() - want).abs() / mag).max().item()
+    assert err < 1e-5, err
+    bias = torch.zeros(c, device=cuda_device)
+    sy = y_sums(feats[4])
+    d_k, _ = close_paired_sums(got, bias, bias, b * p, 1.0, *sy)
+    d_p, _ = close_paired_sums(paired_sums_reference(*feats), bias, bias, b * p, 1.0, *sy)
+    d_64, _ = close_paired_sums(want, bias, bias, b * p, 1.0, *sy)
+    err_k = (d_k.double() - d_64.double()).abs().max().item()
+    err_p = (d_p.double() - d_64.double()).abs().max().item()
+    assert err_k <= 2 * err_p + 1e-3, (err_k, err_p)
+
+
+def test_paired_sums_unaligned_features_and_repeat_launches(cuda_device):
+    """Contiguous views that start 4 bytes into a buffer take the 4-byte
+    copies; they give the same sums as aligned copies of the same values, and
+    each layout repeats bit for bit."""
+    aligned = _features(15, 2, 200, 300, 100, cuda_device)
+    views = []
+    for t in aligned[:4]:
+        buf = torch.empty(t.numel() + 1, device=cuda_device)
+        buf[1:] = t.flatten()
+        views.append(buf[1:].view(t.shape))
+    a1 = paired_sums(*aligned)
+    a2 = paired_sums(*aligned)
+    u1 = paired_sums(*views, aligned[4])
+    u2 = paired_sums(*views, aligned[4])
+    torch.cuda.synchronize()
+    assert torch.equal(a1, a2) and torch.equal(u1, u2)
+    assert torch.equal(a1, u1)
 
 
 def _merge_features(seed, c, b, p, k, device):
@@ -122,12 +187,15 @@ def _merge_sums_f64(bout, tout, y):
     return sums, mags
 
 
-@pytest.mark.parametrize("b,p,k", [(200, 1000, 100), (130, 301, 12), (1, 1, 1)])
+@pytest.mark.parametrize("b,p,k", [(200, 1000, 100), (130, 301, 12), (1, 1, 1), (130, 301, 1),
+                                   (257, 515, 12), (129, 129, 33), (1000, 1021, 100),
+                                   (131, 300, 113)])
 def test_merge_sums_kernel_matches_plain_and_float64(cuda_device, b, p, k):
     """Each sum within 1e-5 of its terms' magnitudes of the float64 sums and
     of the plain version (f32 products round at that scale; the sums are
-    f64 on both sides). K = 100 leaves a ragged last K chunk, 130 x 301 a
-    ragged tile edge, 1 x 1 x 1 a block that is all edge."""
+    f64 on both sides). K off the mma depth 16 (1, 12, 33, 100, 113) leaves a
+    ragged last K chunk, B, P off the 128 x 128 tile a ragged tile edge,
+    1 x 1 x 1 a block that is all edge."""
     feats = _merge_features(8, 2, b, p, k, cuda_device)
     n = merge_sums.launches
     got = merge_sums(*feats)
@@ -157,6 +225,33 @@ def test_merge_sums_kernel_is_deterministic_and_checks_inputs(cuda_device):
     with pytest.raises(ValueError):
         merge_sums(feats[0], feats[1], feats[2].cpu())
     assert merge_sums.launches == n
+
+
+def test_merge_sums_at_reference_scale(cuda_device):
+    """|m| ~ 10 over a y of the data's scale, so |S1| ~ 1e6 or more: each sum
+    within 1e-7 of its terms' magnitudes of float64 (the stage-3 check's
+    MERGE_RTOL_MAG), and two launches bit for bit equal, on aligned and on
+    4-byte-offset features."""
+    c, b, p, k = 2, 1000, 1021, 100
+    rng = np.random.default_rng(17)
+    bout = rng.normal(scale=0.7, size=(c, b, k)).astype(np.float32)
+    tout = rng.normal(scale=0.7, size=(c, p, k)).astype(np.float32)
+    y = rng.normal(scale=1.3, size=(b, p)).astype(np.float32)
+    feats = [torch.as_tensor(a, device=cuda_device) for a in (bout, tout, y)]
+    views = []
+    for t in feats[:2]:
+        buf = torch.empty(t.numel() + 1, device=cuda_device)
+        buf[1:] = t.flatten()
+        views.append(buf[1:].view(t.shape))
+    want, mag = _merge_sums_f64(*feats)
+    assert want[:, 0].abs().min().item() > 1e6
+    for fs in (feats[:2], views):
+        got = merge_sums(*fs, feats[2])
+        again = merge_sums(*fs, feats[2])
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        err = ((got - want).abs() / mag).max().item()
+        assert err < 1e-7, err
 
 
 def test_fused_merge_nll_on_the_card(cuda_device):

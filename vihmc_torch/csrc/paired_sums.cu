@@ -15,126 +15,81 @@
 // by all chains. The host-side closure (vihmc_torch/ops/deeponet_merge.py)
 // turns these into (delta log-likelihood, lp1).
 //
-// What bounds it on an H100: f32 FMA. Per chain it does 4 B P K flops of
-// products (2 B P K per merge) against (2 B K + 2 P K) * 4 bytes of features;
-// at the operator row (C = 48, B = 1000, P = 10201, K = 100) that is
-// 1.96e11 flop per draw against ~0.43 GB of features plus the 41 MB y, which
-// stays resident in the 50 MB L2 across chains: ~2.9 ms at the 67 TFLOP/s f32
-// peak versus ~0.14 ms at 3.35 TB/s. The products must stay IEEE f32 -- TF32
-// or bf16 would put ~1e-3-relative noise into m1 - m0, the noise the paired
-// form exists to remove -- so the tensor cores are not used here.
+// Split products (split_mma.cuh): the JAX kernel takes both products at
+// Precision.HIGHEST, f32 accuracy from the matrix unit. Here each f32 operand
+// is split into three bf16 parts and each product is the sum of the six
+// leading part products on the tensor cores (wgmma, f32 accumulators; a fresh
+// accumulator per K chunk, because the tensor cores round toward zero, with
+// the truncation's mean added back). A single bf16 or TF32 pass would put
+// ~1e-3-relative noise into m1 - m0, the noise the paired form exists to
+// remove; the split keeps the error at an IEEE f32 matmul's.
 //
-// Design (simple and right first): one block per (chain, 64 x 64 output
-// tile); K runs through shared memory in chunks of 16, stored k-major so the
-// inner product loop reads rows as broadcasts and columns conflict-free; each
-// of 256 threads keeps a 4 x 4 register tile of BOTH products (rows ty + 16 i,
-// columns tx + 16 j) and folds them into the five sums in the epilogue. The
-// ragged edge is masked in the kernel: rows and columns past B or P load as
-// zeros and are skipped in the epilogue, so they add nothing, as JAX's zero
-// padding does. Each block reduces its five f32 partials (warp shuffles, then
-// the 8 warps in order) into a scratch array; a second kernel reduces each
-// chain's partials in a FIXED order in f64 (no atomics), so an MH decision
-// never depends on the block schedule. Faster variants (3xTF32 split products
-// on the tensor cores, reuse of the accepted endpoint's features) are later
-// work.
+// Bounds on an H100 SXM at 700 W, at the operator row (C = 48, B = 1000,
+// P = 10201, K = 100): the two products are 1.959e11 flop per call, 2.92 ms at
+// the 67 TFLOP/s f32-FMA peak (3.011 ms with the epilogue: the ceiling of the
+// CUDA-core design) and, as six bf16 products each, 1.188 ms at the
+// 989 TFLOP/s dense bf16 peak: the bound this kernel is held against. The
+// inputs (0.43 GB of features, 41 MB of y) take 0.14 ms at 3.35 TB/s.
+//
+// Traffic the design reckons with (not measured): one 128 x 128 tile per
+// block, 640 blocks walking all 48 chains. Each block reads its y tile once
+// into shared memory (41 MB in all; the old design read it once per chain,
+// 1.96 GB). Per chain a block reads 128 rows of each of the four feature
+// matrices (205 KB at K = 100), so features cross the L2 P/128 = 80 times
+// (bout) and B/128 = 8 times (tout): 48 x (64 + 65) MB = 6.2 GB per call, by
+// TMA boxes (copies of these 64-byte row pieces by cp.async stalled at their
+// issue on the card).
+//
+// What the design does about the old one's limits: the products run on the
+// tensor cores instead of f32 FMA with a 4 x 4 register tile; K arrives by TMA
+// into a 3-stage ring filled by a producer thread while the consumers
+// multiply, with no block-wide barrier per chunk; K pads to 112 in shared
+// memory only (the TMA box's zero fill); y is read once per tile, not once
+// per chain. What holds it back now: the split of each chunk's B tiles by the
+// producer's three warps, repeated by the 8 blocks that share a P column.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Epilogue, as before: per chain, each thread folds its cells of m1 and m0
+// (dm = m1 - m0 and sm = m1 + m0 per cell, so q1 = q0 gives D = Bd = 0
+// exactly: both products run the same instructions on the same bits) into
+// five f32 sums; each warp reduces them by shuffles into its own slot of a
+// scratch array, and a second kernel adds each chain's slots in a FIXED order
+// in f64 (no atomics), so two launches agree bit for bit.
+
+#include "split_mma.cuh"
 
 namespace {
 
-constexpr int TILE = 64;          // output tile edge along B and along P
-constexpr int KC = 16;            // K chunk held in shared memory
-constexpr int THREADS = 256;      // 16 x 16 threads, 4 x 4 cells each
-constexpr int LD = TILE + 1;      // padded shared row: conflict-free transposed stores
-constexpr int NSUM = 5;           // D, Bd, Sm, Q1, C1
+using namespace split_mma;
+
+constexpr int NSUM = 5;  // D, Bd, Sm, Q1, C1
 constexpr int REDUCE_THREADS = 256;
+constexpr int STAGES = 3;
+constexpr int SMEM_BYTES = launch_smem(2, STAGES);  // 209 KB: one block per SM
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__global__ void __launch_bounds__(THREADS)
-paired_tiles(const float* __restrict__ bout1, const float* __restrict__ tout1,
+template <bool TMA>
+__global__ void __launch_bounds__(THREADS, 1)
+paired_tiles(const __grid_constant__ TmaMaps<4> maps,
+             const float* __restrict__ bout1, const float* __restrict__ tout1,
              const float* __restrict__ bout0, const float* __restrict__ tout0,
              const float* __restrict__ y, float* __restrict__ partials,
-             int B, int P, int K) {
-  __shared__ float sb1[KC][LD];
-  __shared__ float sb0[KC][LD];
-  __shared__ float st1[KC][LD];
-  __shared__ float st0[KC][LD];
-  __shared__ float red[NSUM][THREADS / 32];
+             int C, int B, int P, int K) {
+  extern __shared__ __align__(16) char smem_raw[];
+  char* smem = align_smem(smem_raw);
+  float* ys = reinterpret_cast<float*>(smem + y_offset(2, STAGES));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
+  const size_t ntiles = (size_t)gridDim.x * gridDim.y;
+  const size_t tile = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
 
-  const int c = blockIdx.z;
-  const int row0 = blockIdx.y * TILE;   // along B
-  const int col0 = blockIdx.x * TILE;   // along P
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-
-  const float* b1 = bout1 + (size_t)c * B * K;
-  const float* b0 = bout0 + (size_t)c * B * K;
-  const float* t1 = tout1 + (size_t)c * P * K;
-  const float* t0 = tout0 + (size_t)c * P * K;
-
-  float m1[4][4], m0[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) { m1[i][j] = 0.f; m0[i][j] = 0.f; }
-
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    // consecutive threads read consecutive k of one feature row
-    for (int e = tid; e < TILE * KC; e += THREADS) {
-      const int r = e / KC;
-      const int kk = e % KC;
-      const int k = k0 + kk;
-      const bool kin = k < K;
-      const int br = row0 + r;
-      const int pr = col0 + r;
-      const bool bin = kin && br < B;
-      const bool pin = kin && pr < P;
-      sb1[kk][r] = bin ? b1[(size_t)br * K + k] : 0.f;
-      sb0[kk][r] = bin ? b0[(size_t)br * K + k] : 0.f;
-      st1[kk][r] = pin ? t1[(size_t)pr * K + k] : 0.f;
-      st0[kk][r] = pin ? t0[(size_t)pr * K + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      float a1[4], a0[4], c1[4], c0[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a1[i] = sb1[kk][ty + 16 * i];
-        a0[i] = sb0[kk][ty + 16 * i];
-        c1[i] = st1[kk][tx + 16 * i];
-        c0[i] = st0[kk][tx + 16 * i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          m1[i][j] = fmaf(a1[i], c1[j], m1[i][j]);
-          m0[i][j] = fmaf(a0[i], c0[j], m0[i][j]);
-        }
-    }
-    __syncthreads();
-  }
-
-  float s[NSUM] = {0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= B) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int p = col0 + tx + 16 * j;
-      if (p >= P) continue;
-      const float yv = y[(size_t)r * P + p];
-      const float x1 = m1[i][j];
-      const float x0 = m0[i][j];
+  load_y_tile(ys, y, B, P, row0, col0, tid);
+  const float* const fa[2] = {bout1, bout0};  // product 0 is m1, product 1 is m0
+  const float* const fb[2] = {tout1, tout0};
+  walk_chains<2, STAGES, TMA>(smem, maps, fa, fb, C, B, P, K, row0, col0,
+                      [&](int c, float (&acc)[2][NACC]) {
+    float s[NSUM] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    for_each_cell(ys, tid, [&](int i, float yv) {
+      const float x1 = acc[0][i];
+      const float x0 = acc[1][i];
       const float dm = x1 - x0;
       const float sm = x1 + x0;
       s[0] += dm * (sm - 2.f * yv);
@@ -142,37 +97,26 @@ paired_tiles(const float* __restrict__ bout1, const float* __restrict__ tout1,
       s[2] += sm;
       s[3] += x1 * x1;
       s[4] += x1 * yv;
+    });
+#pragma unroll
+    for (int v = 0; v < NSUM; ++v) s[v] = warp_sum(s[v]);
+    if (lane == 0) {
+      float* out = partials + (((size_t)c * ntiles + tile) * WARPS + warp) * NSUM;
+#pragma unroll
+      for (int v = 0; v < NSUM; ++v) out[v] = s[v];
     }
-  }
-
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-#pragma unroll
-  for (int v = 0; v < NSUM; ++v) {
-    const float w = warp_sum(s[v]);
-    if (lane == 0) red[v][warp] = w;
-  }
-  __syncthreads();
-  if (tid < NSUM) {
-    float acc = 0.f;
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) acc += red[tid][w];
-    const size_t nblk = (size_t)gridDim.x * gridDim.y;
-    const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-    partials[((size_t)c * nblk + blk) * NSUM + tid] = acc;
-  }
+  });
 }
 
 // one block per chain: strided f64 sums per thread, then a fixed-order tree
 __global__ void __launch_bounds__(REDUCE_THREADS)
-reduce_partials(const float* __restrict__ partials, float* __restrict__ out,
-                int nblk) {
+reduce_partials(const float* __restrict__ partials, float* __restrict__ out, int nslot) {
   __shared__ double red[NSUM][REDUCE_THREADS];
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
   double acc[NSUM] = {0.0, 0.0, 0.0, 0.0, 0.0};
-  for (int i = tid; i < nblk; i += REDUCE_THREADS) {
-    const float* p = partials + ((size_t)c * nblk + i) * NSUM;
+  for (int i = tid; i < nslot; i += REDUCE_THREADS) {
+    const float* p = partials + ((size_t)c * nslot + i) * NSUM;
 #pragma unroll
     for (int v = 0; v < NSUM; ++v) acc[v] += (double)p[v];
   }
@@ -189,16 +133,29 @@ reduce_partials(const float* __restrict__ partials, float* __restrict__ out,
   if (tid < NSUM) out[(size_t)c * NSUM + tid] = (float)red[tid][0];
 }
 
+template <bool TMA>
+cudaError_t launch_tiles(const TmaMaps<4>& maps, const float* bout1, const float* tout1,
+                         const float* bout0, const float* tout0, const float* y,
+                         float* partials, int C, int B, int P, int K, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(paired_tiles<TMA>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  // B tiles vary fastest: a wave of blocks shares few tout rows per chain
+  const dim3 grid((B + BM - 1) / BM, (P + BN - 1) / BN);
+  paired_tiles<TMA><<<grid, THREADS, SMEM_BYTES, st>>>(maps, bout1, tout1, bout0, tout0, y,
+                                                       partials, C, B, P, K);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// floats of scratch the wrapper allocates per chain for the block partials
-int vihmc_paired_sums_scratch(int B, int P) {
-  return ((B + TILE - 1) / TILE) * ((P + TILE - 1) / TILE) * NSUM;
-}
+// floats of scratch the wrapper allocates per chain: one slot per (tile, warp)
+int vihmc_paired_sums_scratch(int B, int P) { return num_tiles(B, P) * WARPS * NSUM; }
 
-// Launches both kernels on `stream`; returns cudaGetLastError() (0 = ok).
+// Launches both kernels on `stream`; returns a CUDA error code (0 = ok).
 // All pointers are contiguous f32 device arrays: bout1/bout0 (C, B, K),
 // tout1/tout0 (C, P, K), y (B, P), partials (C, scratch(B, P)), out (C, 5).
 int vihmc_paired_sums(const float* bout1, const float* tout1,
@@ -206,13 +163,19 @@ int vihmc_paired_sums(const float* bout1, const float* tout1,
                       float* partials, float* out, int C, int B, int P, int K,
                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((P + TILE - 1) / TILE, (B + TILE - 1) / TILE, C);
-  paired_tiles<<<grid, THREADS, 0, st>>>(bout1, tout1, bout0, tout0, y,
-                                         partials, B, P, K);
-  cudaError_t err = cudaGetLastError();
+  TmaMaps<4> maps = {};
+  const bool tma = K % 4 == 0 && aligned16(bout1) && aligned16(tout1) && aligned16(bout0) &&
+                   aligned16(tout0);
+  if (tma) {  // A tiles (bout1, bout0), then B tiles (tout1, tout0)
+    const int e = encode_maps<4>(maps, {bout1, bout0, tout1, tout0}, {B, B, P, P}, C, K);
+    if (e != 0) return e;
+  }
+  cudaError_t err = tma ? launch_tiles<true>(maps, bout1, tout1, bout0, tout0, y, partials, C,
+                                             B, P, K, st)
+                        : launch_tiles<false>(maps, bout1, tout1, bout0, tout0, y, partials, C,
+                                              B, P, K, st);
   if (err != cudaSuccess) return (int)err;
-  reduce_partials<<<C, REDUCE_THREADS, 0, st>>>(partials, out,
-                                                (int)(grid.x * grid.y));
+  reduce_partials<<<C, REDUCE_THREADS, 0, st>>>(partials, out, num_tiles(B, P) * WARPS);
   return (int)cudaGetLastError();
 }
 

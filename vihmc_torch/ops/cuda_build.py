@@ -6,9 +6,17 @@ a shared library under ``vihmc_torch/_build/`` (listed in ``.gitignore``):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source never loads a stale build. Nothing is compiled when a module is
+``paired_sums.cu`` and ``merge_sums.cu`` share their tensor-core mainloop,
+``csrc/split_mma.cuh``, found beside them by ``#include "..."``; no other
+include path is given (neither kernel uses CUTLASS or CuTe). Their tensor
+maps are encoded with ``cuTensorMapEncodeTiled``, reached at run time
+through ``cudaGetDriverEntryPoint``, so nothing links ``libcuda`` beyond
+what the CUDA runtime loads. The library name carries a hash of the flags,
+the source and every ``csrc/`` header it includes, so an edited source or
+header never loads a stale build. Nothing is compiled when a module is
 imported; :func:`build_all` starts one ``nvcc`` per source, all at once.
+``-Xptxas -v`` prints each kernel's registers, shared memory and spills into
+:data:`build_logs`.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -68,11 +77,30 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> list:
+    """The source of library ``name`` and every ``csrc/`` header it includes
+    (with ``#include "..."``, transitively), in a fixed order."""
+    seen, todo = [], [SOURCES[name]]
+    while todo:
+        rel = todo.pop(0)
+        if rel in seen:
+            continue
+        seen.append(rel)
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())
+                     if os.path.exists(os.path.join(CSRC, m.decode()))]
+    return seen
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for rel in source_files(name):
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            h.update(rel.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build_all(names=None) -> dict:
