@@ -37,10 +37,29 @@ Phases, each printed with its wall time:
    scoring), with only its depth cut; ``merge_sums`` must have run once per
    density evaluation (2 per draw, 1 at init); then a draw's split;
 7. the same pipeline with ``use_gram=False`` (autograd through the fused
-   density on every leapfrog step) at a small depth, with its launch count.
+   density on every leapfrog step) at a small depth, with its launch count;
+8. stage 1 of the operator pipeline (Bayes-by-Backprop VI) at full width
+   through ``vi_train.run_operator`` (reference DeepONet, 1000 training
+   functions, batch 128, 512 trunk points per example, ``num_ens`` 3), a few
+   epochs: the wall per epoch, the device time of one step, the peak
+   memory, and the valid-MSE curve beside ``burgers_stage12_r2.npz``'s;
+9. stage 2 at full width through ``sensitivity.run_operator_flat`` on that
+   bundle's mu and sigma (200 validation functions, 100 trunk points each,
+   chunks of 8): the wall and the time per chunk, ``num_sensitive`` beside
+   the bundle's 81,131, the Jaccard overlap of the index set with the
+   bundle's held to the overlap between two seeds of the trunk subsample
+   less ``SENS_OVERLAP_MARGIN``, and the Spearman correlation of the scores;
+10. stage 3 under the REFRESH policy at full width and a small depth: every
+    chain redraws its frozen vector before each draw; ``merge_sums`` must
+    still run 1 + 2 x draws times and the Gram field L + 1 times per draw;
+    acceptance and draws/s beside phase 6's DRAW run;
+11. the NN flow, three stages on ``MLPConfig()``: stage 1 at the
+    ``nn_stage12_r2`` settings (depth cut), stage 2 on its result and on the
+    bundle's mu and sigma (which must give the bundle's 77 indices exactly),
+    stage 3 with a default ``VIHMCRunConfig`` (REFRESH, L = 196).
 
-Before each driven path (3, 6, 7) every kernel count is set to 0, and it is
-read just after. The second-to-last line is a JSON object describing every
+Before each driven path (3, 6, 7, 8, 9, 10, 11) every kernel count is set to
+0, and it is read just after (stages 1 and 2 run no kernel of the port). The second-to-last line is a JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result. It needs a CUDA
 device and the rest of the repository; it imports nothing of JAX.
@@ -78,9 +97,19 @@ from vihmc_torch.ops.deeponet_merge import (close_paired_sums, fused_merge_nll,
 from vihmc_torch.ops.gram_merge import make_gram_grad_full
 from vihmc_torch.ops.leapfrog import (fused_leapfrog_update,
                                       leapfrog_update_reference)
-from vihmc_torch.pipelines.common import make_deeponet_nll_log_posterior
+import vihmc_torch.pipelines.vi_hmc as vi_hmc
+from vihmc_torch.data.burgers import STAGE12_ASSET, subsample_trunk
+from vihmc_torch.models.mlp import MLPConfig
+from vihmc_torch.pipelines import sensitivity, vi_train
+from vihmc_torch.pipelines.common import (make_deeponet_nll_log_posterior,
+                                          make_flat_deeponet)
+from vihmc_torch.pipelines.configs import (NNVIRunConfig, SensitivityRunConfig,
+                                           VIHMCRunConfig)
 from vihmc_torch.pipelines.vi_hmc import (build_subspace_posterior, run_stage3,
                                           stage3_config)
+from vihmc_torch.sensitivity import mean_squared_jacobian
+from vihmc_torch.vi.elbo import ELBOConfig
+from vihmc_torch.vi.train import VIConfig
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12
@@ -102,6 +131,11 @@ LEAPFROG_ULPS = 1            # kernel vs plain: the same roundings in the same o
 SLEEP_CYCLES = 400_000_000  # ~0.2 s of GPU clock: time for the host to queue the timed calls
 SPLIT_REPS = 3               # calls of many-op functions: few enough to stay in the launch queue
 L2_ROTATION = 8              # input copies cycled per timing: 8 x 15.6 MB exceeds the 50 MB L2
+# stage 2: the index set's Jaccard overlap with the bundle may fall short of
+# the overlap between two trunk-subsample seeds by at most this (the bundle's
+# scores were computed on a TPU at default matmul precision)
+SENS_OVERLAP_MARGIN = 0.05
+NN_BUNDLE = STAGE12_ASSET.replace("burgers_stage12_r2", "nn_stage12_r2")
 
 KERNELS = {
     "paired_sums": {"route": "cuda", "source": "vihmc_torch/csrc/paired_sums.cu",
@@ -158,6 +192,43 @@ def time_device(label: str, fn, reps: int, warmup: int = 2) -> float:
               f"includes host dispatch)")
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def profile_device(fn, reps: int, top: int = 4):
+    """``reps`` calls of ``fn()`` under ``torch.profiler``: ``(device ms per
+    call or None, wall ms per call, [(kernel, device ms per call), ...])``.
+    The device time is the sum of the kernels' (and copies') time the
+    profiler recorded; None when it recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [(e.key, e.self_device_time_total / 1e3 / reps) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels.sort(key=lambda kv: -kv[1])
+    dev = sum(ms for _, ms in kernels) or None
+    return dev, 1e3 * wall / reps, [(k[:60], ms) for k, ms in kernels[:top]]
+
+
+def profile_line(label: str, fn, reps: int) -> float:
+    """Print the device time, wall and busy share of ``fn`` and its largest
+    kernels; returns the device ms per call (nan when not measured)."""
+    dev, wall, top = profile_device(fn, reps)
+    if dev is None:
+        print(f"  {label}: wall {wall:.2f} ms per call; device time not measured (the "
+              f"profiler recorded no device activity)")
+        return math.nan
+    print(f"  {label} (torch.profiler, {reps} calls): device {dev:.2f} ms of {wall:.2f} ms "
+          f"wall per call (device busy {100 * dev / wall:.1f} %); largest kernels: "
+          + "; ".join(f"{k} {ms:.2f} ms" for k, ms in top))
+    return dev
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
@@ -430,6 +501,205 @@ def run_stage3_path(label, dev, data, arts, want_launches, **kw):
     return summary, out, counts
 
 
+def jaccard(a, b) -> float:
+    a, b = set(np.asarray(a).tolist()), set(np.asarray(b).tolist())
+    return len(a & b) / len(a | b)
+
+
+def spearman(x, y) -> float:
+    """Spearman's rank correlation (ordinal ranks; ties are negligible here)."""
+    rx = np.empty(len(x))
+    ry = np.empty(len(y))
+    rx[np.argsort(x, kind="stable")] = np.arange(len(x))
+    ry[np.argsort(y, kind="stable")] = np.arange(len(y))
+    return float(np.corrcoef(rx, ry)[0, 1])
+
+
+def expect_no_launches(label: str):
+    counts = read_counts()
+    print(f"  {label} launches: {counts} (no kernel of the port is on this path)")
+    check(all(v == 0 for v in counts.values()), f"{label}: unexpected launches {counts}")
+
+
+def stage1_phase(dev, data, epochs, bundle):
+    """Phase 8: stage-1 VI at full width for ``epochs`` epochs."""
+    cfg = vi_train.stage12_config(epochs=epochs, n_train=data[0]["branch_in"].shape[0],
+                                  n_valid=data[1]["branch_in"].shape[0])
+    walls = []
+    t_last = [time.perf_counter()]
+
+    def on_epoch(epoch, row, trainer):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        walls.append(now - t_last[0])
+        t_last[0] = now
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t_last[0] = time.perf_counter()
+    out = vi_train.run_operator(cfg, seed=0, data=data, device=dev, callback=on_epoch)
+    expect_no_launches("stage 1")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    m = out["metrics"]
+    ref = np.asarray(bundle["vi_valid_mse"][:epochs], np.float64)
+    print(f"  stage 1 (VI) at full width: {epochs} epochs of {cfg.n_train // cfg.batch_size} "
+          f"steps (batch {cfg.batch_size}, p {cfg.p}, num_ens {cfg.vi.num_ens}); wall per "
+          f"epoch (s): {[round(w, 3) for w in walls]}; peak memory {peak:.2f} GiB")
+    for e in range(len(m)):
+        print(f"  epoch {e}: train_loss {m[e, 0]:.6g} valid_loss {m[e, 1]:.6g} train_mse "
+              f"{m[e, 2]:.5f} valid_mse {m[e, 3]:.5f} (bundle valid_mse {ref[e]:.5f})")
+    check(bool(np.isfinite(m).all()), "stage 1: non-finite metrics")
+    check(m[-1, 3] < m[0, 3], f"stage 1: valid MSE did not fall ({m[0, 3]} -> {m[-1, 3]})")
+    # the device time of one step, at a batch of the training shape
+    trainer = out["trainer"]
+    train = data[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    idx = torch.randperm(train["branch_in"].shape[0], generator=gen, device=dev)[:cfg.batch_size]
+    trunk, y = subsample_trunk({"trunk_in": train["trunk_in"], "solution": train["solution"][idx]},
+                               cfg.p, generator=gen)
+    batch = {"branch": train["branch_in"][idx], "trunk": trunk, "y": y}
+    valid_batch = {"branch": data[1]["branch_in"][:cfg.batch_size],
+                   "trunk": data[1]["trunk_in"], "y": data[1]["solution"][:cfg.batch_size]}
+    with true_f32():
+        step_ms = profile_line(f"stage-1 step (ensemble forward + backward + Adam, "
+                               f"{cfg.vi.num_ens} x {cfg.batch_size} x {cfg.p} trunk points)",
+                               lambda: trainer.step(batch), 5)
+        eval_ms = profile_line("stage-1 validation evaluation (stochastic ELBO + MSE at "
+                               f"{cfg.batch_size} x 10,201 points)",
+                               lambda: trainer.evaluate(valid_batch), 5)
+    n_steps = cfg.n_train // cfg.batch_size
+    print(f"  an epoch is {n_steps} steps + 1 evaluation + 1 train MSE: median wall "
+          f"{float(np.median(walls)):.3f} s")
+    return {"epochs": epochs, "walls": walls, "step_ms": step_ms, "peak_gib": peak,
+            "valid_mse": m[:, 3].tolist()}
+
+
+def stage2_phase(dev, valid, bundle):
+    """Phase 9: stage-2 sensitivity at full width on the bundle's mu/sigma."""
+    cfg_d = DeepONetConfig()
+    scfg = SensitivityRunConfig(importance_threshold=0.90, p_subsample=100, batch_chunk=8)
+    n_chunks = -(-valid["branch_in"].shape[0] // scfg.batch_chunk)
+    outs, walls = [], []
+    for seed in (0, 1):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs.append(sensitivity.run_operator_flat(bundle["mu"], bundle["sigma"], cfg_d, valid,
+                                                  scfg, seed=seed))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        expect_no_launches(f"stage 2 (seed {seed})")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # one chunk's device time: 8 examples' Jacobians (8 x 100 x 172,401 f32)
+    apply_flat = make_flat_deeponet(cfg_d)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    trunk, _ = subsample_trunk(valid, scfg.p_subsample, generator=gen)
+    chunk = {"branch": valid["branch_in"][:scfg.batch_chunk], "trunk": trunk[:scfg.batch_chunk]}
+    mu = torch.as_tensor(bundle["mu"], device=dev)
+    chunk_ms = time_device("stage-2 chunk", lambda: mean_squared_jacobian(
+        lambda f, x: apply_flat(f[None], x["branch"][None, :], x["trunk"][None])[0, 0], mu,
+        chunk), 2, warmup=1)
+    j_bundle = jaccard(outs[0]["indices"], bundle["indices"])
+    j_seeds = jaccard(outs[0]["indices"], outs[1]["indices"])
+    j_bundle1 = jaccard(outs[1]["indices"], bundle["indices"])
+    rho = spearman(outs[0]["scores"], bundle["scores"])
+    rho_seeds = spearman(outs[0]["scores"], outs[1]["scores"])
+    print(f"  stage 2 at full width: walls {[round(w, 2) for w in walls]} s for "
+          f"{n_chunks} chunks of {scfg.batch_chunk} ({walls[0] / n_chunks * 1e3:.1f} ms per "
+          f"chunk of wall); one chunk {chunk_ms:.1f} ms device time; peak memory {peak:.2f} GiB")
+    print(f"  num_sensitive: seed 0 {outs[0]['num_sensitive']}, seed 1 "
+          f"{outs[1]['num_sensitive']} (bundle {len(bundle['indices'])})")
+    print(f"  Jaccard overlap: seed 0 vs bundle {j_bundle:.4f}, seed 1 vs bundle "
+          f"{j_bundle1:.4f}, seed 0 vs seed 1 {j_seeds:.4f} (margin {SENS_OVERLAP_MARGIN})")
+    print(f"  Spearman correlation of the scores: seed 0 vs bundle {rho:.5f}, seed 0 vs "
+          f"seed 1 {rho_seeds:.5f}")
+    for o in outs:
+        check(bool(np.isfinite(o["scores"]).all()) and o["scores"].shape == bundle["scores"].shape,
+              "stage 2: scores not finite or of the wrong shape")
+    check(j_bundle >= j_seeds - SENS_OVERLAP_MARGIN,
+          f"stage 2: overlap with the bundle {j_bundle} < seed-to-seed {j_seeds} - "
+          f"{SENS_OVERLAP_MARGIN}")
+    return {"walls": walls, "chunk_ms": chunk_ms, "num_sensitive": outs[0]["num_sensitive"],
+            "jaccard_bundle": j_bundle, "jaccard_seeds": j_seeds, "spearman": rho}
+
+
+def count_gram_calls():
+    """Wrap the stage-3 pipeline's Gram field builder so its calls are counted."""
+    real = vi_hmc.make_gram_grad_full
+    calls = [0]
+
+    def counting(*a, **kw):
+        field = real(*a, **kw)
+
+        def wrapped(full):
+            calls[0] += 1
+            return field(full)
+
+        return wrapped
+
+    vi_hmc.make_gram_grad_full = counting
+    return calls, lambda: setattr(vi_hmc, "make_gram_grad_full", real)
+
+
+def nn_flow_phase(dev, epochs, nn_bundle):
+    """Phase 11: VI -> sensitivity -> VI-HMC on the regression MLP."""
+    mlp = MLPConfig()
+    cfg = NNVIRunConfig(vi=VIConfig(
+        epochs=epochs, lr_start=1e-2, patience=5000, num_ens=10, beta_type=1.0,
+        prior_mu=0.0, prior_sigma=1.0,
+        elbo=ELBOConfig(reduction="sum", fixed_noise_var=5e-2 ** 2)))
+    reset_counts()
+    t0 = time.perf_counter()
+    vi_out = vi_train.run_nn(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    vi_s = time.perf_counter() - t0
+    expect_no_launches("NN stage 1")
+    m = vi_out["metrics"]
+    ref = nn_bundle["vi_valid_mse"]
+    print(f"  NN stage 1: {epochs} epochs in {vi_s:.2f} s ({vi_s / epochs * 1e3:.2f} ms per "
+          f"epoch); valid_mse {m[0, 3]:.4f} -> {m[-1, 3]:.4f} (best {m[:, 3].min():.4f}); "
+          f"bundle at the same epochs {ref[0]:.4f} -> {ref[epochs - 1]:.4f}, after its "
+          f"{len(ref)} epochs {ref[-1]:.4f}")
+    check(bool(np.isfinite(m).all()) and m[-1, 3] < m[0, 3], "NN stage 1: valid MSE did not fall")
+    trainer, d = vi_out["trainer"], vi_out["data"]
+    tb, vb = {"x": d["x_train"], "y": d["y_train"]}, {"x": d["x_val"], "y": d["y_val"]}
+    with true_f32():
+        profile_line("NN VI epoch (step + evaluation + train MSE)",
+                     lambda: (trainer.step(tb), trainer.evaluate(vb), trainer.mse(tb)), 20)
+    reset_counts()
+    x_val = vi_out["data"]["x_val"]
+    sens = sensitivity.run_nn(vi_out["best_state"].vp, mlp, x_val)
+    ref_sens = sensitivity.run_nn_flat(nn_bundle["mu"], nn_bundle["sigma"], mlp,
+                                       torch.linspace(-1.2, 1.2, 300, device=dev)[:, None])
+    expect_no_launches("NN stage 2")
+    same = np.array_equal(ref_sens["indices"], nn_bundle["indices"])
+    print(f"  NN stage 2: {sens['num_sensitive']} of {mlp.num_params} sensitive on the port's "
+          f"own posterior; on the bundle's mu and sigma {ref_sens['num_sensitive']} indices, "
+          f"equal to the bundle's {len(nn_bundle['indices'])}: {same}; score max rel diff "
+          f"{np.abs(ref_sens['scores'] - nn_bundle['scores']).max() / nn_bundle['scores'].max():.3g}")
+    check(same, "NN stage 2: the bundle's mu/sigma do not give its indices")
+    reset_counts()
+    hcfg = VIHMCRunConfig()
+    t0 = time.perf_counter()
+    out = vi_hmc.run_nn(hcfg, mlp, {k: sens[k] for k in ("mu", "sigma", "indices")},
+                        data=vi_out["data"], device=dev)
+    torch.cuda.synchronize()
+    h_s = time.perf_counter() - t0
+    expect_no_launches("NN stage 3")
+    res, met = out["result"], out["metrics"]
+    print(f"  NN stage 3 (default VIHMCRunConfig: {hcfg.frozen_policy}, L {hcfg.L}, "
+          f"{hcfg.num_chains} chains, {hcfg.num_samples} draws): {h_s:.2f} s, acceptance "
+          f"{res.acceptance_rate:.4f}, expected MSE of the mean {float(met['expected_mse_of_mean']):.4f}, "
+          f"ESS median {float(np.median(out['ess'])):.2f}, frozen vectors "
+          f"{tuple(res.final_state.aux.shape)}")
+    check(bool(np.isfinite(res.samples).all()) and res.acceptance_rate > 0.0,
+          "NN stage 3: non-finite samples or no acceptance")
+    check(all(bool(np.isfinite(v).all()) for v in met.values()), "NN stage 3: metrics")
+    return {"vi_s": vi_s, "stage3_s": h_s, "acceptance": res.acceptance_rate}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke run on one GPU")
     ap.add_argument("--draws", type=int, default=240, help="operator-row draws")
@@ -442,6 +712,9 @@ def main(argv=None) -> int:
     ap.add_argument("--s3-segment", type=int, default=15)
     ap.add_argument("--autodiff-draws", type=int, default=6)
     ap.add_argument("--timing-reps", type=int, default=20)
+    ap.add_argument("--vi-epochs", type=int, default=4, help="stage-1 epochs (bundle: 400)")
+    ap.add_argument("--refresh-draws", type=int, default=12, help="stage-3 REFRESH draws")
+    ap.add_argument("--nn-epochs", type=int, default=2000, help="NN VI epochs (bundle: 10,000)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -639,7 +912,58 @@ def main(argv=None) -> int:
     # trajectory gradients (each runs the forward) and lp1
     run_stage3_path("stage 3, use_gram=False", dev, data, arts,
                     2 + s3a["draws"] * (s3a["L"] + 2), **s3a)
+    torch.cuda.empty_cache()
     phase("7 autograd trajectory", t0)
+
+    # ---- phase 8: stage 1 (VI) at full width, a few epochs ----
+    t0 = time.perf_counter()
+    with np.load(STAGE12_ASSET) as z:
+        bundle = {k: z[k] for k in z.files}
+    print(f"  depth cut: epochs {args.vi_epochs} (bundle {int(bundle['vi_epochs'])})")
+    stage1_phase(dev, data, args.vi_epochs, bundle)
+    torch.cuda.empty_cache()
+    phase("8 stage 1 (VI)", t0)
+
+    # ---- phase 9: stage 2 (sensitivity) at full width ----
+    t0 = time.perf_counter()
+    stage2_phase(dev, data[1], bundle)
+    torch.cuda.empty_cache()
+    phase("9 stage 2 (sensitivity)", t0)
+
+    # ---- phase 10: stage 3 under REFRESH at full width, reduced depth ----
+    t0 = time.perf_counter()
+    s3r = dict(draws=args.refresh_draws, burn=args.refresh_draws // 2, chains=16, L=31,
+               segment=args.refresh_draws // 2, thin=3, frozen_policy="refresh")
+    print(f"  depth cut: draws {s3r['draws']}, burn {s3r['burn']}, segment {s3r['segment']} "
+          f"(stage-3 config 450, 90, 90)")
+    calls, restore = count_gram_calls()
+    try:
+        # 1 density at init, then per draw lp0 at the new frozen vectors and lp1
+        r_summary, r_out, _ = run_stage3_path("stage 3 REFRESH", dev, data, arts,
+                                              1 + 2 * s3r["draws"], **s3r)
+    finally:
+        restore()
+    per_draw = (calls[0] - 1) / s3r["draws"]
+    aux = r_out["result"].final_state.aux
+    print(f"  REFRESH: Gram field calls {calls[0]} = 1 + {per_draw:.2f} per draw (L + 1 = "
+          f"{s3r['L'] + 1}); frozen vectors {tuple(aux.shape)}; acceptance "
+          f"{r_out['result'].acceptance_rate:.4f} and {r_summary['draws_per_s']:.3f} draws/s "
+          f"beside DRAW (phase 6) {summary['acceptance']:.4f} and "
+          f"{summary['draws_per_s']:.3f} draws/s")
+    check(per_draw == s3r["L"] + 1, f"REFRESH: {per_draw} Gram calls per draw")
+    check(aux.shape == (16, arts["mu"].size) and not torch.equal(aux[0], aux[1]),
+          "REFRESH: every chain must carry its own frozen vector")
+    del r_out
+    torch.cuda.empty_cache()
+    phase("10 stage 3 REFRESH", t0)
+
+    # ---- phase 11: the NN flow ----
+    t0 = time.perf_counter()
+    with np.load(NN_BUNDLE) as z:
+        nn_bundle = {k: z[k] for k in z.files}
+    print(f"  depth cut: NN VI epochs {args.nn_epochs} (bundle {int(nn_bundle['vi_epochs'])})")
+    nn_flow_phase(dev, args.nn_epochs, nn_bundle)
+    phase("11 NN flow", t0)
 
     launches = {"paired_sums": row_counts["paired_sums"],
                 "merge_sums": s3_counts["merge_sums"],

@@ -297,3 +297,112 @@ def test_leapfrog_kernel_matches_plain_version(cuda_device, aligned, mass):
     for a, r in ((qk, qr), (pk, pr)):
         ulp = torch.finfo(torch.float32).eps * r.abs().clamp(min=torch.finfo(torch.float32).tiny)
         assert bool(((a - r).abs() <= ulp).all()), (a - r).abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# Stages 1-2 and the REFRESH policy on the card (no kernel of their own: the
+# same code on CUDA tensors against the CPU)
+# ---------------------------------------------------------------------------
+
+SMALL_DEEPONET_KW = dict(in_branch=17, in_trunk=5, width_branch=16, width_trunk=16,
+                         depth_branch=3, depth_trunk=3)
+
+
+def _small_vi_case(seed):
+    from vihmc_torch.models.deeponet import DeepONetConfig
+
+    rng = np.random.default_rng(seed)
+    cfg = DeepONetConfig(**SMALL_DEEPONET_KW)
+    d = cfg.num_params
+    arrays = {"mu": 0.1 * rng.normal(size=d), "rho": -5.0 + 0.1 * rng.normal(size=d),
+              "eps": rng.normal(size=(3, d)), "branch": rng.normal(size=(6, 17)),
+              "trunk": rng.random(size=(6, 40, 2)), "y": rng.normal(size=(6, 40))}
+    return cfg, {k: torch.as_tensor(v.astype(np.float32)) for k, v in arrays.items()}
+
+
+def test_bayesian_forward_and_ensemble_step_on_cuda_match_cpu(cuda_device):
+    """The small DeepONet's Bayesian forward (3 injected draws, per-example
+    points) and one VI step (loss, gradients, parameters after Adam) on the
+    card against the same code on the CPU: rtol 1e-5 (IEEE f32 on both sides,
+    different reduction orders)."""
+    from vihmc_torch.core.precision import true_f32
+    from vihmc_torch.models.bayesian import BayesianFlat
+    from vihmc_torch.pipelines.common import deeponet_vi_apply
+    from vihmc_torch.vi.elbo import ELBOConfig
+    from vihmc_torch.vi.train import VIConfig, VITrainer
+
+    cfg, a = _small_vi_case(21)
+    vi = VIConfig(lr_start=1e-3, num_ens=3, prior_sigma=0.1,
+                  elbo=ELBOConfig(reduction="mean_x_n", fixed_noise_var=1.0))
+    results = {}
+    for dev in ("cpu", cuda_device):
+        t = {k: v.to(dev) for k, v in a.items()}
+        model = BayesianFlat(deeponet_vi_apply(cfg), t["mu"], t["rho"])
+        batch = {"branch": t["branch"], "trunk": t["trunk"], "y": t["y"]}
+        with true_f32():
+            pred = model(batch, eps=t["eps"]).detach()
+            trainer = VITrainer(model, vi, train_size=6 * 400)
+            loss = trainer.step(batch, eps=t["eps"])
+        results[str(dev)] = [x.detach().cpu() for x in
+                             (pred, loss, model.mu.grad, model.rho.grad, model.mu, model.rho)]
+    for got, want in zip(results[str(cuda_device)], results["cpu"]):
+        scale = want.abs().max().item()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6 * scale)
+
+
+def test_chunked_and_unchunked_jacobians_agree_on_cuda(cuda_device):
+    """The small DeepONet's mean squared Jacobian over 6 examples x 40 points,
+    in chunks of 4 (a ragged last chunk) and all at once on the card, and
+    all at once on the CPU: rtol 1e-5 of the largest entry."""
+    from vihmc_torch.pipelines.common import make_flat_deeponet
+    from vihmc_torch.sensitivity import mean_squared_jacobian
+
+    cfg, a = _small_vi_case(22)
+    apply_flat = make_flat_deeponet(cfg)
+
+    def apply_one(f, x):
+        return apply_flat(f[None], x["branch"][None, :], x["trunk"][None])[0, 0]
+
+    out = {}
+    for dev, chunk in (("cpu", 0), (cuda_device, 0), (cuda_device, 4)):
+        inputs = {"branch": a["branch"].to(dev), "trunk": a["trunk"].to(dev)}
+        out[(str(dev), chunk)] = mean_squared_jacobian(apply_one, a["mu"].to(dev), inputs,
+                                                       chunk).cpu()
+    want = out[("cpu", 0)]
+    for key, got in out.items():
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+def test_refresh_on_cuda_keeps_per_chain_frozen_vectors_and_merge_sums_count(cuda_device):
+    """Stage 3 under REFRESH on the card with the fused density and the Gram
+    field (small DeepONet, 3 chains, 6 draws): every chain ends with its own
+    frozen vector, ``merge_sums`` launched 1 + 2 x draws times (the recompute
+    at the new frozen vectors replaces the unpaired one), finite samples."""
+    from vihmc_torch.models.deeponet import DeepONetConfig
+    from vihmc_torch.pipelines.configs import VIHMCRunConfig
+    from vihmc_torch.pipelines.vi_hmc import run_operator
+
+    rng = np.random.default_rng(23)
+    cfg_d = DeepONetConfig(**SMALL_DEEPONET_KW)
+    d = cfg_d.num_params
+    t, x = np.meshgrid(np.linspace(0, 1, 9), np.linspace(0, 1, 11), indexing="ij")
+    split = lambda n: {"branch_in": rng.normal(size=(n, 17)).astype(np.float32),  # noqa: E731
+                       "trunk_in": np.stack([t.ravel(), x.ravel()], -1).astype(np.float32),
+                       "solution": (0.3 * rng.normal(size=(n, 99))).astype(np.float32)}
+    arts = {"mu": (0.1 * rng.normal(size=d)).astype(np.float32),
+            "sigma": (0.02 + 0.03 * rng.random(d)).astype(np.float32),
+            "indices": np.sort(rng.choice(d, size=40, replace=False))}
+    cfg = VIHMCRunConfig(num_samples=6, step_size=1e-3, num_chains=3, num_leapfrog=4,
+                         tau_out=1.0, frozen_policy="refresh", vi_mass=True,
+                         clip_grad=13.0 * 40 ** 0.5, jitter_eps=True, jitter_low_frac=0.5)
+    n = merge_sums.launches
+    out = run_operator(cfg, cfg_d, arts, data=(split(12), split(5)), use_fused=True,
+                       segment_size=3, device=cuda_device)
+    torch.cuda.synchronize()
+    assert merge_sums.launches - n == 1 + 2 * cfg.num_samples
+    aux = out["result"].final_state.aux
+    assert aux.shape == (3, d) and aux.device.type == "cuda"
+    assert not torch.equal(aux[0], aux[1]) and not torch.equal(aux[1], aux[2])
+    assert np.isfinite(out["result"].samples).all()
+    assert all(np.isfinite(v).all() for v in out["metrics"].values())

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity_helpers import tiny_problem
+from torch_parity_helpers import one_torch_thread, tiny_problem  # noqa: F401 (a fixture)
 
 import vihmc_torch.ops.deeponet_merge as tmerge
 from vihmc_tpu.chains.diagnostics import summarize_np as j_summarize
@@ -32,9 +32,10 @@ from vihmc_tpu.pipelines import vi_hmc as jv
 from vihmc_tpu.pipelines.common import make_deeponet_nll_log_posterior as j_make_lp
 from vihmc_tpu.pipelines.common import make_flat_deeponet as j_make_flat
 from vihmc_torch.chains.diagnostics import summarize_np
+from vihmc_torch.chains.resume import sample_chains_resumable, segment_generator
 from vihmc_torch.hmc.kernel import (HMCConfig, TransitionNoise, clipped_grad_fn,
-                                    init_state, make_kernel)
-from vihmc_torch.hmc.subspace import make_subspace_grad
+                                    draw_noise, init_state, make_kernel)
+from vihmc_torch.hmc.subspace import FrozenPolicy, make_aux_refresh, make_subspace_grad
 from vihmc_torch.io.artifacts import RunStore
 from vihmc_torch.models.deeponet import DeepONetConfig
 from vihmc_torch.ops.gram_merge import make_gram_grad_full
@@ -99,13 +100,17 @@ def test_build_subspace_posterior_matches_jax(mass, fused):
     assert spec.subspace_dim == len(tp.idx)
 
 
-def _jax_draws(key, d):
+def _jax_draws(key, d, aux_dim=None):
     """One JAX transition's draws with a diagonal metric: the split of
     kernel.py:494, the momentum normals of metric.py:216, the jitter
-    (kernel.py:552) and accept (kernel.py:649) uniforms."""
-    key_mom, key_u, _key_aux, key_jit = jax.random.split(key, 4)
-    return (np.asarray(jax.random.normal(key_mom, (d,), jnp.float32)),
-            float(jax.random.uniform(key_jit, ())), float(jax.random.uniform(key_u)))
+    (kernel.py:552) and accept (kernel.py:649) uniforms, and with ``aux_dim``
+    the REFRESH hook's normals (``draw_full``, subspace.py:74)."""
+    key_mom, key_u, key_aux, key_jit = jax.random.split(key, 4)
+    out = (np.asarray(jax.random.normal(key_mom, (d,), jnp.float32)),
+           float(jax.random.uniform(key_jit, ())), float(jax.random.uniform(key_u)))
+    if aux_dim is not None:
+        out += (np.asarray(jax.random.normal(key_aux, (aux_dim,), jnp.float32)),)
+    return out
 
 
 @pytest.mark.parametrize("field", ["gram_clipped", "autodiff"])
@@ -166,6 +171,126 @@ def test_unpaired_transition_with_injected_jax_draws(field):
                                    rtol=1e-5)
         n_accept += int(tinfo["accepted"].sum())
     assert 0 < n_accept < 3 * c  # both branches of the MH test were taken
+
+
+@pytest.mark.parametrize("field", ["gram_clipped", "autodiff"])
+def test_refresh_transition_with_injected_jax_draws(field, one_torch_thread):
+    """Three REFRESH transitions of 4 chains on the fused density against the
+    JAX kernel vmapped over chains with its own draws injected (momenta,
+    uniforms and the refresh normals): each chain's new frozen vector (rtol
+    1e-7: the same ``mu + sigma z`` in f32), the accept decisions, steps (rtol
+    1e-6), accept probabilities (atol 1e-4), positions (rtol 1e-4, atol 5e-5)
+    and log-densities (rtol 1e-5). The port's carried log_prob and gradient
+    are poisoned before each step: both must be recomputed at the new frozen
+    vectors."""
+    tp = tiny_problem(seed=26)
+    d, c, big_d = len(tp.idx), 4, tp.mu.size
+    cfg_kw = dict(frozen_policy="refresh", loss="NLL", tau_out=tp.tau, vi_mass=True)
+    (jlp, jaux, jrefresh, jspec, jprior, jim), (tlp, taux, spec, tprior, tim) = _posteriors(
+        tp, cfg_kw)
+    assert jrefresh is not None
+    jfield = tfield = None
+    if field == "gram_clipped":
+        jg, _, _ = j_gram(tp.jcfg, jnp.asarray(tp.bx), jnp.asarray(tp.tx), jnp.asarray(tp.y),
+                          tp.tau)
+        jfield = j_clip(j_sub_grad(jg, jspec, prior=jprior), 40.0, inv_mass=jim)
+        tg = make_gram_grad_full(tp.tcfg, tp.t("bx"), tp.t("tx"), tp.t("y"), tp.tau)
+        tfield = clipped_grad_fn(make_subspace_grad(tg, spec, prior=tprior), 40.0,
+                                 inv_mass=tim)
+    jcfg = JConfig(num_samples=3, num_leapfrog=4, step_size=1.5, sampler="hmc",
+                   jitter_eps=True, jitter_low_frac=0.5)
+    tcfg = HMCConfig(num_samples=3, num_leapfrog=4, step_size=1.5, sampler="hmc",
+                     jitter_eps=True, jitter_low_frac=0.5)
+    rng = np.random.default_rng(26)
+    inits = (tp.mu[tp.idx][None] + 0.5 * tp.sigma[tp.idx][None]
+             * rng.normal(size=(c, d))).astype(np.float32)
+    jkernel = j_make_kernel(jlp, jcfg, inv_mass=jim, aux_refresh=jrefresh, grad_fn=jfield)
+    jstate = jax.vmap(lambda q: j_init_state(jlp, q, jcfg, aux=jaux, inv_mass=jim,
+                                             grad_fn=jfield))(jnp.asarray(inits))
+    tstate = init_state(tlp, torch.as_tensor(inits), tcfg, taux, tfield)
+    tkernel = make_kernel(tcfg, tim, tfield, None, tlp,
+                          aux_refresh=make_aux_refresh(spec, FrozenPolicy.REFRESH))
+    step = jax.vmap(jkernel, in_axes=(0, 0, None))
+    n_accept = 0
+    for it in range(3):
+        keys = jax.random.split(jax.random.key(300 + it), c)
+        draws = [_jax_draws(k, d, big_d) for k in keys]
+        noise = TransitionNoise(z1=torch.as_tensor(np.stack([x[0] for x in draws])), z2=None,
+                                u_jitter=torch.tensor([x[1] for x in draws]),
+                                u_accept=torch.tensor([x[2] for x in draws]),
+                                z_aux=torch.as_tensor(np.stack([x[3] for x in draws])))
+        jstate, jinfo = step(jstate, keys, it)
+        tstate = dataclasses.replace(tstate, log_prob=tstate.log_prob + 1e3,
+                                     grad=tstate.grad * 7.0 + 1.0)  # poison
+        tstate, tinfo = tkernel(tstate, noise)
+        assert tstate.aux.shape == (c, big_d)
+        np.testing.assert_allclose(tstate.aux.numpy(), np.asarray(jstate.aux), rtol=1e-7)
+        np.testing.assert_array_equal(tinfo["accepted"].numpy(), np.asarray(jinfo["accepted"]))
+        np.testing.assert_allclose(tinfo["step_size"].numpy(), np.asarray(jinfo["step_size"]),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(tinfo["accept_prob"].numpy(),
+                                   np.asarray(jinfo["accept_prob"]), rtol=1e-3, atol=1e-4)
+        np.testing.assert_allclose(tstate.position.numpy(), np.asarray(jstate.position),
+                                   rtol=1e-4, atol=5e-5)
+        np.testing.assert_allclose(tinfo["log_prob"].numpy(), np.asarray(jinfo["log_prob"]),
+                                   rtol=1e-5)
+        n_accept += int(tinfo["accepted"].sum())
+    assert 0 < n_accept < 3 * c
+    assert not torch.equal(tstate.aux[0], tstate.aux[1])  # each chain its own
+
+
+def test_refresh_normals_come_after_the_transition_draws():
+    """draw_noise without a refresh consumes the generator as the DRAW path
+    always has (the momentum normals, then the two uniforms); with one it
+    gives the same draws and then the refresh normals. A DRAW run of
+    sample_chains_resumable equals a transition loop fed exactly those
+    draws, so the REFRESH code leaves DRAW and MEAN streams as they were."""
+    c, d, big_d = 3, 5, 11
+    im = torch.linspace(0.5, 2.0, d)
+    plain = draw_noise(torch.Generator().manual_seed(4), im, c, d, "cpu")
+    gen = torch.Generator().manual_seed(4)
+    z1, u = torch.randn((c, d), generator=gen), torch.rand((2, c), generator=gen)
+    z_aux = torch.randn((c, big_d), generator=gen)
+    with_aux = draw_noise(torch.Generator().manual_seed(4), im, c, d, "cpu", aux_dim=big_d)
+    for nz in (plain, with_aux):
+        assert torch.equal(nz.z1, z1) and torch.equal(nz.u_jitter, u[0])
+        assert torch.equal(nz.u_accept, u[1])
+    assert plain.z_aux is None and torch.equal(with_aux.z_aux, z_aux)
+
+    def log_prob(q, aux):
+        return -0.5 * ((q - aux[:d]) ** 2 / im).sum(-1)
+
+    cfg = HMCConfig(num_samples=6, num_leapfrog=3, step_size=0.4, sampler="hmc",
+                    jitter_eps=True)
+    aux = torch.linspace(-1, 1, big_d)
+    q0 = torch.zeros((c, d))
+    res = sample_chains_resumable(log_prob, q0, cfg, 3, im, aux, seed=9)
+    kernel = make_kernel(cfg, im, None, None, log_prob)
+    state = init_state(log_prob, q0, cfg, aux)
+    kept = []
+    for seg in range(2):
+        gen = segment_generator("cpu", 9, seg)
+        for _ in range(3):
+            z1, u = torch.randn((c, d), generator=gen), torch.rand((2, c), generator=gen)
+            state, _ = kernel(state, TransitionNoise(z1=z1, z2=None, u_jitter=u[0],
+                                                     u_accept=u[1]))
+            kept.append(state.position)
+    np.testing.assert_array_equal(res.samples, torch.stack(kept, 1).numpy())
+    assert torch.equal(res.final_state.aux, aux)
+
+
+@pytest.mark.parametrize("policy", ["mean", "draw", "refresh"])
+def test_frozen_policies_initial_vectors_match_jax(policy):
+    """The initial frozen vector: the VI mean under MEAN (as JAX), the given
+    draw under DRAW and REFRESH; a refresh hook only under REFRESH."""
+    tp = tiny_problem(seed=27)
+    cfg_kw = dict(frozen_policy=policy, loss="NLL", tau_out=tp.tau)
+    (_, jaux, jrefresh, _, _, _), (_, taux, spec, _, _) = _posteriors(tp, cfg_kw)
+    np.testing.assert_array_equal(taux.numpy(), np.asarray(jaux))
+    if policy == "mean":
+        np.testing.assert_array_equal(taux.numpy(), tp.mu)
+    hook = make_aux_refresh(spec, FrozenPolicy(policy))
+    assert (hook is None) == (jrefresh is None)
 
 
 @pytest.mark.parametrize("base", ["shared", "per_chain"])
@@ -286,7 +411,7 @@ def test_vihmc_config_matches_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("algorithm", "nuts"), ("frozen_policy", "refresh"), ("frozen_policy", "mean"),
+    ("algorithm", "nuts"), ("loss", "regression"), ("gauss_field_auto", True),
     ("gauss_field", 1.0), ("lowrank_rank", 4), ("adapt_mass", True),
     ("coarse_stride", 2), ("fn_stride", 2), ("sample_data", True),
     ("save_vi_trace", True), ("jitter_l", True), ("adapt_step_size", True),
@@ -361,3 +486,79 @@ def test_run_operator_end_to_end_on_cpu(tiny_burgers_run, use_gram, monkeypatch,
     assert set(out["phases_s"]) == {"data_s", "setup_s", "sampling_s", "evaluate_s"}
     np.testing.assert_array_equal(store.load_array("hmc_params"), res.samples)
     assert store.load_config()["num_samples"] == draws
+
+
+@pytest.mark.parametrize("policy", ["refresh", "mean"])
+def test_run_operator_frozen_policies_on_cpu(tiny_burgers_run, policy, monkeypatch,
+                                            one_torch_thread):
+    """run_operator(device='cpu', use_fused=True) on the tiny Burgers data
+    under REFRESH and MEAN with the Gram field: finite samples and metrics
+    with JAX's metric keys; the fused density still runs 1 + 2 x draws times
+    (under REFRESH the recompute at the new frozen vectors replaces the
+    unpaired recompute) and the Gram field 1 + draws x (L + 1) times under
+    REFRESH, 1 + draws x L under MEAN; REFRESH leaves every chain its own
+    final frozen vector, MEAN the VI mean."""
+    data, arts, cfg_kw, jout = tiny_burgers_run
+    calls, grads = [], []
+    real = tmerge.merge_sums_reference
+
+    def counted(*a):
+        calls.append(1)
+        return real(*a)
+
+    real_gram = tv.make_gram_grad_full
+
+    def counted_gram(*a, **kw):
+        field = real_gram(*a, **kw)
+
+        def wrapped(full):
+            grads.append(1)
+            return field(full)
+
+        return wrapped
+
+    monkeypatch.setattr(tmerge, "merge_sums_reference", counted)
+    monkeypatch.setattr(tv, "make_gram_grad_full", counted_gram)
+    cfg = VIHMCRunConfig(**dict(cfg_kw, frozen_policy=policy))
+    out = tv.run_operator(cfg, DeepONetConfig(**TINY_DEEPONET_KW), arts, data=data,
+                          use_fused=True, segment_size=6, sample_thin=3, device="cpu")
+    draws, n_lf = cfg.num_samples, cfg.L
+    assert len(calls) == 1 + 2 * draws
+    assert len(grads) == 1 + draws * (n_lf + (policy == "refresh"))
+    res = out["result"]
+    assert res.samples.shape == (2, 4, 12) and np.isfinite(res.samples).all()
+    assert 0.0 < res.acceptance_rate <= 1.0
+    assert sorted(out["metrics"]) == sorted(jout["metrics"])
+    assert all(np.isfinite(v).all() for v in out["metrics"].values())
+    aux = res.final_state.aux
+    if policy == "refresh":
+        assert aux.shape == (2, arts["mu"].size) and not torch.equal(aux[0], aux[1])
+    else:
+        np.testing.assert_array_equal(aux.numpy(), arts["mu"])
+
+
+def test_run_nn_end_to_end_on_cpu(tiny_burgers_run, one_torch_thread):
+    """The NN stage 3 on the nn_stage12_r2 bundle with the default config's
+    REFRESH policy and analytic L = 196 (draws and chains cut): JAX's metric
+    keys (``evaluate_samples`` is shared by both workloads), finite samples
+    and metrics, per-chain frozen vectors, the data of regression_data, and
+    JAX's ValueError for the operator-only Gram settings."""
+    from vihmc_torch.data.burgers import ASSETS
+    from vihmc_torch.models.mlp import MLPConfig
+
+    jout = tiny_burgers_run[3]
+    with np.load(f"{ASSETS}/nn_stage12_r2.npz") as z:
+        arts = {k: z[k] for k in ("mu", "sigma", "indices")}
+    cfg_kw = dict(num_samples=6, num_chains=3)
+    assert VIHMCRunConfig(**cfg_kw).L == JC.VIHMCRunConfig(**cfg_kw).L == 196
+    assert VIHMCRunConfig().frozen_policy == "refresh"
+    out = tv.run_nn(VIHMCRunConfig(**cfg_kw), MLPConfig(), arts, seed=2, device="cpu")
+    res = out["result"]
+    assert res.samples.shape == (3, 6, 77)
+    assert np.isfinite(res.samples).all() and 0.0 <= res.acceptance_rate <= 1.0
+    assert sorted(out["metrics"]) == sorted(jout["metrics"])
+    assert all(np.isfinite(v).all() for v in out["metrics"].values())
+    assert res.final_state.aux.shape == (3, 141)
+    assert out["data"]["x_train"].shape == (20, 1) and out["data"]["y_val"].shape == (300, 1)
+    with pytest.raises(ValueError):
+        tv.run_nn(VIHMCRunConfig(coarse_stride=2), MLPConfig(), arts, device="cpu")

@@ -11,6 +11,7 @@ import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from vihmc_tpu.dists.priors import DiagonalGaussianPrior as JPrior
@@ -68,3 +69,13 @@ def tiny_problem(seed=0, n_fn=9, nt=5, nx=4, sub_dim=16, tau=0.5, y_scale=0.5):
     tprior = TPrior(loc=tspec.sub_mu(), scale=tspec.sub_sigma())
     return Tiny(jcfg, tcfg, bx, tx, y, mu, sigma, idx, frozen, tau, jspec,
                 jprior, tspec, tprior)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One CPU thread for torch: the port's tiny models run faster so, and the
+    test workers do not oversubscribe the cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)

@@ -8,8 +8,9 @@ default to ``"cuda"``. The package imports ``torch`` and never JAX.
 The hand-written CUDA kernels (``csrc/``, built with ``nvcc`` at first use):
 ``ops.deeponet_merge.paired_sums`` (the operator row's paired MH delta),
 ``ops.deeponet_merge.merge_sums`` (the fused merge-NLL density of the stage-3
-pipeline) and ``ops.leapfrog.fused_leapfrog_update``. Entry points:
-``bench_operator`` (the operator row) and ``pipelines.vi_hmc`` (stage 3).
+pipeline) and ``ops.leapfrog.fused_leapfrog_update``. Entry points: ``bench_operator``
+(the operator row), ``pipelines.vi_train`` (stages 1 and 2: VI training and
+sensitivity) and ``pipelines.vi_hmc`` (stage 3).
 """
 
 __version__ = "0.1.0"

@@ -4,7 +4,8 @@ Counterpart of ``sample_chains_resumable`` in ``vihmc_tpu/chains/resume.py``
 (:63-176), without the checkpoint/resume half: ``config.num_samples`` draws
 run in segments of ``segment_size``, with the transition paths of
 :func:`vihmc_torch.hmc.kernel.make_kernel` (paired or unpaired MH test,
-fixed or adapted step, gradient-only or autograd trajectory); within a
+fixed or adapted step, gradient-only or autograd trajectory, with or
+without the REFRESH policy's ``aux_refresh``); within a
 segment every draw advances all chains with one call of the transition, the
 kept positions (every ``thin``-th) stay on the device, and the segment's
 samples and per-draw info arrays go to the host once, at its end. Each
@@ -21,6 +22,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from vihmc_torch.core.device import stream_generator
 from vihmc_torch.hmc.kernel import (HMCConfig, HMCState, draw_noise,
                                     init_state, make_kernel)
 
@@ -47,9 +49,7 @@ class SampleResult:
 
 
 def segment_generator(device, seed: int, segment: int) -> torch.Generator:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed) * 1_000_003 + int(segment))
-    return gen
+    return stream_generator(device, seed, segment)
 
 
 def sample_chains_resumable(log_prob_fn: Callable, init_positions: torch.Tensor,
@@ -57,11 +57,15 @@ def sample_chains_resumable(log_prob_fn: Callable, init_positions: torch.Tensor,
                             aux: torch.Tensor, grad_fn: Optional[Callable] = None,
                             delta_fn: Optional[Callable] = None, thin: int = 1,
                             seed: int = 0,
-                            progress: Optional[Callable] = None) -> SampleResult:
+                            progress: Optional[Callable] = None,
+                            aux_refresh: Optional[Callable] = None) -> SampleResult:
     """Run ``config.num_samples`` draws of all chains (see module doc).
 
     ``grad_fn`` None: the trajectory differentiates ``log_prob_fn`` by
     autograd; ``delta_fn`` None: the unpaired MH test on ``log_prob_fn``.
+    ``aux_refresh(z (C, D)) -> (C, D)``: redraw every chain's frozen vector
+    before each draw from normals drawn after the transition's own (so the
+    final state's ``aux`` is ``(C, D)``).
 
     ``progress(segment, n_segments, state)`` is called after each segment,
     once its samples are on the host.
@@ -72,8 +76,9 @@ def sample_chains_resumable(log_prob_fn: Callable, init_positions: torch.Tensor,
     if thin < 1 or segment_size % thin:
         raise ValueError("thin must divide segment_size")
     dev = init_positions.device
-    kernel = make_kernel(config, inv_mass, grad_fn, delta_fn, log_prob_fn)
+    kernel = make_kernel(config, inv_mass, grad_fn, delta_fn, log_prob_fn, aux_refresh)
     state = init_state(log_prob_fn, init_positions, config, aux, grad_fn)
+    aux_dim = None if aux_refresh is None else aux.shape[-1]
 
     collected = []
     infos = {k: [] for k in INFO_KEYS}
@@ -81,7 +86,8 @@ def sample_chains_resumable(log_prob_fn: Callable, init_positions: torch.Tensor,
         gen = segment_generator(dev, seed, seg)
         kept, seg_info = [], {k: [] for k in INFO_KEYS}
         for i in range(segment_size):
-            state, info = kernel(state, draw_noise(gen, inv_mass, n_chains, dim, dev))
+            state, info = kernel(state, draw_noise(gen, inv_mass, n_chains, dim, dev,
+                                                   aux_dim))
             if (i + 1) % thin == 0:
                 kept.append(state.position)
             for k in INFO_KEYS:

@@ -1,8 +1,9 @@
 """Carry the JAX package's numpy arrays into the port's tensors.
 
 The tests use these to put both sides on identical inputs: a flat parameter
-vector, a low-rank metric, a sampler state. They take numpy arrays (what
-``np.asarray`` of a JAX array gives) and never import JAX.
+vector, a parameter or variational tree, a low-rank metric, a sampler state.
+They take numpy arrays (what ``np.asarray`` of a JAX array gives) and never
+import JAX.
 """
 
 from __future__ import annotations
@@ -18,6 +19,37 @@ from vihmc_torch.models.deeponet import DeepONetConfig, unravel_deeponet
 
 def _t(x, device="cpu", dtype=torch.float32):
     return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def flat_from_tree(tree) -> np.ndarray:
+    """The ``ravel_pytree`` flat vector of a JAX parameter tree given as numpy
+    arrays: dict keys in sorted order, lists and tuples in order, each leaf
+    raveled row-major (so a linear layer's ``b`` comes before its ``w``)."""
+    leaves = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k])
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+        else:
+            leaves.append(np.asarray(node, dtype=np.float32).ravel())
+
+    walk(tree)
+    return np.concatenate(leaves) if leaves else np.zeros(0, np.float32)
+
+
+def params_from_tree(tree, device="cpu") -> torch.Tensor:
+    """A JAX MLP or DeepONet parameter tree as the port's flat ``(D,)`` tensor."""
+    return _t(flat_from_tree(tree), device)
+
+
+def vp_from_jax(vp, device="cpu") -> dict:
+    """A JAX variational tree ``{'mu': tree, 'rho': tree}`` as the port's flat
+    ``{'mu': (D,), 'rho': (D,)}``."""
+    return {k: params_from_tree(vp[k], device) for k in ("mu", "rho")}
 
 
 def params_from_flat(flat_np, cfg: DeepONetConfig, device="cpu") -> dict:

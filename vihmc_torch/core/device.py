@@ -1,7 +1,9 @@
-"""Device policy of the entry points: the card unless the caller asks for the CPU."""
+"""Device policy of the entry points (the card unless the caller asks for
+the CPU), the seeded generator streams of a run, and tensor placement."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -18,3 +20,25 @@ def resolve_device(device="cuda") -> torch.device:
             "vihmc_torch entry points run on a CUDA device by default and "
             "none is available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def stream_generator(device, seed: int, stream: int) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed * 1_000_003 +
+    stream``: the independent random streams of one run seed (a sampler's
+    segment i is stream i; the pipelines use streams from 700,001 up)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed) * 1_000_003 + int(stream))
+    return gen
+
+
+def to_f32(x, device) -> torch.Tensor:
+    """A float32 tensor on ``device`` from a tensor or an array (arrays are
+    copied, so read-only numpy views are fine)."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x, dtype=np.float32))
+    return x.to(device=device, dtype=torch.float32)
+
+
+def split_to(split: dict, device) -> dict:
+    """Every entry of a data split as a contiguous float32 tensor on ``device``."""
+    return {k: to_f32(v, device).contiguous() for k, v in split.items()}

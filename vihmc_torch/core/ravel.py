@@ -33,27 +33,30 @@ class LinearSlice:
         return self.w + self.d_in * self.d_out
 
 
-def stack_slices(dims, start: int):
+def stack_slices(dims, start: int, biases=None):
     """Slices of a stack of linear layers ``dims = [(d_in, d_out), ...]``
-    laid out from ``start``. Returns ``(slices, end)``."""
+    laid out from ``start``; ``biases[i]`` False leaves layer i without a
+    bias (``b == w``). Returns ``(slices, end)``."""
     out, pos = [], start
-    for d_in, d_out in dims:
-        sl = LinearSlice(b=pos, w=pos + d_out, d_in=d_in, d_out=d_out)
+    for i, (d_in, d_out) in enumerate(dims):
+        n_b = d_out if biases is None or biases[i] else 0
+        sl = LinearSlice(b=pos, w=pos + n_b, d_in=d_in, d_out=d_out)
         out.append(sl)
         pos = sl.end
     return out, pos
 
 
 def unravel_stack(flat: torch.Tensor, slices):
-    """Per-layer ``(w (C, out, in), b (C, out))`` views of a ``(C, D)`` batch."""
+    """Per-layer ``(w (C, out, in), b (C, out) or None)`` views of a ``(C, D)`` batch."""
     c = flat.shape[0]
     return [(flat[:, s.w:s.end].reshape(c, s.d_out, s.d_in),
-             flat[:, s.b:s.w]) for s in slices]
+             flat[:, s.b:s.w] if s.w > s.b else None) for s in slices]
 
 
 def scatter_subspace(frozen: torch.Tensor, sub: torch.Tensor,
                      idx: torch.Tensor) -> torch.Tensor:
-    """Full ``(C, D)`` vectors: ``frozen`` (D,) with ``sub`` (C, d) written at ``idx``."""
+    """Full ``(C, D)`` vectors: ``frozen`` (D,) or (C, D) with ``sub`` (C, d)
+    written at ``idx``."""
     full = frozen.expand(sub.shape[0], -1).clone()
     full[:, idx] = sub
     return full

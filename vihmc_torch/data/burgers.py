@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import math
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -131,3 +132,19 @@ def get_burgers(device="cuda", n_train=None, n_valid=None, path: str = PORT_INPU
                 "solution": data["solution"][lo:hi].contiguous()}
 
     return rows(0, n_train), rows(n_train, n_train + n_valid)
+
+
+def subsample_trunk(split: dict, p: int, generator: Optional[torch.Generator] = None,
+                    idx: Optional[torch.Tensor] = None):
+    """Per-example random choice of ``p`` query points without replacement
+    (the reference's stochastic trunk subsampling). ``split`` holds
+    ``trunk_in`` (P, 2) and ``solution`` (B, P); ``idx`` (B, p) injects the
+    chosen indices, else they are the ``p`` largest of B x P uniforms from
+    ``generator`` (a uniformly random ``p``-subset per row). Returns
+    ``(trunk (B, p, 2), y (B, p))``."""
+    trunk, sol = split["trunk_in"], split["solution"]
+    if idx is None:
+        u = torch.rand(sol.shape, generator=generator, device=sol.device)
+        idx = u.topk(p, dim=-1).indices
+    idx = torch.as_tensor(idx, dtype=torch.int64, device=sol.device)
+    return trunk[idx], torch.gather(sol, 1, idx)

@@ -9,8 +9,8 @@ from vihmc_torch.hmc.metric import (LowRankMetric, lanczos_eigs,
                                     lowrank_from_eigs, make_lowrank_metric,
                                     mass_kinetic_energy, mass_sample_momentum,
                                     mass_velocity, preconditioned_hvp)
-from vihmc_torch.hmc.subspace import (FrozenPolicy, SubspaceSpec,
-                                      make_subspace_grad,
+from vihmc_torch.hmc.subspace import (FrozenPolicy, SubspaceSpec, draw_full,
+                                      make_aux_refresh, make_subspace_grad,
                                       make_subspace_log_prob)
 
 __all__ = [
@@ -19,6 +19,6 @@ __all__ = [
     "draw_noise", "init_state", "make_kernel", "value_and_grad", "LowRankMetric",
     "lanczos_eigs", "lowrank_from_eigs", "make_lowrank_metric",
     "mass_kinetic_energy", "mass_sample_momentum", "mass_velocity",
-    "preconditioned_hvp", "FrozenPolicy", "SubspaceSpec",
-    "make_subspace_grad", "make_subspace_log_prob",
+    "preconditioned_hvp", "FrozenPolicy", "SubspaceSpec", "draw_full",
+    "make_aux_refresh", "make_subspace_grad", "make_subspace_log_prob",
 ]

@@ -6,6 +6,11 @@ operator row and the stage-3 operator pipeline take:
 * the trajectory: gradient-only leapfrog on ``grad_fn`` (a Gram field or a
   clipped autodiff field), or, with no ``grad_fn``, value-and-grad leapfrog
   on autograd of ``log_prob_fn`` (integrators.py:27-50);
+* the frozen-coordinate refresh (``aux_refresh``, kernel.py:497-506): before
+  the draw each chain's frozen vector is redrawn (so ``aux`` becomes
+  ``(C, D)``) and lp0 and the trajectory field at q0 are recomputed at it --
+  that one density evaluation replaces the unpaired test's recompute below.
+  JAX's ``refresh_during_burn=False`` is not ported (no pipeline sets it);
 * the MH test: the PAIRED delta ``delta_fn`` with no density recompute at q0
   (kernel.py:507-515), or, with no ``delta_fn``, the unpaired test
   ``(lp1 - ke1) - (lp0 - ke0)`` with lp0 RECOMPUTED in every transition and
@@ -64,7 +69,7 @@ class HMCState:
     log_prob: torch.Tensor          # (C,)
     grad: torch.Tensor              # (C, d) -- the trajectory field at position
     da: DualAveragingState          # fields (C,)
-    aux: torch.Tensor               # (D,) frozen full vector, shared
+    aux: torch.Tensor               # frozen full vector: (D,) shared, or (C, D) per chain
 
 
 @dataclasses.dataclass
@@ -75,15 +80,21 @@ class TransitionNoise:
     z2: Optional[torch.Tensor]      # (C, k) low-rank momentum normals, or None
     u_jitter: torch.Tensor          # (C,) U[0, 1) for the step jitter
     u_accept: torch.Tensor          # (C,) U[0, 1) for the MH test
+    z_aux: Optional[torch.Tensor] = None  # (C, D) normals of the frozen refresh, or None
 
 
 def draw_noise(generator: torch.Generator, inv_mass, n_chains: int, dim: int,
-               device) -> TransitionNoise:
+               device, aux_dim: Optional[int] = None) -> TransitionNoise:
+    """One transition's draws, in this order: the momentum normals, the two
+    uniforms and, only when ``aux_dim`` is given (REFRESH), the refresh
+    normals -- so runs without a refresh keep their streams."""
     s1, s2 = momentum_normals_shape(inv_mass, n_chains, dim)
     z1 = torch.randn(s1, generator=generator, device=device)
     z2 = None if s2 is None else torch.randn(s2, generator=generator, device=device)
     u = torch.rand((2, n_chains), generator=generator, device=device)
-    return TransitionNoise(z1=z1, z2=z2, u_jitter=u[0], u_accept=u[1])
+    z_aux = None if aux_dim is None else torch.randn((n_chains, aux_dim),
+                                                     generator=generator, device=device)
+    return TransitionNoise(z1=z1, z2=z2, u_jitter=u[0], u_accept=u[1], z_aux=z_aux)
 
 
 def value_and_grad(log_prob_fn: Callable, q: torch.Tensor, aux):
@@ -130,27 +141,40 @@ def clipped_grad_fn(base: Callable, max_norm: float, inv_mass=1.0,
 
 def make_kernel(config: HMCConfig, inv_mass, grad_fn: Optional[Callable] = None,
                 delta_fn: Optional[Callable] = None,
-                log_prob_fn: Optional[Callable] = None):
+                log_prob_fn: Optional[Callable] = None,
+                aux_refresh: Optional[Callable] = None):
     """``kernel(state, noise) -> (state, info)`` for all chains at once.
 
     ``grad_fn(q (C, d), aux) -> (C, d)`` is the trajectory field (None:
     autograd of ``log_prob_fn``); ``delta_fn(q1, q0, aux) -> (log p(q1) -
     log p(q0), log p(q1))``, each ``(C,)`` (None: the unpaired test on
     ``log_prob_fn(q (C, d), aux) -> (C,)``, lp0 recomputed in-step).
+    ``aux_refresh(z (C, D)) -> aux (C, D)`` redraws the frozen vectors from
+    ``noise.z_aux`` before each draw (the REFRESH policy).
     """
     if config.sampler not in ("hmc", "hmc_nuts"):
         raise ValueError(f"sampler {config.sampler!r}: 'hmc' or 'hmc_nuts'")
-    if log_prob_fn is None and (delta_fn is None or grad_fn is None):
-        raise ValueError("log_prob_fn is needed unless both grad_fn and delta_fn are given")
+    if log_prob_fn is None and (delta_fn is None or grad_fn is None
+                                or aux_refresh is not None):
+        raise ValueError("log_prob_fn is needed unless both grad_fn and delta_fn are given "
+                         "and there is no refresh")
     n_lf = config.num_leapfrog
     adapt = config.sampler == "hmc_nuts"
     low = min(max(config.jitter_low_frac, 1.0 / max(n_lf, 1)), 1.0)
 
     def kernel(state: HMCState, noise: TransitionNoise):
-        aux = state.aux
-        q0, g0 = state.position, state.grad
-        # paired: the MH test never reads lp0; unpaired: recompute, never cache
-        lp0 = state.log_prob if delta_fn is not None else log_prob_fn(q0, aux)
+        q0 = state.position
+        if aux_refresh is not None:
+            # new frozen vectors: the density and the field at q0 change too
+            aux = aux_refresh(noise.z_aux)
+            if grad_fn is not None:
+                lp0, g0 = log_prob_fn(q0, aux), grad_fn(q0, aux)
+            else:
+                lp0, g0 = value_and_grad(log_prob_fn, q0, aux)
+        else:
+            aux, g0 = state.aux, state.grad
+            # paired: the MH test never reads lp0; unpaired: recompute, never cache
+            lp0 = state.log_prob if delta_fn is not None else log_prob_fn(q0, aux)
         if adapt:
             eps = torch.exp(state.da.log_step)
         else:

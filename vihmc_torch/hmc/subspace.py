@@ -1,11 +1,18 @@
-"""Subspace (VI-HMC) sampling: the 'draw' frozen policy over the flat vector.
+"""Subspace (VI-HMC) sampling: frozen-coordinate policies over the flat vector.
 
 Counterpart of ``vihmc_tpu/hmc/subspace.py`` (:35-145). HMC runs over the
-sensitive coordinates ``idx`` only; the other coordinates stay frozen at one
-VI-posterior draw (``FrozenPolicy.DRAW``). JAX makes that draw from
-``jax.random.key(0)``; the port reads the same vector from the exported asset
-(``assets/burgers_r2_port_inputs.npz``, ``frozen_draw``), since PyTorch cannot
-replay ``jax.random``. ``MEAN`` and ``REFRESH`` are not ported.
+sensitive coordinates ``idx`` only; the other coordinates are frozen:
+
+``FrozenPolicy.MEAN``     at the VI means;
+``FrozenPolicy.DRAW``     at one VI-posterior draw taken at init;
+``FrozenPolicy.REFRESH``  re-drawn from the VI posterior before every draw,
+                          each chain its own (the reference's resample hook).
+
+JAX makes the DRAW/REFRESH initial draw from a threefry key, which PyTorch
+cannot replay: the caller passes the initial frozen vector (drawn from a
+``torch.Generator``, or JAX's own, e.g. the operator row's exported
+``frozen_draw``), and the refresh hook takes the standard normals of the new
+draws, which the transition draws from its generator (or a test injects).
 """
 
 from __future__ import annotations
@@ -20,7 +27,9 @@ from vihmc_torch.core.ravel import scatter_subspace
 
 
 class FrozenPolicy(enum.Enum):
+    MEAN = "mean"
     DRAW = "draw"
+    REFRESH = "refresh"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,23 +51,44 @@ class SubspaceSpec:
         return self.sigma[self.idx]
 
 
-def make_subspace_log_prob(full_log_prob: Callable, spec: SubspaceSpec,
-                           frozen_draw: torch.Tensor,
-                           policy: FrozenPolicy = FrozenPolicy.DRAW):
-    """``(log_prob(q (C, d), aux) -> (C,), aux0)`` for the DRAW policy.
+def draw_full(spec: SubspaceSpec, z: torch.Tensor) -> torch.Tensor:
+    """Full-vector draws from the VI posterior, ``mu + sigma z``, for standard
+    normals ``z`` (..., D) (the reference ``sample_weights``)."""
+    return spec.mu + spec.sigma * z
 
-    ``full_log_prob`` takes full ``(C, D)`` vectors; ``aux0`` is the frozen
-    full vector ``frozen_draw`` (D,). The JAX function also returns a refresh
-    hook, which is None under DRAW and is dropped here.
+
+def make_subspace_log_prob(full_log_prob: Callable, spec: SubspaceSpec,
+                           frozen_draw=None, policy: FrozenPolicy = FrozenPolicy.DRAW):
+    """``(log_prob(q (C, d), aux) -> (C,), aux0)``.
+
+    ``full_log_prob`` takes full ``(C, D)`` vectors. ``aux0`` is the VI mean
+    under MEAN, else ``frozen_draw`` (D,), the initial frozen draw. ``aux``
+    may be ``(D,)`` (shared by the chains) or ``(C, D)`` (one per chain, as
+    REFRESH leaves it). The JAX function also returns the refresh hook:
+    here that is :func:`make_aux_refresh`.
     """
-    if policy is not FrozenPolicy.DRAW:
-        raise NotImplementedError(f"frozen policy {policy} is not ported")
     idx = spec.idx
+    if policy is FrozenPolicy.MEAN:
+        aux0 = spec.mu
+    elif policy in (FrozenPolicy.DRAW, FrozenPolicy.REFRESH):
+        if frozen_draw is None:
+            raise ValueError(f"FrozenPolicy.{policy.name} requires the initial frozen draw")
+        aux0 = frozen_draw
+    else:
+        raise ValueError(f"unknown policy {policy}")
 
     def log_prob(q_sub, frozen):
         return full_log_prob(scatter_subspace(frozen, q_sub, idx))
 
-    return log_prob, frozen_draw
+    return log_prob, aux0
+
+
+def make_aux_refresh(spec: SubspaceSpec, policy: FrozenPolicy):
+    """The REFRESH hook ``refresh(z (C, D)) -> (C, D)``: each chain's new
+    frozen vector ``mu + sigma z``; None under MEAN and DRAW."""
+    if policy is not FrozenPolicy.REFRESH:
+        return None
+    return lambda z: draw_full(spec, z)
 
 
 def make_subspace_grad(full_grad: Callable, spec: SubspaceSpec, prior=None):

@@ -69,6 +69,12 @@ class RunStore:
         with open(os.path.join(self.path, f"{name}.json")) as f:
             return json.load(f)
 
+    def append_metrics_row(self, row, name: str = "output") -> None:
+        """Per-epoch metric lines, one file per run (the reference writes
+        '<uid>_output.txt')."""
+        with open(os.path.join(self.path, f"{name}.txt"), "a") as f:
+            f.write(" ".join(f"{v:.8g}" for v in row) + "\n")
+
     @classmethod
     def open(cls, root: str, uid: str) -> "RunStore":
         store = cls.__new__(cls)

@@ -7,15 +7,18 @@ bias. Parameters are a ``(C, D)`` flat batch in the JAX package's
 ``ravel_pytree`` order (:mod:`vihmc_torch.core.ravel`):
 ``[b, branch[0].b, branch[0].w, ..., trunk[0].b, trunk[0].w, ...]``.
 
-Only the shared-grid path (``trunk_x`` of shape ``(P, 2)``) and the
-homoscedastic head (``noise_neurons = 0``) are ported: the operator row uses
-nothing else.
+Both query paths are ported: a grid shared by every example (``trunk_x``
+of shape ``(P, 2)``, one matmul per chain) and per-example points
+(``(B, p, 2)``, the VI trainer's and the sensitivity stage's subsampled
+trunks, merged as ``einsum("bk,bpk->bp")`` per chain). The heteroscedastic
+head (``noise_neurons > 0``) is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -78,6 +81,19 @@ def unravel_deeponet(cfg: DeepONetConfig, flat: torch.Tensor) -> dict:
             "trunk": unravel_stack(flat, sl["trunk"])}
 
 
+def init_deeponet(cfg: DeepONetConfig, generator: Optional[torch.Generator] = None,
+                  device="cpu") -> torch.Tensor:
+    """A flat ``(D,)`` vector: the merge bias 0 (the reference's init), each
+    linear layer ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` as torch.nn.Linear.
+    JAX draws the same law from its key; the values differ."""
+    sl = param_slices(cfg)
+    flat = torch.zeros(sl["size"], device=device)
+    for s in sl["branch"] + sl["trunk"]:
+        flat[s.b:s.end].uniform_(-1.0 / math.sqrt(s.d_in), 1.0 / math.sqrt(s.d_in),
+                                 generator=generator)
+    return flat
+
+
 def bc_embedding(xy: torch.Tensor) -> torch.Tensor:
     """``[t, sin 2 pi x, sin 4 pi x, cos 2 pi x, cos 4 pi x]`` of (..., 2) points."""
     keep = xy[..., 0:1]
@@ -91,20 +107,29 @@ def bc_embedding(xy: torch.Tensor) -> torch.Tensor:
 
 def deeponet_features(cfg: DeepONetConfig, params: dict, branch_x: torch.Tensor,
                       trunk_x: torch.Tensor):
-    """Latent features before the merge: ``(bout (C, B, K), tout (C, P, K))``.
+    """Latent features before the merge: ``(bout (C, B, K), tout (C, P, K))``,
+    or ``tout (C, B, p, K)`` for per-example points ``trunk_x`` (B, p, 2).
 
-    ``branch_x`` (B, in_branch) and ``trunk_x`` (P, 2) are shared by every
-    chain; they must have the parameters' dtype.
+    ``branch_x`` (B, in_branch) and ``trunk_x`` are shared by every chain;
+    they must have the parameters' dtype.
     """
     trunk_in = bc_embedding(trunk_x) if cfg.impose_bc else trunk_x
-    return (mlp_stack(params["branch"], branch_x, cfg.activation),
-            mlp_stack(params["trunk"], trunk_in, cfg.activation))
+    bout = mlp_stack(params["branch"], branch_x, cfg.activation)
+    if trunk_x.ndim == 2:
+        return bout, mlp_stack(params["trunk"], trunk_in, cfg.activation)
+    # per-example points: one (B p, in) stack, shared by the chains
+    tout = mlp_stack(params["trunk"], trunk_in.reshape(-1, trunk_in.shape[-1]),
+                     cfg.activation)
+    return bout, tout.reshape(tout.shape[0], *trunk_x.shape[:-1], tout.shape[-1])
 
 
 def deeponet_apply(cfg: DeepONetConfig, params: dict, branch_x: torch.Tensor,
                    trunk_x: torch.Tensor) -> torch.Tensor:
-    """``(C, B, P)`` predictions on a shared query grid."""
-    if trunk_x.ndim != 2:
-        raise NotImplementedError("only the shared-query-grid path is ported")
+    """``(C, B, P)`` predictions on a shared query grid ``(P, 2)``, or
+    ``(C, B, p)`` on per-example points ``(B, p, 2)``."""
     bout, tout = deeponet_features(cfg, params, branch_x, trunk_x)
-    return torch.matmul(bout, tout.transpose(-1, -2)) + params["b"][:, None, None]
+    if trunk_x.ndim == 2:
+        y = torch.matmul(bout, tout.transpose(-1, -2))
+    else:
+        y = torch.einsum("cbk,cbpk->cbp", bout, tout)
+    return y + params["b"][:, None, None]

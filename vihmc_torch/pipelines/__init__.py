@@ -1,1 +1,1 @@
-"""Flat-vector closures and MH delta evaluators (counterpart of ``vihmc_tpu.pipelines.common``)."""
+"""The three stages' pipelines and their plumbing (counterpart of ``vihmc_tpu.pipelines``)."""

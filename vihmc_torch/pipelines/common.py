@@ -1,7 +1,8 @@
-"""Flat-vector DeepONet closures, log-densities and the MH delta evaluators.
+"""Flat-vector model closures, log-densities and the MH delta evaluators.
 
-Counterpart of ``vihmc_tpu/pipelines/common.py``: ``make_flat_deeponet``
-(:50-66), ``make_deeponet_nll_log_posterior`` (:98-128, the fused merge-NLL
+Counterpart of ``vihmc_tpu/pipelines/common.py``: ``make_flat_mlp``
+(:27-47), ``make_flat_deeponet`` (:50-66), the VI-trainer adapters
+``mlp_vi_apply`` and ``deeponet_vi_apply`` (:135-151), ``make_deeponet_nll_log_posterior`` (:98-128, the fused merge-NLL
 density of the stage-3 pipeline), ``make_paired_subspace_delta`` (:154-192,
 the composed plain path) and ``make_fused_paired_subspace_delta`` (:195-226,
 the kernel path the operator row runs on the card), plus the preconditioned
@@ -19,10 +20,25 @@ import torch
 from vihmc_torch.core.precision import true_f32
 from vihmc_torch.core.ravel import scatter_subspace
 from vihmc_torch.dists.likelihoods import GNLL_EPS, nll_log_likelihood
+from vihmc_torch.models.bayesian import (bayesian_deeponet_apply, bayesian_mlp_apply,
+                                         check_mode)
 from vihmc_torch.models.deeponet import (DeepONetConfig, deeponet_apply,
                                          deeponet_features, unravel_deeponet)
+from vihmc_torch.models.mlp import MLPConfig, mlp_apply
 from vihmc_torch.ops.deeponet_merge import (fused_merge_nll, fused_paired_delta,
                                             merge_nll_reference, y_sums)
+
+
+def make_flat_mlp(cfg: MLPConfig, compute_dtype=None):
+    """``apply_flat(flat (C, D), x (N, in)) -> (C, N, out)`` f32 (see
+    :func:`make_flat_deeponet` for ``compute_dtype``)."""
+
+    def apply_flat(flat, x):
+        if compute_dtype is None:
+            return mlp_apply(cfg, flat, x)
+        return mlp_apply(cfg, flat.to(compute_dtype), x.to(compute_dtype)).float()
+
+    return apply_flat
 
 
 def make_flat_deeponet(cfg: DeepONetConfig, compute_dtype=None):
@@ -71,6 +87,29 @@ def make_deeponet_nll_log_posterior(cfg: DeepONetConfig, branch_x, trunk_x, y,
         return ll
 
     return log_prob
+
+
+def mlp_vi_apply(cfg: MLPConfig, mode: str = "bbb"):
+    """``apply_fn(vp, batch{'x', 'y'}, eps, sample) -> (E, N, out)`` for the VI
+    trainer (``eps`` (E, D): the weight draws' normals, in place of JAX's key)."""
+    check_mode(mode)
+
+    def apply_fn(vp, batch, eps=None, sample=True):
+        return bayesian_mlp_apply(cfg, vp, batch["x"], eps, sample, mode)
+
+    return apply_fn
+
+
+def deeponet_vi_apply(cfg: DeepONetConfig, mode: str = "bbb"):
+    """``apply_fn(vp, batch{'branch', 'trunk', 'y'}, eps, sample) -> (E, B, P)``
+    for the VI trainer; ``batch['trunk']`` is a shared grid or per-example points."""
+    check_mode(mode)
+
+    def apply_fn(vp, batch, eps=None, sample=True):
+        return bayesian_deeponet_apply(cfg, vp, batch["branch"], batch["trunk"], eps,
+                                       sample, mode)
+
+    return apply_fn
 
 
 def conditional_warm_start(grad_fn, aux, q0, inv_mass_diag, n_steps: int,

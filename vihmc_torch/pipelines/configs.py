@@ -1,8 +1,9 @@
-"""The subspace VI-HMC run config.
+"""The run configs of the three stages.
 
-Counterpart of ``VIHMCRunConfig`` and ``trajectory_length`` in
-``vihmc_tpu/pipelines/configs.py`` (:25-28, :86-254): the same fields, the
-same defaults, and the reference's analytic trajectory-length rule
+Counterparts of ``NNVIRunConfig``, ``SensitivityRunConfig``,
+``VIHMCRunConfig``, ``OperatorVIRunConfig`` and ``trajectory_length`` in
+``vihmc_tpu/pipelines/configs.py`` (:25-28, :56-83, :86-254, :257-275): the
+same fields, the same defaults, and the reference's analytic trajectory-length rule
 ``L = int(pi * post_var / (2 * step_size))``. Every field is kept so that a
 JAX run's config means the same here; :func:`vihmc_torch.pipelines.vi_hmc.
 run_subspace_hmc` raises ``NotImplementedError`` on the values the port does
@@ -16,11 +17,44 @@ import dataclasses
 import math
 from typing import Optional
 
+from vihmc_torch.models.deeponet import DeepONetConfig
+from vihmc_torch.models.mlp import MLPConfig
+from vihmc_torch.vi.elbo import ELBOConfig
+from vihmc_torch.vi.train import VIConfig
+
 
 def trajectory_length(post_var: float, step_size: float) -> int:
     """Half a period of the harmonic oscillator with the posterior's
     marginal variance (the reference's L rule)."""
     return max(1, int(math.pi * post_var / (2.0 * step_size)))
+
+
+@dataclasses.dataclass(frozen=True)
+class NNVIRunConfig:
+    """NN VI training (the reference's Neural_network/VI config)."""
+
+    model: MLPConfig = dataclasses.field(default_factory=MLPConfig)
+    n_train: int = 20
+    n_val: int = 300
+    noise: float = 5e-2
+    vi: VIConfig = dataclasses.field(default_factory=lambda: VIConfig(
+        epochs=10_000, lr_start=1e-2, patience=100, num_ens=10, beta_type=1.0,
+        prior_mu=0.0, prior_sigma=1.0,
+        elbo=ELBOConfig(reduction="sum", fixed_noise_var=5e-2**2),
+    ))
+    posterior_mu_initial: tuple = (0.0, 0.1)
+    posterior_rho_initial: tuple = (-3.0, 0.1)
+    mode: str = "bbb"
+    num_uq_samps: int = 500
+
+
+@dataclasses.dataclass(frozen=True)
+class SensitivityRunConfig:
+    """The sensitivity stage (the reference's config_sens modules)."""
+
+    importance_threshold: float = 0.90
+    batch_chunk: int = 0     # stream Jacobian batches in chunks (>0)
+    p_subsample: int = 100   # trunk points used for operator Jacobians
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,3 +118,23 @@ class VIHMCRunConfig:
     @property
     def burn_(self) -> int:
         return self.num_samples // 5 if self.burn is None else self.burn
+
+
+@dataclasses.dataclass(frozen=True)
+class OperatorVIRunConfig:
+    """Operator VI training (the reference's Operator_network/VI config)."""
+
+    model: DeepONetConfig = dataclasses.field(default_factory=DeepONetConfig)
+    dataset: str = "Burgers"         # 'Burgers' | 'Cone' (Cone is not ported)
+    n_train: int = 1000
+    n_valid: int = 1000
+    batch_size: int = 128
+    p: int = 10201                   # trunk points per example (subsample if < grid)
+    vi: VIConfig = dataclasses.field(default_factory=lambda: VIConfig(
+        epochs=1000, lr_start=1e-3, patience=50, num_ens=5, beta_type=1.0,
+        prior_mu=0.0, prior_sigma=0.1,
+        elbo=ELBOConfig(reduction="mean_x_n", fixed_noise_var=1.0),
+    ))
+    posterior_mu_initial: tuple = (0.0, 0.1)
+    posterior_rho_initial: tuple = (-5.0, 0.1)
+    mode: str = "bbb"

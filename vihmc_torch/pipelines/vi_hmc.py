@@ -1,43 +1,52 @@
-"""VI-HMC over the sensitivity-selected subspace: the stage-3 operator pipeline.
+"""VI-HMC over the sensitivity-selected subspace: the stage-3 pipelines.
 
 Counterpart of ``vihmc_tpu/pipelines/vi_hmc.py`` (``make_spec``,
 ``make_subspace_prior``, ``build_subspace_posterior``, ``chain_inits``,
-``evaluate_samples``, ``run_subspace_hmc`` and ``run_operator``), on the
-paths the stage-3 operator run takes (``scripts/run_operator_stage3.py
---variant autodiff``, the reference's ``main_VI_HMC_burgers.py``):
+``evaluate_samples``, ``run_subspace_hmc``, ``run_nn`` and
+``run_operator``), on the paths the stage-3 runs take
+(``scripts/run_operator_stage3.py --variant autodiff``, the reference's
+``main_VI_HMC_burgers.py`` and ``main_VI_HMC.py``):
 
-* the posterior: the Burgers DeepONet likelihood over the full flat vector
-  with the insensitive coordinates frozen at one VI draw (DRAW policy), plus
-  the VI-posterior subspace prior; with ``use_fused`` the likelihood is the
-  fused merge-NLL (``ops.deeponet_merge.fused_merge_nll``: one ``merge_sums``
-  kernel launch per evaluation for all chains);
+* the posterior: the likelihood over the full flat vector with the
+  insensitive coordinates frozen per ``frozen_policy`` -- at the VI mean
+  (MEAN), at one VI draw (DRAW), or redrawn for every chain before every draw
+  (REFRESH, the configs' default) -- plus the VI-posterior subspace prior;
+  with ``use_fused`` the Burgers likelihood is the fused merge-NLL
+  (``ops.deeponet_merge.fused_merge_nll``: one ``merge_sums`` kernel launch
+  per evaluation for all chains);
 * the trajectory field: the full-grid Gram gradient (``use_gram``, f32 by
   default) or autograd through the density, clipped at a preconditioned norm;
 * plain HMC with a fixed step and step jitter, the unpaired MH test with lp0
-  recomputed in every transition, segments thinned on the device;
+  recomputed in every transition (under REFRESH, at the new frozen vectors),
+  segments thinned on the device;
 * posterior-predictive scoring of the pooled samples on the validation split
-  and the numpy diagnostics battery.
+  against the frozen vectors the samples were drawn with (DRAW: the draw;
+  REFRESH: each chain's last one; MEAN: the VI mean) and the numpy
+  diagnostics battery.
 
 Not ported yet -- the pipeline raises ``NotImplementedError`` on them:
-``algorithm`` other than 'hmc', the MEAN and REFRESH frozen policies, the
-Gaussian trajectory field (``gauss_field*``), ``lowrank_rank``,
-``adapt_mass``, the Gram stride surrogates (``coarse_stride``/``fn_stride``),
-query subsampling (``sample_data``), ``save_vi_trace``, ``jitter_l``, losses
-other than NLL, and dual averaging other than the operator recipe's
-(``adapt_forever`` coupled over ``da_axis='chains'``, no ``max_step``).
+``algorithm`` other than 'hmc', the Gaussian trajectory field
+(``gauss_field*``), ``lowrank_rank``, ``adapt_mass``, the Gram stride
+surrogates (``coarse_stride``/``fn_stride``), query subsampling
+(``sample_data``), ``save_vi_trace``, ``jitter_l``, losses other than NLL,
+and dual averaging other than the operator recipe's (``adapt_forever``
+coupled over ``da_axis='chains'``, no ``max_step``).
 
-JAX draws the DRAW policy's frozen vector from a threefry key, which PyTorch
-cannot replay: the port draws ``mu + sigma N(0, 1)`` from a ``torch.Generator``
-seeded from the run's ``seed``, and takes ``frozen=`` so that a test can
-inject JAX's vector.
+JAX draws the DRAW/REFRESH initial frozen vector from a threefry key, which
+PyTorch cannot replay: the port draws ``mu + sigma N(0, 1)`` from a
+``torch.Generator`` seeded from the run's ``seed``, and takes ``frozen=`` so
+that a test can inject JAX's vector. The refresh normals come from each
+segment's generator after the transition's other draws.
 
 The stage-3 entry point runs the configuration of ``run_operator_stage3.py
 --variant autodiff`` on the card (reference DeepONet, B = 1000 x P = 10,201,
 the 81,131-dim 90 % subspace, 16 chains, L = 31, step 1e-4 with jitter,
-450 draws, burn 90, segments of 90, thin 3) and prints one JSON line with
-the script's summary keys, ``draws_per_s`` and the phase walls::
+450 draws, burn 90, segments of 90, thin 3; DRAW unless ``--frozen-policy``
+says otherwise) and prints one JSON line with the script's summary keys,
+``draws_per_s`` and the phase walls::
 
-    python -m vihmc_torch.pipelines.vi_hmc [--draws N] [--no-gram] [--device cuda]
+    python -m vihmc_torch.pipelines.vi_hmc [--draws N] [--no-gram]
+        [--frozen-policy draw|refresh|mean] [--device cuda]
 
 One difference from the script: it reads ``assets/burgers_stage12.npz``; the
 port reads ``assets/burgers_stage12_r2.npz`` (mu, sigma, indices, scores),
@@ -59,22 +68,24 @@ import torch
 
 from vihmc_torch.chains.diagnostics import summarize_np
 from vihmc_torch.chains.resume import sample_chains_resumable
-from vihmc_torch.core.device import resolve_device
+from vihmc_torch.core.device import resolve_device, split_to, stream_generator, to_f32
 from vihmc_torch.core.precision import true_f32
 from vihmc_torch.core.ravel import scatter_subspace
 from vihmc_torch.data.burgers import (get_burgers, load_port_inputs,
                                       load_stage12_artifacts)
+from vihmc_torch.data.synthetic import regression_data
 from vihmc_torch.dists.likelihoods import nll_log_likelihood
 from vihmc_torch.dists.priors import DiagonalGaussianPrior, IsotropicGaussianPrior
 from vihmc_torch.hmc.kernel import HMCConfig, clipped_grad_fn, value_and_grad
-from vihmc_torch.hmc.subspace import (SubspaceSpec, make_subspace_grad,
-                                      make_subspace_log_prob)
+from vihmc_torch.hmc.subspace import (FrozenPolicy, SubspaceSpec, make_aux_refresh,
+                                      make_subspace_grad, make_subspace_log_prob)
 from vihmc_torch.io.artifacts import RunStore
 from vihmc_torch.models.deeponet import DeepONetConfig
+from vihmc_torch.models.mlp import MLPConfig
 from vihmc_torch.ops.gram_merge import make_gram_grad_full
 from vihmc_torch.pipelines.common import (conditional_warm_start,
                                           make_deeponet_nll_log_posterior,
-                                          make_flat_deeponet)
+                                          make_flat_deeponet, make_flat_mlp)
 from vihmc_torch.pipelines.configs import VIHMCRunConfig
 from vihmc_torch.pipelines.postprocess import error_report, error_sigma_correlation
 from vihmc_torch.pipelines.predict import (posterior_predictive,
@@ -82,15 +93,9 @@ from vihmc_torch.pipelines.predict import (posterior_predictive,
 
 #: samples per chained forward in the evaluation (JAX's posterior_predictive chunk)
 EVAL_CHUNK = 32
-#: generator streams derived from a run's seed (the sampler's segments use
-#: ``seed * 1_000_003 + segment``, chains/resume.py)
-_FROZEN_STREAM, _INIT_STREAM = 700_001, 700_002
-
-
-def _generator(device, seed: int, stream: int) -> torch.Generator:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed) * 1_000_003 + stream)
-    return gen
+#: generator streams of a run's seed (core/device.stream_generator; the
+#: sampler's segments are streams 0, 1, ...)
+_FROZEN_STREAM, _INIT_STREAM, _DATA_STREAM = 700_001, 700_002, 700_003
 
 
 def _sync(dev):
@@ -123,7 +128,6 @@ def _check_ported(cfg: VIHMCRunConfig):
     """Raise ``NotImplementedError`` on the settings the port does not run yet."""
     unported = {
         "algorithm": cfg.algorithm != "hmc",
-        "frozen_policy": cfg.frozen_policy != "draw",
         "gauss_field": cfg.gauss_field is not None or cfg.gauss_field_auto,
         "lowrank_rank": bool(cfg.lowrank_rank),
         "adapt_mass": cfg.adapt_mass,
@@ -146,8 +150,10 @@ def build_subspace_posterior(cfg: VIHMCRunConfig, full_forward, y, artifacts,
     """``(log_prob(q (C, d), aux) -> (C,), aux0, spec, prior, inv_mass)``.
 
     ``full_ll(flat (C, D)) -> (C,)`` overrides the composed likelihood (the
-    fused merge-NLL path). ``aux0`` is ``frozen`` when given, else the DRAW
-    policy's ``mu + sigma N(0, 1)`` from a generator seeded with ``seed``.
+    fused merge-NLL path). ``aux0`` is the VI mean under MEAN; under DRAW and
+    REFRESH it is ``frozen`` when given, else ``mu + sigma N(0, 1)`` from a
+    generator seeded with ``seed``. The REFRESH hook is
+    :func:`~vihmc_torch.hmc.subspace.make_aux_refresh` of ``spec``.
     ``inv_mass`` is the VI variances (``vi_mass``), the diagonal
     conditional-Laplace variances (``laplace_mass``) or 1.
     """
@@ -160,13 +166,14 @@ def build_subspace_posterior(cfg: VIHMCRunConfig, full_forward, y, artifacts,
                 pred = full_forward(flat)
             return nll_log_likelihood(pred.reshape(flat.shape[0], *y.shape), y, cfg.tau_out)
 
-    if frozen is None:
-        gen = _generator(dev, seed, _FROZEN_STREAM)
-        frozen = spec.mu + spec.sigma * torch.randn(spec.mu.shape, generator=gen, device=dev)
-    if not isinstance(frozen, torch.Tensor):
-        frozen = np.array(frozen, dtype=np.float32)  # a writable copy
-    aux0 = torch.as_tensor(frozen, dtype=torch.float32, device=dev)
-    lp_like, _ = make_subspace_log_prob(full_ll, spec, aux0)
+    policy = FrozenPolicy(cfg.frozen_policy)
+    if policy is not FrozenPolicy.MEAN:
+        if frozen is None:
+            gen = stream_generator(dev, seed, _FROZEN_STREAM)
+            frozen = spec.mu + spec.sigma * torch.randn(spec.mu.shape, generator=gen,
+                                                        device=dev)
+        frozen = to_f32(frozen, dev)
+    lp_like, aux0 = make_subspace_log_prob(full_ll, spec, frozen, policy)
     prior = make_subspace_prior(cfg, spec)
 
     def log_prob(q_sub, aux):
@@ -313,7 +320,8 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
             grad_fn = clipped_grad_fn(log_prob, cfg.clip_grad, inv_mass=inv_mass,
                                       is_grad=False)
 
-    gen_init = _generator(dev, seed, _INIT_STREAM)
+    aux_refresh = make_aux_refresh(spec, FrozenPolicy(cfg.frozen_policy))
+    gen_init = stream_generator(dev, seed, _INIT_STREAM)
     inits = chain_inits(cfg, spec, gen_init)
     if cfg.init_optimize:
         # warm start at the conditional's approximate mode (the VI mean can
@@ -335,7 +343,7 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
     res = sample_chains_resumable(log_prob, inits, hmc_cfg,
                                   segment_size or cfg.num_samples, inv_mass, aux0,
                                   grad_fn=grad_fn, thin=sample_thin, seed=seed,
-                                  progress=progress)
+                                  progress=progress, aux_refresh=aux_refresh)
     _sync(dev)
     phases["sampling_s"] = time.perf_counter() - t0
 
@@ -346,9 +354,11 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
         eval_cfg = cfg
         if sample_thin > 1:
             eval_cfg = dataclasses.replace(cfg, burn=cfg.burn_ // sample_thin)
-        # DRAW: score against the fixed frozen vector the sampler conditioned on
+        # score against the frozen vectors the samples were drawn with: DRAW
+        # the fixed draw, REFRESH each chain's last draw (C, D), MEAN the VI mean
+        base = {"draw": aux0, "refresh": res.final_state.aux, "mean": None}[cfg.frozen_policy]
         evald = evaluate_samples(eval_cfg, spec, prior, eval_forward, y_eval,
-                                 res.samples, frozen_base=aux0)
+                                 res.samples, frozen_base=base)
         evald["metrics"]["acceptance_rate"] = res.acceptance_rate
         evald["metrics"]["num_divergent"] = res.num_divergent
         out.update(evald)
@@ -363,9 +373,37 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
     return out
 
 
-def _split_on(split: dict, dev) -> dict:
-    return {k: (v if isinstance(v, torch.Tensor) else torch.tensor(np.asarray(v)))
-            .to(dev, torch.float32).contiguous() for k, v in split.items()}
+def run_nn(cfg: VIHMCRunConfig, mlp_cfg: MLPConfig, artifacts, data=None,
+           store: Optional[RunStore] = None, segment_size=None, progress=None,
+           sample_thin: int = 1, evaluate: bool = True, seed: int = 0, frozen=None,
+           device="cuda"):
+    """NN regression VI-HMC (the reference's ``main_VI_HMC.py``): autograd
+    trajectories through the MLP likelihood on the synthetic data.
+
+    ``data``: the dict of :func:`~vihmc_torch.data.synthetic.regression_data`
+    (tensors or arrays), or None to make it here with noise std
+    ``sqrt(tau_out)`` from a generator seeded with ``seed``.
+    """
+    dev = resolve_device(device)
+    if cfg.coarse_stride or cfg.fn_stride or cfg.grad_dtype == "bfloat16":
+        raise ValueError("coarse_stride/fn_stride/grad_dtype apply to the "
+                         "operator workload's Gram gradient only")
+    _check_ported(cfg)
+    if data is None:
+        data = regression_data(noise_std=cfg.tau_out ** 0.5,
+                               generator=stream_generator(dev, seed, _DATA_STREAM), device=dev)
+    else:
+        data = split_to(data, dev)
+    apply_flat = make_flat_mlp(mlp_cfg)
+    out = run_subspace_hmc(
+        cfg, full_forward=lambda flat: apply_flat(flat, data["x_train"]),
+        y_train=data["y_train"], artifacts=artifacts,
+        eval_forward=lambda flat: apply_flat(flat, data["x_val"]), y_eval=data["y_val"],
+        store=store, segment_size=segment_size, progress=progress, sample_thin=sample_thin,
+        evaluate=evaluate, seed=seed, frozen=frozen, device=dev)
+    out["data"] = data
+    out["apply_flat"] = apply_flat
+    return out
 
 
 def run_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artifacts,
@@ -390,7 +428,7 @@ def run_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artifacts,
     if data is None:
         train, valid = get_burgers(dev)
     else:
-        train, valid = (_split_on(s, dev) for s in data)
+        train, valid = (split_to(s, dev) for s in data)
     _sync(dev)
     t_data = time.perf_counter() - t0
     apply_flat = make_flat_deeponet(deeponet_cfg)
@@ -430,14 +468,16 @@ STAGE3_CLIP_SCALE = 13.0
 
 
 def stage3_config(d_sub: int, n_data: int, draws: int = 450, burn=None,
-                  chains: int = 16, L: int = 31) -> VIHMCRunConfig:
+                  chains: int = 16, L: int = 31,
+                  frozen_policy: str = "draw") -> VIHMCRunConfig:
     """The ``run_operator_stage3.py --variant autodiff`` config with its
-    defaults: fixed step 1e-4 with eps-jitter, DRAW policy, VI-variance
-    mass, clip ``13 sqrt(d_sub)``, no warm start."""
+    defaults: fixed step 1e-4 with eps-jitter, DRAW policy (the script's
+    ``--frozen-policy`` default), VI-variance mass, clip ``13 sqrt(d_sub)``,
+    no warm start."""
     return VIHMCRunConfig(
         step_size=1e-4, num_samples=draws, burn=burn, post_std=0.0214,
         num_chains=chains, num_leapfrog=L, loss="NLL", tau_out=1.0,
-        frozen_policy="draw", vi_mass=True, laplace_mass=False, laplace_n_data=n_data,
+        frozen_policy=frozen_policy, vi_mass=True, laplace_mass=False, laplace_n_data=n_data,
         init_optimize=0, clip_grad=STAGE3_CLIP_SCALE * d_sub ** 0.5,
         jitter_l=False, jitter_eps=True, jitter_low_frac=0.5,
         adapt_step_size=False, target_accept=0.65, da_axis=None,
@@ -446,7 +486,7 @@ def stage3_config(d_sub: int, n_data: int, draws: int = 450, burn=None,
 
 def run_stage3(device="cuda", draws: int = 450, burn=None, chains: int = 16,
                L: int = 31, segment: int = 90, thin: int = 3, use_gram=None,
-               seed: int = 0, data=None, artifacts=None):
+               seed: int = 0, data=None, artifacts=None, frozen_policy: str = "draw"):
     """Run the stage-3 configuration and return ``(summary, out)``: the
     script's summary keys plus ``draws_per_s``, ``phases_s`` and the
     trajectory field; ``out`` is :func:`run_operator`'s result. ``data`` and
@@ -456,7 +496,8 @@ def run_stage3(device="cuda", draws: int = 450, burn=None, chains: int = 16,
     grid = load_port_inputs()
     nx, nt = int(grid["nx"]), int(grid["nt"])
     cfg = stage3_config(len(artifacts["indices"]), int(grid["n_train"]) * nx * nt,
-                        draws=draws, burn=burn, chains=chains, L=L)
+                        draws=draws, burn=burn, chains=chains, L=L,
+                        frozen_policy=frozen_policy)
     out = run_operator(cfg, DeepONetConfig(), artifacts, data=data, use_fused=True,
                        use_gram=use_gram, segment_size=segment, sample_thin=thin,
                        seed=seed, device=dev)
@@ -468,6 +509,7 @@ def run_stage3(device="cuda", draws: int = 450, burn=None, chains: int = 16,
     phases = out["phases_s"]
     summary = {
         "variant": "autodiff",
+        "frozen_policy": frozen_policy,
         "trajectory_field": "autograd" if use_gram is False else "gram_f32",
         "chains": chains, "draws": draws, "thin": thin, "burn": int(cfg.burn_),
         "L": cfg.L, "step": float(cfg.step_size), "adapt": False,
@@ -502,6 +544,7 @@ def main(argv=None):
     ap.add_argument("--segment", type=int, default=90)
     ap.add_argument("--thin", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--frozen-policy", default="draw", choices=("draw", "refresh", "mean"))
     field = ap.add_mutually_exclusive_group()
     field.add_argument("--use-gram", dest="use_gram", action="store_const", const=True,
                        help="Gram trajectory gradient (the default when eligible)")
@@ -510,7 +553,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     summary, _ = run_stage3(device=args.device, draws=args.draws, burn=args.burn,
                             chains=args.chains, L=args.L, segment=args.segment,
-                            thin=args.thin, use_gram=args.use_gram, seed=args.seed)
+                            thin=args.thin, use_gram=args.use_gram, seed=args.seed,
+                            frozen_policy=args.frozen_policy)
     print(json.dumps(summary))
 
 
