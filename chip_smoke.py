@@ -56,10 +56,31 @@ Phases, each printed with its wall time:
 11. the NN flow, three stages on ``MLPConfig()``: stage 1 at the
     ``nn_stage12_r2`` settings (depth cut), stage 2 on its result and on the
     bundle's mu and sigma (which must give the bundle's 77 indices exactly),
-    stage 3 with a default ``VIHMCRunConfig`` (REFRESH, L = 196).
+    stage 3 with a default ``VIHMCRunConfig`` (REFRESH, L = 196);
+12. stage 3, variant ``stride`` (the script's default: the Gram field on
+    every 3rd query point per grid dimension and every 3rd function) at full
+    width and a small depth: ``merge_sums`` 1 + 2 x draws, the Gram field
+    1 + L x draws; the stride field's cosine with the full Gram field at the
+    VI mean, draws/s beside phase 6 and a draw's split;
+13. stage 3, variant ``gauss`` (the VI-Gaussian score field): ``merge_sums``
+    1 + 2 x draws, no Gram field call; draws/s and a draw's split;
+14. stage 3 ``autodiff`` with a rank-16 Lanczos low-rank metric (HVPs
+    through the fused density) at a few draws: the Lanczos wall;
+15. ``hmc_nuts`` at ``OperatorHMCRunConfig`` (full-parameter reference
+    DeepONet, 10 training functions, L = 7, dual averaging per chain, the
+    fused density): ``merge_sums`` held against its plain version at that
+    shape (B = 10), then 1 + 2 x draws launches, and every chain's step after
+    burn constant at ``exp(log_step_avg)``;
+16. ``hmc_split`` at ``SplitHMCRunConfig`` (1000 functions in 2 shards, L =
+    2, composed autograd: no kernel launch), depth cut; at the config's step
+    every proposal from the random start diverges (as in JAX), so one split
+    trajectory on the card is held against the CPU's instead;
+17. ``hmc_full`` at ``NNHMCRunConfig`` (the regression MLP, L = 643), depth
+    cut.
 
-Before each driven path (3, 6, 7, 8, 9, 10, 11) every kernel count is set to
-0, and it is read just after (stages 1 and 2 run no kernel of the port). The second-to-last line is a JSON object describing every
+Before each driven path (3, 6, 7, 8, 9, 10, 11, 12-17) every kernel count is
+set to 0, and it is read just after (stages 1 and 2, ``hmc_split`` and
+``hmc_full`` run no kernel of the port). Every depth cut is printed. The second-to-last line is a JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result. It needs a CUDA
 device and the rest of the repository; it imports nothing of JAX.
@@ -68,6 +89,7 @@ device and the rest of the repository; it imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import math
@@ -94,17 +116,19 @@ from vihmc_torch.ops.deeponet_merge import (close_paired_sums, fused_merge_nll,
                                             merge_nll_reference, merge_sums,
                                             merge_sums_reference, paired_sums,
                                             paired_sums_reference, y_sums)
-from vihmc_torch.ops.gram_merge import make_gram_grad_full
+from vihmc_torch.ops.gram_merge import (grid_stride_subset, infer_grid_shape,
+                                        make_gram_grad_full)
 from vihmc_torch.ops.leapfrog import (fused_leapfrog_update,
                                       leapfrog_update_reference)
 import vihmc_torch.pipelines.vi_hmc as vi_hmc
 from vihmc_torch.data.burgers import STAGE12_ASSET, subsample_trunk
 from vihmc_torch.models.mlp import MLPConfig
-from vihmc_torch.pipelines import sensitivity, vi_train
+from vihmc_torch.pipelines import hmc_full, hmc_nuts, hmc_split, sensitivity, vi_train
 from vihmc_torch.pipelines.common import (make_deeponet_nll_log_posterior,
                                           make_flat_deeponet)
-from vihmc_torch.pipelines.configs import (NNVIRunConfig, SensitivityRunConfig,
-                                           VIHMCRunConfig)
+from vihmc_torch.pipelines.configs import (NNHMCRunConfig, NNVIRunConfig,
+                                           OperatorHMCRunConfig, SensitivityRunConfig,
+                                           SplitHMCRunConfig, VIHMCRunConfig)
 from vihmc_torch.pipelines.vi_hmc import (build_subspace_posterior, run_stage3,
                                           stage3_config)
 from vihmc_torch.sensitivity import mean_squared_jacobian
@@ -501,6 +525,113 @@ def run_stage3_path(label, dev, data, arts, want_launches, **kw):
     return summary, out, counts
 
 
+def stage3_split_line(label, out, summary, draws, n_lf, merge_ms):
+    """Print where a stage-3 draw's time goes: the trajectory field (timed
+    alone at C=16), the two densities, the rest of the sampling wall."""
+    q, aux = out["result"].final_state.position, out["frozen"]
+    dens_ms = time_device(f"{label} density", lambda: out["log_prob"](q, aux), SPLIT_REPS)
+    draw_ms = 1e3 * summary["sampling_seconds"] / draws
+    parts = {"fused_density_x2": 2 * dens_ms}
+    field_ms = None
+    if out["grad_fn"] is not None:
+        field_ms = time_device(f"{label} field", lambda: out["grad_fn"](q, aux), SPLIT_REPS)
+        parts = {f"field_x{n_lf}": n_lf * field_ms, **parts}
+    parts["rest_of_draw"] = draw_ms - sum(parts.values())
+    print(f"  per {label} draw at C=16 (device time, mean of {SPLIT_REPS} queued calls): "
+          f"sampling wall {draw_ms:.2f} ms = "
+          + ", ".join(f"{k_} {v:.2f} ms ({100 * v / draw_ms:.1f} %)" for k_, v in parts.items())
+          + (f" (one field {field_ms:.3f} ms" if field_ms is not None else " (")
+          + f"; one fused density {dens_ms:.3f} ms, of which merge_sums {merge_ms:.3f} ms)")
+    return draw_ms
+
+
+def stride_field_cosine(dev, train, out):
+    """Cosine, on the subspace at the VI mean, between the 3/3 stride Gram
+    field and the full-grid Gram field (both likelihood-only, f32)."""
+    cfg_d = DeepONetConfig()
+    bx, tx, y = train["branch_in"], train["trunk_in"], train["solution"]
+    spec = out["spec"]
+    full = scatter_subspace(out["frozen"], spec.sub_mu()[None], spec.idx)
+    g_full = make_gram_grad_full(cfg_d, bx, tx, y, 1.0)(full)[0, spec.idx]
+    sub = grid_stride_subset(*infer_grid_shape(tx), 3)
+    fns = np.arange(0, bx.shape[0], 3)
+    g_stride = make_gram_grad_full(cfg_d, bx, tx, y, 1.0, query_subset=sub,
+                                   fn_subset=fns)(full)[0, spec.idx]
+    cos = torch.nn.functional.cosine_similarity(g_stride.double(), g_full.double(),
+                                                dim=0).item()
+    ratio = (g_stride.norm() / g_full.norm()).item()
+    print(f"  stride 3/3 field ({len(sub)} of {tx.shape[0]} query points, {len(fns)} of "
+          f"{bx.shape[0]} functions) vs the full Gram field on the subspace at the VI mean: "
+          f"cosine {cos:.6f}, norm ratio {ratio:.4f}")
+    check(math.isfinite(cos) and cos > 0.5, f"stride field cosine {cos}")
+    return cos
+
+
+def baseline_checks(label, out, counts, want_merge, need_accept=True):
+    """The launch counts and finite outputs of a full-parameter baseline
+    (and some accepted proposal unless ``need_accept`` is off)."""
+    print(f"  {label} launches: {counts}; merge_sums expected {want_merge}")
+    check(counts["merge_sums"] == want_merge,
+          f"{label}: merge_sums launched {counts['merge_sums']} times, expected {want_merge}")
+    check(counts["paired_sums"] == 0 and counts["leapfrog_update"] == 0,
+          f"{label}: unexpected launches {counts}")
+    res, met = out["result"], out["metrics"]
+    check(bool(np.isfinite(res.samples).all()) and bool(np.isfinite(res.log_probs).all()),
+          f"{label}: non-finite samples or log-densities")
+    check(res.acceptance_rate > 0.0 or not need_accept,
+          f"{label}: acceptance {res.acceptance_rate}")
+    for k_, v in met.items():
+        check(bool(np.isfinite(v).all()), f"{label}: metric {k_} = {v}")
+    ph = out["phases_s"]
+    print(f"  {label}: acceptance {res.acceptance_rate:.4f}, samples {list(res.samples.shape)}, "
+          f"expected MSE of the mean {float(met['expected_mse_of_mean']):.5g}, final steps "
+          f"{[float('%.4g' % s) for s in res.step_sizes[:, -1]]}; "
+          f"{res.samples.shape[1] / ph['sampling_s']:.3f} draws/s; phases (s): "
+          + ", ".join(f"{k_} {v:.2f}" for k_, v in ph.items()))
+
+
+def split_trajectory_check(train, cfg, n_fn=20):
+    """One split-leapfrog trajectory (the config's step, L and shards, at full
+    width on ``n_fn`` functions) on the card against the same on the CPU:
+    positions and momenta within 1e-4 of their scale."""
+    from vihmc_torch.data.burgers import split_shards
+    from vihmc_torch.dists.likelihoods import nll_log_likelihood
+    from vihmc_torch.dists.priors import IsotropicGaussianPrior
+    from vihmc_torch.hmc.integrators import split_leapfrog
+    from vihmc_torch.hmc.kernel import value_and_grad
+
+    apply_flat = make_flat_deeponet(cfg.model)
+    prior = IsotropicGaussianPrior(scale=cfg.prior_var ** 0.5)
+    gen = torch.Generator().manual_seed(11)
+    q0 = 0.1 * torch.randn((1, cfg.model.num_params), generator=gen)
+    p0 = torch.randn((1, cfg.model.num_params), generator=gen)
+    out = {}
+    card = train["trunk_in"].device
+    for d in (card, torch.device("cpu")):
+        sub = {k: train[k][:n_fn].to(d) for k in ("branch_in", "solution")}
+        shards = split_shards({**sub, "trunk_in": train["trunk_in"].to(d)}, cfg.num_splits)
+        trunk = train["trunk_in"].to(d)
+
+        def shard_lp(flat, shard, aux=None):
+            with true_f32():
+                pred = apply_flat(flat, shard[0], trunk)
+            return nll_log_likelihood(pred, shard[1], cfg.tau_out) \
+                + prior.log_prob(flat) / cfg.num_splits
+
+        with true_f32():
+            q1, p1 = split_leapfrog(
+                lambda q, sh: value_and_grad(lambda x, a: shard_lp(x, sh), q, None),
+                (shards["branch_in"], shards["solution"]), q0.to(d), p0.to(d),
+                cfg.step_size, cfg.L)
+        out[d.type] = (q1.cpu(), p1.cpu())
+    errs = [((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(out[card.type], out["cpu"])]
+    print(f"  split leapfrog ({n_fn} functions, {cfg.num_splits} shards, L {cfg.L}, step "
+          f"{cfg.step_size}): card vs CPU max |dq| {errs[0]:.3g}, |dp| {errs[1]:.3g} of their "
+          f"scale")
+    check(max(errs) < 1e-4, f"split leapfrog card vs CPU {errs}")
+
+
 def jaccard(a, b) -> float:
     a, b = set(np.asarray(a).tolist()), set(np.asarray(b).tolist())
     return len(a & b) / len(a | b)
@@ -715,6 +846,13 @@ def main(argv=None) -> int:
     ap.add_argument("--vi-epochs", type=int, default=4, help="stage-1 epochs (bundle: 400)")
     ap.add_argument("--refresh-draws", type=int, default=12, help="stage-3 REFRESH draws")
     ap.add_argument("--nn-epochs", type=int, default=2000, help="NN VI epochs (bundle: 10,000)")
+    ap.add_argument("--stride-draws", type=int, default=30, help="stage-3 stride draws")
+    ap.add_argument("--gauss-draws", type=int, default=30, help="stage-3 gauss draws")
+    ap.add_argument("--lowrank-rank", type=int, default=16)
+    ap.add_argument("--lowrank-draws", type=int, default=4)
+    ap.add_argument("--nuts-chains", type=int, default=4, help="hmc_nuts chains (config: 1)")
+    ap.add_argument("--split-draws", type=int, default=6, help="hmc_split draws (config: 1001)")
+    ap.add_argument("--full-draws", type=int, default=8, help="hmc_full draws (config: 1000)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -880,7 +1018,7 @@ def main(argv=None) -> int:
 
     # ---- phase 6: the stage-3 pipeline at full width, reduced depth ----
     t0 = time.perf_counter()
-    s3 = dict(draws=args.s3_draws, burn=args.s3_burn, chains=16, L=31,
+    s3 = dict(variant="autodiff", draws=args.s3_draws, burn=args.s3_burn, chains=16, L=31,
               segment=args.s3_segment, thin=3)
     for key_, full_val in (("draws", 450), ("burn", 90), ("segment", 90)):
         if s3[key_] != full_val:
@@ -906,7 +1044,7 @@ def main(argv=None) -> int:
 
     # ---- phase 7: the autograd trajectory through the fused density ----
     t0 = time.perf_counter()
-    s3a = dict(draws=args.autodiff_draws, burn=2, chains=16, L=4,
+    s3a = dict(variant="autodiff", draws=args.autodiff_draws, burn=2, chains=16, L=4,
                segment=args.autodiff_draws, thin=1, use_gram=False)
     # init: the density and its clipped gradient (2); per draw: lp0, L
     # trajectory gradients (each runs the forward) and lp1
@@ -932,7 +1070,8 @@ def main(argv=None) -> int:
 
     # ---- phase 10: stage 3 under REFRESH at full width, reduced depth ----
     t0 = time.perf_counter()
-    s3r = dict(draws=args.refresh_draws, burn=args.refresh_draws // 2, chains=16, L=31,
+    s3r = dict(variant="autodiff", draws=args.refresh_draws, burn=args.refresh_draws // 2,
+               chains=16, L=31,
                segment=args.refresh_draws // 2, thin=3, frozen_policy="refresh")
     print(f"  depth cut: draws {s3r['draws']}, burn {s3r['burn']}, segment {s3r['segment']} "
           f"(stage-3 config 450, 90, 90)")
@@ -964,6 +1103,150 @@ def main(argv=None) -> int:
     print(f"  depth cut: NN VI epochs {args.nn_epochs} (bundle {int(nn_bundle['vi_epochs'])})")
     nn_flow_phase(dev, args.nn_epochs, nn_bundle)
     phase("11 NN flow", t0)
+
+    # ---- phase 12: stage 3, variant stride (the script's default) ----
+    t0 = time.perf_counter()
+    s3s = dict(variant="stride", draws=args.stride_draws, burn=args.stride_draws // 2,
+               chains=16, L=31, segment=args.stride_draws // 2, thin=3)
+    print(f"  depth cut: draws {s3s['draws']}, burn {s3s['burn']}, segment {s3s['segment']} "
+          f"(stage-3 config 450, 90, 90)")
+    calls, restore = count_gram_calls()
+    try:
+        st_summary, st_out, _ = run_stage3_path("stage 3 stride", dev, data, arts,
+                                                1 + 2 * s3s["draws"], **s3s)
+    finally:
+        restore()
+    print(f"  stride: Gram field calls {calls[0]} (1 + L x draws = "
+          f"{1 + s3s['L'] * s3s['draws']}); {st_summary['draws_per_s']:.3f} draws/s beside "
+          f"the autodiff variant's {summary['draws_per_s']:.3f} (phase 6)")
+    check(calls[0] == 1 + s3s["L"] * s3s["draws"], f"stride: {calls[0]} Gram calls")
+    check(st_summary["trajectory_field"] == "gram_stride_3x3_f32",
+          f"stride field {st_summary['trajectory_field']}")
+    stride_field_cosine(dev, data[0], st_out)
+    stage3_split_line("stage-3 stride", st_out, st_summary, s3s["draws"], s3s["L"],
+                      kernel_rows["merge_sums"]["ms"])
+    q_st, aux_st = st_out["result"].final_state.position, st_out["frozen"]
+    profile_line("stride field (host dispatch against device time)",
+                 lambda: st_out["grad_fn"](q_st, aux_st), 10)
+    del st_out
+    torch.cuda.empty_cache()
+    phase("12 stage 3 stride", t0)
+
+    # ---- phase 13: stage 3, variant gauss ----
+    t0 = time.perf_counter()
+    s3g = dict(variant="gauss", draws=args.gauss_draws, burn=args.gauss_draws // 2,
+               chains=16, L=31, segment=args.gauss_draws // 2, thin=3)
+    print(f"  depth cut: draws {s3g['draws']}, burn {s3g['burn']}, segment {s3g['segment']} "
+          f"(stage-3 config 450, 90, 90)")
+    calls, restore = count_gram_calls()
+    try:
+        g_summary, g_out, _ = run_stage3_path("stage 3 gauss", dev, data, arts,
+                                              1 + 2 * s3g["draws"], **s3g)
+    finally:
+        restore()
+    print(f"  gauss: step {g_summary['step']:.5g} (0.8 d^-1/4), Gram field calls {calls[0]}; "
+          f"{g_summary['draws_per_s']:.3f} draws/s beside stride {st_summary['draws_per_s']:.3f} "
+          f"and autodiff {summary['draws_per_s']:.3f}")
+    check(calls[0] == 0, f"gauss: {calls[0]} Gram field calls")
+    stage3_split_line("stage-3 gauss", g_out, g_summary, s3g["draws"], s3g["L"],
+                      kernel_rows["merge_sums"]["ms"])
+    del g_out
+    torch.cuda.empty_cache()
+    phase("13 stage 3 gauss", t0)
+
+    # ---- phase 14: stage 3 autodiff with the Lanczos low-rank metric ----
+    t0 = time.perf_counter()
+    s3l = dict(variant="autodiff", draws=args.lowrank_draws, burn=args.lowrank_draws // 2,
+               chains=16, L=31, segment=args.lowrank_draws, thin=1,
+               lowrank_rank=args.lowrank_rank)
+    print(f"  depth cut: draws {s3l['draws']} (stage-3 config 450); rank "
+          f"{args.lowrank_rank} (no script default)")
+    # the HVP graph's forward (1), the init (1), then lp0 and lp1 per draw
+    l_summary, l_out, _ = run_stage3_path("stage 3 low-rank", dev, data, arts,
+                                          2 + 2 * s3l["draws"], **s3l)
+    im = l_out["inv_mass"]
+    print(f"  low-rank metric: Lanczos wall {l_summary['phases_s']['lanczos_s']:.2f} s for rank "
+          f"{args.lowrank_rank}; Ritz values floored at 1 -> mass {tuple(im.u.shape)}; "
+          f"{l_summary['draws_per_s']:.3f} draws/s")
+    check(tuple(im.u.shape) == (len(arts["indices"]), args.lowrank_rank)
+          and bool(torch.isfinite(im.u).all()), "low-rank metric")
+    del l_out
+    torch.cuda.empty_cache()
+    phase("14 stage 3 low-rank metric", t0)
+
+    # ---- phase 15: hmc_nuts (full-parameter, dual averaging, fused density) ----
+    t0 = time.perf_counter()
+    ncfg = OperatorHMCRunConfig()
+    print(f"  OperatorHMCRunConfig: n_train {ncfg.n_train}, L {ncfg.L}, draws "
+          f"{ncfg.num_samples}, burn {ncfg.burn}; chains {args.nuts_chains} (config 1)")
+    n_train, n_valid, _ = hmc_nuts.load_data(ncfg, dev)
+    apply_n = make_flat_deeponet(ncfg.model)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    flat_n = 0.1 * torch.randn((args.nuts_chains, ncfg.model.num_params), generator=gen,
+                               device=dev)
+    with true_f32():
+        bo, to = deeponet_features(ncfg.model, unravel_deeponet(ncfg.model, flat_n),
+                                   n_train["branch_in"], n_train["trunk_in"])
+    bo, to = bo.contiguous(), to.contiguous()
+    y_n = n_train["solution"]
+    compare_merge(f"hmc_nuts shape C={args.nuts_chains} B={bo.shape[1]} P={to.shape[1]} "
+                  f"K={bo.shape[2]}", bo, to, flat_n[:, 0].contiguous(), y_n, ncfg.tau_out)
+    n_ms = time_device("merge_sums at B=10", lambda: merge_sums(bo, to, y_n), args.timing_reps)
+    n_plain = time_device("merge_sums plain at B=10", lambda: merge_sums_reference(bo, to, y_n),
+                          SPLIT_REPS, warmup=1)
+    n_bound, n_by, n_tc = merge_sums_bound_ms(*bo.shape[:2], to.shape[1], bo.shape[2])
+    print(f"  merge_sums at C={bo.shape[0]} B={bo.shape[1]} P={to.shape[1]} K={bo.shape[2]}: "
+          f"kernel {n_ms:.4f} ms; {bound_line(n_ms, n_bound, n_tc)} ({n_by}); plain "
+          f"{n_plain:.4f} ms")
+    del bo, to
+    reset_counts()
+    n_out = hmc_nuts.run(ncfg, data=(n_train, n_valid), num_chains=args.nuts_chains,
+                         use_fused=True, seed=0, device=dev)
+    baseline_checks("hmc_nuts", n_out, read_counts(), 1 + 2 * ncfg.num_samples)
+    res = n_out["result"]
+    post = res.step_sizes[:, ncfg.burn:]
+    frozen_step = torch.exp(res.final_state.da.log_step_avg).cpu().numpy()
+    print(f"  hmc_nuts steps after burn {[float('%.6g' % s) for s in post[:, 0]]}, "
+          f"exp(log_step_avg) {[float('%.6g' % s) for s in frozen_step]}")
+    check(bool((post == post[:, :1]).all()), "hmc_nuts: step not constant after burn")
+    check(np.allclose(post[:, 0], frozen_step, rtol=1e-6, atol=0.0),
+          "hmc_nuts: step after burn is not exp(log_step_avg)")
+    del n_out
+    torch.cuda.empty_cache()
+    phase("15 hmc_nuts", t0)
+
+    # ---- phase 16: hmc_split (split Hamiltonian over 2 data shards) ----
+    t0 = time.perf_counter()
+    scfg = dataclasses.replace(SplitHMCRunConfig(), num_samples=args.split_draws)
+    print(f"  depth cut: draws {scfg.num_samples}, burn {scfg.burn} (config 1001, 500); "
+          f"n_train {scfg.n_train} in {scfg.num_splits} shards, L {scfg.L}")
+    s_train, s_valid, used = hmc_nuts.load_data(scfg, dev)
+    print(f"  n_valid {scfg.n_valid} capped at the {used} exported validation rows")
+    reset_counts()
+    s_out = hmc_split.run(scfg, data=(s_train, s_valid), num_chains=1, seed=0, device=dev)
+    # from the config's random start (0.1 N(0, 1) over 172,401 parameters)
+    # every proposal at its step 3.45e-4 diverges, as the same transition does
+    # in JAX (tests/test_torch_baselines.py holds them equal at a small size)
+    baseline_checks("hmc_split", s_out, read_counts(), 0, need_accept=False)
+    print(f"  hmc_split at the config's step: {s_out['result'].num_divergent} of "
+          f"{scfg.num_samples} draws divergent (|dH| > 1000 nats from the random start)")
+    split_trajectory_check(s_train, scfg)
+    del s_out, s_train, s_valid
+    torch.cuda.empty_cache()
+    phase("16 hmc_split", t0)
+
+    # ---- phase 17: hmc_full (the regression MLP) ----
+    t0 = time.perf_counter()
+    fcfg = dataclasses.replace(NNHMCRunConfig(), num_samples=args.full_draws)
+    print(f"  depth cut: draws {fcfg.num_samples}, burn {fcfg.burn} (config 1000, 200); "
+          f"L {fcfg.L}, {fcfg.num_chains} chain")
+    reset_counts()
+    f_out = hmc_full.run(fcfg, seed=0, device=dev)
+    baseline_checks("hmc_full", f_out, read_counts(), 0)
+    print(f"  hmc_full: {1e3 * f_out['phases_s']['sampling_s'] / (fcfg.num_samples * fcfg.L):.3f}"
+          f" ms per leapfrog step of the {fcfg.model.num_params}-parameter MLP")
+    phase("17 hmc_full", t0)
 
     launches = {"paired_sums": row_counts["paired_sums"],
                 "merge_sums": s3_counts["merge_sums"],

@@ -189,13 +189,14 @@ def _merge_sums_f64(bout, tout, y):
 
 @pytest.mark.parametrize("b,p,k", [(200, 1000, 100), (130, 301, 12), (1, 1, 1), (130, 301, 1),
                                    (257, 515, 12), (129, 129, 33), (1000, 1021, 100),
-                                   (131, 300, 113)])
+                                   (131, 300, 113), (10, 10201, 100)])
 def test_merge_sums_kernel_matches_plain_and_float64(cuda_device, b, p, k):
     """Each sum within 1e-5 of its terms' magnitudes of the float64 sums and
     of the plain version (f32 products round at that scale; the sums are
     f64 on both sides). K off the mma depth 16 (1, 12, 33, 100, 113) leaves a
     ragged last K chunk, B, P off the 128 x 128 tile a ragged tile edge,
-    1 x 1 x 1 a block that is all edge."""
+    1 x 1 x 1 a block that is all edge; B = 10 is hmc_nuts's training set,
+    below one 64-row tile."""
     feats = _merge_features(8, 2, b, p, k, cuda_device)
     n = merge_sums.launches
     got = merge_sums(*feats)
@@ -406,3 +407,82 @@ def test_refresh_on_cuda_keeps_per_chain_frozen_vectors_and_merge_sums_count(cud
     assert not torch.equal(aux[0], aux[1]) and not torch.equal(aux[1], aux[2])
     assert np.isfinite(out["result"].samples).all()
     assert all(np.isfinite(v).all() for v in out["metrics"].values())
+
+
+def _small_stage3_case(seed):
+    from vihmc_torch.models.deeponet import DeepONetConfig
+
+    rng = np.random.default_rng(seed)
+    cfg_d = DeepONetConfig(**SMALL_DEEPONET_KW)
+    d = cfg_d.num_params
+    t, x = np.meshgrid(np.linspace(0, 1, 9), np.linspace(0, 1, 11), indexing="ij")
+    split = lambda n: {"branch_in": rng.normal(size=(n, 17)).astype(np.float32),  # noqa: E731
+                       "trunk_in": np.stack([t.ravel(), x.ravel()], -1).astype(np.float32),
+                       "solution": (0.3 * rng.normal(size=(n, 99))).astype(np.float32)}
+    arts = {"mu": (0.1 * rng.normal(size=d)).astype(np.float32),
+            "sigma": (0.02 + 0.03 * rng.random(d)).astype(np.float32),
+            "indices": np.sort(rng.choice(d, size=40, replace=False))}
+    return cfg_d, (split(12), split(5)), arts
+
+
+@pytest.mark.parametrize("variant", ["stride", "gauss"])
+def test_stage3_variants_on_cuda_launch_merge_sums_per_density(cuda_device, variant):
+    """Stage 3's stride (3/3 Gram surrogate) and gauss (VI-Gaussian field)
+    variants on the card with the fused density (small DeepONet, 3 chains, 6
+    draws): ``merge_sums`` launched 1 + 2 x draws times, the Gram field
+    1 + L x draws times for stride and never for gauss, finite samples and
+    metrics."""
+    import vihmc_torch.pipelines.vi_hmc as vi_hmc
+    from vihmc_torch.pipelines.configs import VIHMCRunConfig
+
+    cfg_d, data, arts = _small_stage3_case(24)
+    field = dict(coarse_stride=3, fn_stride=3) if variant == "stride" else dict(gauss_field=1.0)
+    cfg = VIHMCRunConfig(num_samples=6, step_size=1e-3, num_chains=3, num_leapfrog=4,
+                         tau_out=1.0, frozen_policy="draw", vi_mass=True,
+                         clip_grad=13.0 * 40 ** 0.5, jitter_eps=True, jitter_low_frac=0.5,
+                         **field)
+    calls = []
+    real = vi_hmc.make_gram_grad_full
+
+    def counted(*a, **kw):
+        f = real(*a, **kw)
+        return lambda full: (calls.append(1), f(full))[1]
+
+    vi_hmc.make_gram_grad_full = counted
+    try:
+        n = merge_sums.launches
+        out = vi_hmc.run_operator(cfg, cfg_d, arts, data=data, use_fused=True,
+                                  segment_size=3, device=cuda_device)
+        torch.cuda.synchronize()
+    finally:
+        vi_hmc.make_gram_grad_full = real
+    assert merge_sums.launches - n == 1 + 2 * cfg.num_samples
+    assert len(calls) == (1 + cfg.L * cfg.num_samples if variant == "stride" else 0)
+    assert np.isfinite(out["result"].samples).all()
+    assert all(np.isfinite(v).all() for v in out["metrics"].values())
+
+
+def test_hmc_nuts_fused_on_cuda_launches_and_frozen_step(cuda_device):
+    """hmc_nuts on the card with the fused density and the Gram field (small
+    DeepONet, 3 chains, 20 draws, burn 2): ``merge_sums`` launched
+    1 + 2 x draws times; after burn every chain's step is constant at
+    exp(log_step_avg); finite samples."""
+    from vihmc_torch.pipelines import hmc_nuts
+    from vihmc_torch.pipelines.configs import OperatorHMCRunConfig
+
+    cfg_d, data, _ = _small_stage3_case(25)
+    cfg = OperatorHMCRunConfig(model=cfg_d, n_train=12, n_valid=5, num_samples=20,
+                               step_size=2e-3, post_std=0.1)
+    assert cfg.burn == 2
+    inits = 0.1 * np.random.default_rng(25).normal(size=(3, cfg_d.num_params))
+    n = merge_sums.launches
+    out = hmc_nuts.run(cfg, data=data, num_chains=3, use_fused=True, inits=inits,
+                       device=cuda_device)
+    torch.cuda.synchronize()
+    assert merge_sums.launches - n == 1 + 2 * cfg.num_samples
+    res = out["result"]
+    post = res.step_sizes[:, cfg.burn:]
+    assert (post == post[:, :1]).all()
+    np.testing.assert_allclose(post[:, 0], torch.exp(res.final_state.da.log_step_avg).cpu(),
+                               rtol=1e-6)
+    assert np.isfinite(res.samples).all()

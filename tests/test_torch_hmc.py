@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity_helpers import tiny_problem
+from torch_parity_helpers import one_torch_thread, tiny_problem  # noqa: F401 (a fixture)
 
 import vihmc_tpu.hmc.metric as jm
 from vihmc_tpu.dists.likelihoods import get_likelihood
@@ -234,7 +234,7 @@ def _jax_draws(key, d, rank):
             float(jax.random.uniform(key_jit, ())), float(jax.random.uniform(key_u)))
 
 
-def test_full_transition_with_injected_jax_draws():
+def test_full_transition_with_injected_jax_draws(one_torch_thread):
     """Three coupled-DA transitions of 4 chains (the recipe's path: clipped
     f32 Gram field, paired delta, low-rank metric, jitter_eps, adapt_forever,
     accept statistic averaged over chains) with JAX's own draws injected: the
@@ -252,8 +252,9 @@ def test_full_transition_with_injected_jax_draws():
     jcfg = JConfig(num_samples=3, num_leapfrog=4, step_size=0.03, sampler="hmc_nuts",
                    target_accept=0.25, da_axis="chains", adapt_forever=True,
                    jitter_eps=True, jitter_low_frac=0.5)
-    tcfg = HMCConfig(num_samples=3, num_leapfrog=4, step_size=0.03, target_accept=0.25,
-                     jitter_low_frac=0.5)
+    tcfg = HMCConfig(num_samples=3, num_leapfrog=4, step_size=0.03, sampler="hmc_nuts",
+                     target_accept=0.25, da_axis="chains", adapt_forever=True,
+                     jitter_eps=True, jitter_low_frac=0.5)
     rng = np.random.default_rng(6)
     inits = (tp.mu[tp.idx][None] + 0.3 * tp.sigma[tp.idx][None]
              * rng.normal(size=(c, d))).astype(np.float32)
@@ -293,7 +294,7 @@ def test_full_transition_with_injected_jax_draws():
     assert 0 < n_accept < 3 * c  # both branches of the MH test were taken
 
 
-def test_chains_agree_in_distribution_with_jax():
+def test_chains_agree_in_distribution_with_jax(one_torch_thread):
     """Whole chains of both samplers on the same posterior (recipe path,
     own random streams): post-burn means and standard deviations of every
     coordinate agree within 4.5 Monte-Carlo standard errors (ESS-based)."""
@@ -321,7 +322,9 @@ def test_chains_agree_in_distribution_with_jax():
                     delta_fn=jdelta)
     tres = sample_chains_resumable(tlp, torch.as_tensor(inits),
                                    HMCConfig(num_samples=n, num_leapfrog=4, step_size=0.1,
-                                             target_accept=0.65),
+                                             sampler="hmc_nuts", target_accept=0.65,
+                                             da_axis="chains", adapt_forever=True,
+                                             jitter_eps=True, jitter_low_frac=0.5),
                                    150, tmet, tp.t("frozen"), tfield, tdelta, seed=1)
     a = np.asarray(jres.samples)[:, burn:]
     b = tres.samples[:, burn:]
@@ -359,3 +362,268 @@ def test_operator_row_control_flow_on_cpu():
     assert st["lowrank_metric"]["rank"] == 4
     with pytest.raises(ValueError, match="thin"):
         run_operator_row(device="cpu", draws=24, burn=5, thin=3, problem=prob)
+
+
+def test_hmc_config_fields_and_defaults_match_jax():
+    """The port's HMCConfig has every field of JAX's with JAX's default; the
+    fields whose paths are not ported raise NotImplementedError when set away
+    from their default, and the settings JAX rejects raise ValueError."""
+    import dataclasses
+
+    from vihmc_torch.hmc.kernel import check_config
+
+    jf = {f.name: f.default for f in dataclasses.fields(JConfig)}
+    tf = {f.name: f.default for f in dataclasses.fields(HMCConfig)}
+    assert tf == jf
+    for field, value in (("adapt_mass", True), ("mass_schedule", "windowed"),
+                         ("refresh_during_burn", False), ("init_step_search", True),
+                         ("momentum_persistence", 0.5), ("store_aux_trace", True),
+                         ("metric_axis", "chains")):
+        with pytest.raises(NotImplementedError, match=field):
+            check_config(HMCConfig(**{field: value}))
+    for kw in ({"jitter_l": True, "jitter_eps": True}, {"sampler": "nuts"},
+               {"integrator": "verlet"}, {"da_axis": "data"}):
+        with pytest.raises(ValueError):
+            check_config(HMCConfig(**kw))
+
+
+def _diag_draws(key, d, low, high):
+    """One JAX transition's draws with a diagonal metric (kernel.py:494):
+    the momentum normals, the jitter uniform, the accept uniform and the
+    ``jitter_l`` length ``randint(key_jit, low, high)`` (kernel.py:598)."""
+    key_mom, key_u, _key_aux, key_jit = jax.random.split(key, 4)
+    return (np.asarray(jax.random.normal(key_mom, (d,), jnp.float32)),
+            float(jax.random.uniform(key_jit, ())), float(jax.random.uniform(key_u)),
+            int(jax.random.randint(key_jit, (), low, high)))
+
+
+ADAPT_MODES = {
+    # per-chain dual averaging in burn, the averaged step after (kernel.py:537-546)
+    "per_chain_burn": dict(sampler="hmc_nuts", burn=2, target_accept=0.6),
+    "adapt_forever": dict(sampler="hmc_nuts", burn=1, adapt_forever=True, target_accept=0.6),
+    "step_clamps": dict(sampler="hmc_nuts", burn=3, target_accept=0.6, max_step=0.045,
+                        min_step=0.035),
+    "jitter_l_gram": dict(sampler="hmc", jitter_l=True, jitter_low_frac=0.5),
+    "jitter_l_autodiff": dict(sampler="hmc", jitter_l=True, jitter_low_frac=0.5),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(ADAPT_MODES))
+def test_adaptation_and_jitter_modes_with_injected_jax_draws(mode, one_torch_thread):
+    """Five transitions of 4 chains in each step mode against the JAX kernel
+    vmapped over chains (per-chain statistics, da_axis None) with its draws
+    injected, the iteration crossing the burn boundary: the same accept
+    decisions, steps (rtol 1e-4), dual-averaging state (atol 1e-4: the accept
+    statistic's f32 rounding, scaled by the update) and positions (rtol
+    1e-4, atol 5e-5). After burn the step is the frozen exp(log_step_avg)
+    unless adapt_forever; under jitter_l each chain's drawn length masks the
+    tail of its L = 4 steps, on the Gram field or the value-and-grad path."""
+    from vihmc_torch.hmc.kernel import init_state, jitter_l_range
+
+    tp = tiny_problem(seed=40)
+    d, c, n_lf, n_it = len(tp.idx), 4, 4, 5
+    kw = ADAPT_MODES[mode]
+    jlp, jg, _ = _jax_side(tp)
+    tlp, tg, _ = _torch_side(tp)
+    diag = (tp.sigma[tp.idx] ** 2).astype(np.float32)
+    jfield = tfield = None
+    if mode != "jitter_l_autodiff":
+        jfield = j_clip(j_sub_grad(jg, tp.jspec, prior=tp.jprior), CLIP,
+                        inv_mass=jnp.asarray(diag))
+        tfield = clipped_grad_fn(make_subspace_grad(tg, tp.tspec, prior=tp.tprior), CLIP,
+                                 inv_mass=torch.as_tensor(diag))
+    jcfg = JConfig(num_samples=n_it, num_leapfrog=n_lf, step_size=0.04, **kw)
+    tcfg = HMCConfig(num_samples=n_it, num_leapfrog=n_lf, step_size=0.04, **kw)
+    rng = np.random.default_rng(40)
+    inits = (tp.mu[tp.idx][None] + 0.3 * tp.sigma[tp.idx][None]
+             * rng.normal(size=(c, d))).astype(np.float32)
+    aux = jnp.asarray(tp.frozen)
+    jkernel = j_make_kernel(jlp, jcfg, inv_mass=jnp.asarray(diag), grad_fn=jfield)
+    jstate = jax.vmap(lambda q: j_init_state(jlp, q, jcfg, aux=aux, inv_mass=jnp.asarray(diag),
+                                             grad_fn=jfield))(jnp.asarray(inits))
+    tstate = init_state(tlp, torch.as_tensor(inits), tcfg, tp.t("frozen"), tfield)
+    tkernel = make_kernel(tcfg, torch.as_tensor(diag), tfield, None, tlp)
+    step = jax.vmap(jkernel, in_axes=(0, 0, None))
+    rng_l = jitter_l_range(tcfg) or (1, n_lf + 1)
+    lengths = []
+    for it in range(n_it):
+        keys = jax.random.split(jax.random.key(400 + it), c)
+        draws = [_diag_draws(k, d, *rng_l) for k in keys]
+        noise = TransitionNoise(z1=torch.as_tensor(np.stack([x[0] for x in draws])), z2=None,
+                                u_jitter=torch.tensor([x[1] for x in draws]),
+                                u_accept=torch.tensor([x[2] for x in draws]),
+                                n_steps=torch.tensor([x[3] for x in draws]))
+        lengths += [x[3] for x in draws]
+        jstate, jinfo = step(jstate, keys, it)
+        tstate, tinfo = tkernel(tstate, noise)
+        np.testing.assert_array_equal(tinfo["accepted"].numpy(), np.asarray(jinfo["accepted"]))
+        # the step is exp of the dual-averaging state, so it carries that
+        # state's error as a relative one
+        np.testing.assert_allclose(tinfo["step_size"].numpy(), np.asarray(jinfo["step_size"]),
+                                   rtol=1e-4)
+        np.testing.assert_allclose(tstate.position.numpy(), np.asarray(jstate.position),
+                                   rtol=1e-4, atol=5e-5)
+        for f in ("log_step", "log_step_avg"):
+            np.testing.assert_allclose(getattr(tstate.da, f).numpy(),
+                                       np.asarray(getattr(jstate.da, f)), rtol=0, atol=1e-4)
+        if mode in ("per_chain_burn", "step_clamps") and it >= tcfg.burn:
+            want = np.clip(np.exp(getattr(tstate.da, "log_step_avg").numpy()),
+                           tcfg.min_step or 0, tcfg.max_step or np.inf)
+            np.testing.assert_allclose(tinfo["step_size"].numpy(), want, rtol=1e-6)
+    assert tstate.iteration == n_it
+    steps = tinfo["step_size"].numpy()
+    if mode.startswith("jitter_l"):
+        assert np.all(steps == np.float32(0.04)) and len(set(lengths)) > 1
+        assert min(lengths) >= 2 and max(lengths) <= n_lf
+    elif mode == "step_clamps":
+        assert np.all((steps >= 0.035 - 1e-9) & (steps <= 0.045 + 1e-9))
+    else:
+        assert not np.allclose(steps, 0.04)  # dual averaging moved the step
+
+
+def test_jitter_l_draw_comes_after_the_existing_draws():
+    """draw_noise draws the jitter_l lengths only when asked, and after the
+    momentum normals and the two uniforms: configurations without jitter_l
+    keep their streams."""
+    from vihmc_torch.hmc.kernel import draw_noise, jitter_l_range
+
+    c, d = 3, 5
+    plain = draw_noise(torch.Generator().manual_seed(8), 1.0, c, d, "cpu")
+    rng_l = jitter_l_range(HMCConfig(num_leapfrog=7, jitter_l=True, jitter_low_frac=0.5))
+    assert rng_l == (4, 8) and jitter_l_range(HMCConfig()) is None
+    with_l = draw_noise(torch.Generator().manual_seed(8), 1.0, c, d, "cpu", n_steps_range=rng_l)
+    gen = torch.Generator().manual_seed(8)
+    z1, u = torch.randn((c, d), generator=gen), torch.rand((2, c), generator=gen)
+    n = torch.randint(4, 8, (c,), generator=gen)
+    for nz in (plain, with_l):
+        assert torch.equal(nz.z1, z1) and torch.equal(nz.u_jitter, u[0])
+        assert torch.equal(nz.u_accept, u[1])
+    assert plain.n_steps is None and torch.equal(with_l.n_steps, n)
+
+
+def _shard_problem(seed, n_shards=3, n_per=5, d=6):
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(n_shards, n_per, d)).astype(np.float32)
+    b = rng.normal(size=(n_shards, n_per)).astype(np.float32)
+    return a, b
+
+
+def test_split_leapfrog_matches_jax():
+    """Three outer steps of the split integrator over 3 data shards of a
+    tanh-regression potential with a diagonal mass, per-chain steps: q and p
+    of 2 chains at rtol 1e-5 of JAX's (deterministic)."""
+    from vihmc_tpu.hmc.integrators import split_leapfrog as j_split
+    from vihmc_torch.hmc.integrators import split_leapfrog
+    from vihmc_torch.hmc.kernel import value_and_grad
+
+    a, b = _shard_problem(41)
+    d = a.shape[-1]
+    im = np.linspace(0.5, 1.5, d).astype(np.float32)
+
+    def j_shard(q, shard):
+        aa, bb = shard
+        return -0.5 * jnp.sum((jnp.tanh(aa @ q) - bb) ** 2) - 0.05 * jnp.sum(q * q)
+
+    def t_shard(q, shard, aux=None):
+        aa, bb = shard
+        return -0.5 * ((torch.tanh(q @ aa.T) - bb) ** 2).sum(-1) - 0.05 * (q * q).sum(-1)
+
+    rng = np.random.default_rng(41)
+    q = rng.normal(size=(2, d)).astype(np.float32)
+    p = rng.normal(size=(2, d)).astype(np.float32)
+    eps = np.array([0.1, 0.2], np.float32)
+    shards_t = (torch.as_tensor(a), torch.as_tensor(b))
+    tq, tp_ = split_leapfrog(lambda x, s: value_and_grad(lambda y, _: t_shard(y, s), x, None),
+                             shards_t, torch.as_tensor(q), torch.as_tensor(p),
+                             torch.as_tensor(eps), 3, torch.as_tensor(im))
+    for c in range(2):
+        jq, jp = j_split(jax.value_and_grad(j_shard), (jnp.asarray(a), jnp.asarray(b)),
+                         jnp.asarray(q[c]), jnp.asarray(p[c]), float(eps[c]), 3, jnp.asarray(im))
+        np.testing.assert_allclose(tq[c].numpy(), np.asarray(jq), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(tp_[c].numpy(), np.asarray(jp), rtol=1e-5, atol=1e-6)
+
+
+def test_splitting_transition_with_injected_jax_draws():
+    """Three transitions of the kernel's splitting integrator (3 shards,
+    fixed step, the unpaired MH test on the full density) for 3 chains with
+    JAX's draws injected: accept decisions, log-densities (rtol 1e-5) and
+    positions (rtol 1e-5); and JAX's errors for a grad_fn or a delta_fn."""
+    from vihmc_torch.hmc.kernel import init_state
+
+    a, b = _shard_problem(42)
+    d, c, n_shards = a.shape[-1], 3, a.shape[0]
+
+    def j_shard(q, shard):
+        aa, bb = shard
+        return -0.5 * jnp.sum((jnp.tanh(aa @ q) - bb) ** 2) - 0.05 * jnp.sum(q * q) / n_shards
+
+    def j_full(q):
+        return sum(j_shard(q, (a[i], b[i])) for i in range(n_shards))
+
+    def t_shard(q, shard, aux=None):
+        aa, bb = shard
+        return (-0.5 * ((torch.tanh(q @ aa.T) - bb) ** 2).sum(-1)
+                - 0.05 * (q * q).sum(-1) / n_shards)
+
+    ta, tb = torch.as_tensor(a), torch.as_tensor(b)
+
+    def t_full(q, aux=None):
+        return sum(t_shard(q, (ta[i], tb[i])) for i in range(n_shards))
+
+    kw = dict(num_samples=3, num_leapfrog=3, step_size=0.35, integrator="splitting")
+    jcfg, tcfg = JConfig(**kw), HMCConfig(**kw)
+    jkernel = j_make_kernel(j_full, jcfg, shard_log_prob_fn=j_shard,
+                            shard_data=(jnp.asarray(a), jnp.asarray(b)))
+    tkernel = make_kernel(tcfg, 1.0, None, None, t_full, shard_log_prob_fn=t_shard,
+                          shard_data=(ta, tb))
+    q0 = np.random.default_rng(42).normal(size=(c, d)).astype(np.float32)
+    jstate = jax.vmap(lambda q: j_init_state(j_full, q, jcfg))(jnp.asarray(q0))
+    tstate = init_state(t_full, torch.as_tensor(q0), tcfg, None)
+    step = jax.vmap(jkernel, in_axes=(0, 0, None))
+    n_accept = 0
+    for it in range(3):
+        keys = jax.random.split(jax.random.key(420 + it), c)
+        draws = [_diag_draws(k, d, 1, 2) for k in keys]
+        noise = TransitionNoise(z1=torch.as_tensor(np.stack([x[0] for x in draws])), z2=None,
+                                u_jitter=torch.tensor([x[1] for x in draws]),
+                                u_accept=torch.tensor([x[2] for x in draws]))
+        jstate, jinfo = step(jstate, keys, it)
+        tstate, tinfo = tkernel(tstate, noise)
+        np.testing.assert_array_equal(tinfo["accepted"].numpy(), np.asarray(jinfo["accepted"]))
+        np.testing.assert_allclose(tinfo["log_prob"].numpy(), np.asarray(jinfo["log_prob"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(tstate.position.numpy(), np.asarray(jstate.position),
+                                   rtol=1e-5, atol=1e-6)
+        n_accept += int(tinfo["accepted"].sum())
+    assert 0 < n_accept
+    with pytest.raises(ValueError, match="grad_fn"):
+        make_kernel(tcfg, 1.0, lambda q, a_: q, None, t_full, shard_log_prob_fn=t_shard,
+                    shard_data=(ta, tb))
+    with pytest.raises(ValueError, match="delta_fn"):
+        make_kernel(tcfg, 1.0, None, lambda q1, q0_, a_: (q1, q1), t_full,
+                    shard_log_prob_fn=t_shard, shard_data=(ta, tb))
+    with pytest.raises(ValueError, match="shard_log_prob_fn"):
+        make_kernel(tcfg, 1.0, None, None, t_full)
+
+
+def test_estimate_lowrank_metric_matches_jax():
+    """estimate_lowrank_metric on the composed subspace log-density from JAX's
+    start vector: the diagonal mass (rtol 1e-6) and the low-rank term U U^T
+    (rtol 2e-3 of its scale: the Ritz pairs carry the HVPs' f32 rounding)."""
+    tp = tiny_problem(seed=43)
+    jlp, _, _ = _jax_side(tp)
+    tlp, _, _ = _torch_side(tp)
+    q0 = tp.mu[tp.idx]
+    diag = (tp.sigma[tp.idx] ** 2).astype(np.float32)
+    key = jax.random.key(0x10E)
+    want = jm.estimate_lowrank_metric(jlp, jnp.asarray(q0), jnp.asarray(diag), rank=3,
+                                      num_iters=10, key=key, aux=jnp.asarray(tp.frozen))
+    got = tm.estimate_lowrank_metric(
+        tlp, torch.as_tensor(q0), torch.as_tensor(diag), 3, num_iters=10,
+        v0=torch.as_tensor(np.asarray(jax.random.normal(key, (len(q0),)))), aux=tp.t("frozen"))
+    np.testing.assert_allclose(got.diag_mass.numpy(), np.asarray(want.diag_mass), rtol=1e-6)
+    uu_want = np.asarray(want.u) @ np.asarray(want.u).T
+    uu_got = (got.u @ got.u.T).numpy()
+    scale = np.abs(uu_want).max()
+    assert scale > 0
+    np.testing.assert_allclose(uu_got / scale, uu_want / scale, rtol=0, atol=2e-3)

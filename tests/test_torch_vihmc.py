@@ -411,10 +411,9 @@ def test_vihmc_config_matches_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("algorithm", "nuts"), ("loss", "regression"), ("gauss_field_auto", True),
-    ("gauss_field", 1.0), ("lowrank_rank", 4), ("adapt_mass", True),
-    ("coarse_stride", 2), ("fn_stride", 2), ("sample_data", True),
-    ("save_vi_trace", True), ("jitter_l", True), ("adapt_step_size", True),
+    ("algorithm", "nuts"), ("algorithm", "chees"), ("algorithm", "auto"),
+    ("gauss_field_auto", True), ("adapt_mass", True), ("sample_data", True),
+    ("save_vi_trace", True),
 ])
 def test_run_operator_raises_on_unported_settings(field, value):
     """Settings the port does not run yet raise NotImplementedError before
@@ -449,7 +448,8 @@ def tiny_burgers_run():
 
 
 @pytest.mark.parametrize("use_gram", [None, False])
-def test_run_operator_end_to_end_on_cpu(tiny_burgers_run, use_gram, monkeypatch, tmp_path):
+def test_run_operator_end_to_end_on_cpu(tiny_burgers_run, use_gram, monkeypatch, tmp_path,
+                                        one_torch_thread):
     """run_operator(device='cpu', use_fused=True) on the tiny Burgers data,
     with the Gram field (use_gram None resolves to it) and with autograd
     through the fused density: finite samples and metrics with JAX's metric
@@ -562,3 +562,225 @@ def test_run_nn_end_to_end_on_cpu(tiny_burgers_run, one_torch_thread):
     assert out["data"]["x_train"].shape == (20, 1) and out["data"]["y_val"].shape == (300, 1)
     with pytest.raises(ValueError):
         tv.run_nn(VIHMCRunConfig(coarse_stride=2), MLPConfig(), arts, device="cpu")
+
+
+def test_grid_stride_subset_and_grid_shape_match_jax():
+    """infer_grid_shape of t-major grids (and its errors) and
+    grid_stride_subset for several strides: equal to JAX's."""
+    from vihmc_tpu.ops.gram_merge import grid_stride_subset as j_sub
+    from vihmc_tpu.ops.gram_merge import infer_grid_shape as j_shape
+    from vihmc_torch.ops.gram_merge import grid_stride_subset, infer_grid_shape
+
+    for nt, nx in ((5, 9), (101, 101), (4, 1)):
+        tp = tiny_problem(seed=50, nt=nt, nx=nx)
+        want = (nt, nx)
+        assert infer_grid_shape(tp.t("tx")) == infer_grid_shape(tp.tx) == j_shape(tp.tx) == want
+        for stride in (1, 2, 3, 7):
+            np.testing.assert_array_equal(grid_stride_subset(nt, nx, stride),
+                                          np.asarray(j_sub(nt, nx, stride)))
+    assert len(grid_stride_subset(101, 101, 3)) == 34 * 34
+    bad = np.array([[0.0, 0.0], [0.0, 0.5], [0.5, 0.0], [0.6, 0.5]], np.float32)
+    for grid in (bad, bad[:3]):
+        with pytest.raises(ValueError):
+            infer_grid_shape(grid)
+        with pytest.raises(ValueError):
+            j_shape(grid)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-4), ("bfloat16", 5e-2)])
+def test_stride_gram_field_with_prior_matches_jax(dtype, tol):
+    """make_gram_grad_full on query and function subsets with the rescale and
+    a full-vector prior's gradient, on 2 chains, against JAX's (relative to
+    the gradient's max-abs scale: f32 2e-4; bf16 stacks round every
+    activation to 8 bits, 5e-2 and cosine > 0.999); in f32 it is also the
+    autograd gradient of the rescaled likelihood on the subsets."""
+    from vihmc_tpu.dists.priors import IsotropicGaussianPrior as JIso
+    from vihmc_torch.dists.priors import IsotropicGaussianPrior
+    from vihmc_torch.ops.gram_merge import grid_stride_subset
+
+    tp = tiny_problem(seed=51, n_fn=9, nt=5, nx=7)
+    sub = grid_stride_subset(5, 7, 2)
+    fns = np.arange(0, 9, 3)
+    rng = np.random.default_rng(51)
+    flats = (tp.mu[None] + tp.sigma[None] * rng.normal(size=(2, tp.mu.size))).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else None
+    tdt = torch.bfloat16 if dtype == "bfloat16" else None
+    jg, _, _ = j_gram(tp.jcfg, jnp.asarray(tp.bx), jnp.asarray(tp.tx), jnp.asarray(tp.y), tp.tau,
+                      prior=JIso(scale=0.7), query_subset=sub, fn_subset=fns, compute_dtype=jdt)
+    tg = make_gram_grad_full(tp.tcfg, tp.t("bx"), tp.t("tx"), tp.t("y"), tp.tau,
+                             compute_dtype=tdt, query_subset=sub, fn_subset=fns,
+                             prior=IsotropicGaussianPrior(scale=0.7))
+    got = tg(torch.as_tensor(flats))
+    assert got.dtype == torch.float32 and got.shape == flats.shape
+    for c in range(2):
+        want = np.asarray(jg(jnp.asarray(flats[c])))
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(got[c].numpy() / scale, want / scale, rtol=tol, atol=tol)
+        cos = np.dot(got[c].numpy(), want) / (np.linalg.norm(want) * np.linalg.norm(got[c].numpy()))
+        assert cos > 0.999
+    if dtype == "float32":
+        from vihmc_torch.dists.likelihoods import nll_log_likelihood
+
+        flat = torch.as_tensor(flats).requires_grad_(True)
+        bx, tx, y = tp.t("bx")[fns], tp.t("tx")[sub], tp.t("y")[fns][:, sub]
+        pred = make_flat_deeponet(tp.tcfg)(flat, bx, tx)
+        scale_ll = (tp.y.shape[0] / len(fns)) * (tp.y.shape[1] / len(sub))
+        lp = scale_ll * nll_log_likelihood(pred, y, tp.tau) - 0.5 * (flat ** 2).sum(-1) / 0.49
+        (auto,) = torch.autograd.grad(lp.sum(), flat)
+        m = auto.abs().max()
+        np.testing.assert_allclose((got / m).numpy(), (auto / m).numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_gaussian_field_grad_matches_jax():
+    """The VI-Gaussian score field (alpha 1 and 0.5) on 3 chains: rtol 1e-6."""
+    from vihmc_tpu.hmc import gaussian_field_grad as j_gauss
+    from vihmc_torch.hmc.kernel import gaussian_field_grad
+
+    rng = np.random.default_rng(52)
+    mu = rng.normal(size=11).astype(np.float32)
+    sigma = (0.1 + rng.random(11)).astype(np.float32)
+    q = rng.normal(size=(3, 11)).astype(np.float32)
+    for alpha in (1.0, 0.5):
+        got = gaussian_field_grad(torch.as_tensor(mu), torch.as_tensor(sigma), alpha)(
+            torch.as_tensor(q), None)
+        jf = j_gauss(jnp.asarray(mu), jnp.asarray(sigma), alpha)
+        for c in range(3):
+            np.testing.assert_allclose(got[c].numpy(), np.asarray(jf(jnp.asarray(q[c]))),
+                                       rtol=1e-6)
+
+
+class _Captured(Exception):
+    """Stops a pipeline at its sampler call once the arguments are recorded."""
+
+
+PORTED_SETTINGS = {
+    "gauss_field": dict(gauss_field=1.0),
+    "lowrank_rank": dict(lowrank_rank=3),
+    "coarse_stride": dict(coarse_stride=2),
+    "fn_stride": dict(fn_stride=2),
+    "jitter_l": dict(jitter_l=True, jitter_eps=False),
+    "adapt_step_size": dict(adapt_step_size=True, target_accept=0.7, max_step=0.01,
+                            da_axis="chains", adapt_forever=True),
+    "loss": dict(loss="regression"),
+}
+
+
+@pytest.mark.parametrize("setting", sorted(PORTED_SETTINGS))
+def test_run_operator_ported_settings_match_jax(tiny_burgers_run, setting, monkeypatch,
+                                                one_torch_thread):
+    """Each stage-3 setting the port now runs, on the tiny Burgers data with
+    the fused density: both pipelines are stopped at their sampler call and
+    hand it the same HMCConfig (every field), the same inits, frozen vector,
+    log-density (rtol 1e-5) and trajectory field (rtol 2e-4 of its scale) at
+    the inits, and the same metric (a low-rank one from JAX's Lanczos start
+    vector: U U^T to 2e-3 of its scale). Then the port runs the setting to
+    the end: finite samples and metrics with JAX's keys."""
+    import vihmc_tpu.chains as jchains
+
+    data, arts, cfg_kw, jout = tiny_burgers_run
+    kw = dict(cfg_kw, **PORTED_SETTINGS[setting])
+    seen = {}
+
+    def capture(side):
+        def fake(*args, **kwargs):
+            seen[side] = (args, kwargs)
+            raise _Captured
+
+        return fake
+
+    from vihmc_tpu.models import DeepONetConfig as JCfg
+
+    jdata = tuple({k: jnp.asarray(v) for k, v in s.items()} for s in data)
+    monkeypatch.setattr(jchains, "sample_chains_resumable", capture("jax"))
+    with pytest.raises(_Captured):
+        jv.run_operator(JC.VIHMCRunConfig(**kw), JCfg(**TINY_DEEPONET_KW), arts,
+                        key=jax.random.key(1), data=jdata, use_fused=True, segment_size=6,
+                        sample_thin=3)
+    (jlp, jinits, _, jcfg), jkw = seen["jax"]
+    _, ks = jax.random.split(jax.random.key(1))
+    k_frozen = jax.random.split(ks, 4)[0]
+    d = len(arts["indices"])
+    v0 = np.asarray(jax.random.normal(jax.random.fold_in(k_frozen, 0x10E), (d,)))
+    monkeypatch.setattr(tv, "sample_chains_resumable", capture("torch"))
+    cfg = VIHMCRunConfig(**kw)
+    with pytest.raises(_Captured):
+        tv.run_operator(cfg, DeepONetConfig(**TINY_DEEPONET_KW), arts, data=data,
+                        use_fused=True, segment_size=6, sample_thin=3,
+                        frozen=np.asarray(jkw["aux"]), lanczos_v0=torch.as_tensor(v0),
+                        device="cpu")
+    (tlp, tinits, tcfg, seg, tim, taux), tkw = seen["torch"]
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert seg == jkw["segment_size"] and tkw["thin"] == jkw["thin"]
+    np.testing.assert_array_equal(tinits.numpy(), np.asarray(jinits))
+    np.testing.assert_array_equal(taux.numpy(), np.asarray(jkw["aux"]))
+    jim = jkw["inv_mass"]
+    if setting == "lowrank_rank":
+        np.testing.assert_allclose(tim.diag_mass.numpy(), np.asarray(jim.diag_mass), rtol=1e-6)
+        uu_j = np.asarray(jim.u) @ np.asarray(jim.u).T
+        uu_t = (tim.u @ tim.u.T).numpy()
+        np.testing.assert_allclose(uu_t / np.abs(uu_j).max(), uu_j / np.abs(uu_j).max(),
+                                   rtol=0, atol=2e-3)
+    else:
+        np.testing.assert_allclose(np.asarray(tim) * np.ones(d), np.asarray(jim) * np.ones(d),
+                                   rtol=1e-6)
+    lp_t = tlp(tinits, taux)
+    g_t = tkw["grad_fn"](tinits, taux)
+    for c in range(tinits.shape[0]):
+        q = jnp.asarray(np.asarray(jinits)[c])
+        np.testing.assert_allclose(float(lp_t[c]), float(jlp(q, jkw["aux"])), rtol=1e-5)
+        want = np.asarray(jkw["grad_fn"](q, jkw["aux"]))
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(g_t[c].numpy() / scale, want / scale, rtol=2e-4, atol=2e-4)
+    monkeypatch.undo()
+    out = tv.run_operator(cfg, DeepONetConfig(**TINY_DEEPONET_KW), arts, data=data,
+                          use_fused=True, segment_size=6, sample_thin=3, device="cpu")
+    res = out["result"]
+    assert res.samples.shape == (2, 4, 12) and np.isfinite(res.samples).all()
+    assert sorted(out["metrics"]) == sorted(jout["metrics"])
+    assert all(np.isfinite(v).all() for v in out["metrics"].values())
+    if setting == "lowrank_rank":
+        assert "lanczos_s" in out["phases_s"] and out["inv_mass"].u.shape == (12, 3)
+
+
+def test_stage3_variants_config_and_entry_point():
+    """stage3_config follows run_operator_stage3.py per variant (stride 3/3 by
+    default, gauss with alpha 1 and step 0.8 d^-1/4 unless given, autodiff on
+    the full grid; --jitter, --adapt, --da-axis, --clip-scale), and the entry
+    point parses the script's flags with stride as the default variant."""
+    d, n = 81_131, 1000 * 101 * 101
+    st = tv.stage3_config(d, n)
+    assert (st.coarse_stride, st.fn_stride, st.gauss_field) == (3, 3, None)
+    assert st.step_size == 1e-4 and st.jitter_eps and st.jitter_low_frac == 0.5
+    assert st.clip_grad == pytest.approx(13.0 * d ** 0.5) and st.frozen_policy == "draw"
+    g = tv.stage3_config(d, n, variant="gauss")
+    assert g.gauss_field == 1.0 and g.coarse_stride is None
+    assert g.step_size == pytest.approx(0.8 * d ** -0.25)
+    assert tv.stage3_config(d, n, variant="gauss", step=0.01).step_size == 0.01
+    a = tv.stage3_config(d, n, variant="autodiff", jitter="l", adapt=True, da_axis=True,
+                         adapt_forever=True, max_step=0.1, clip_scale=0)
+    assert (a.coarse_stride, a.gauss_field, a.clip_grad) == (None, None, None)
+    assert a.jitter_l and not a.jitter_eps and a.adapt_step_size and a.da_axis == "chains"
+    assert tv.stage3_config(d, n, jitter="none").jitter_low_frac == 0.0
+    assert tv.trajectory_field_name(st) == "gram_stride_3x3_f32"
+    assert tv.trajectory_field_name(g) == "gauss_alpha_1"
+    assert tv.trajectory_field_name(a, use_gram=False) == "autograd"
+    with pytest.raises(ValueError):
+        tv.stage3_config(d, n, variant="nuts")
+    seen = {}
+
+    def fake(**kw):
+        seen.update(kw)
+        return {"ok": 1}, None
+
+    import unittest.mock as mock
+
+    with mock.patch.object(tv, "run_stage3", fake), mock.patch("builtins.print"):
+        tv.main(["--device", "cpu", "--draws", "6"])
+        assert seen["variant"] == "stride" and seen["stride"] == 3 and seen["fn_stride"] == 3
+        assert seen["jitter"] == "eps" and seen["step"] is None and seen["clip_scale"] == 13.0
+        tv.main(["--device", "cpu", "--variant", "gauss", "--adapt", "--da-axis",
+                 "--target-accept", "0.7", "--jitter", "l", "--laplace-mass",
+                 "--init-optimize", "5", "--max-step", "0.2"])
+        assert seen["variant"] == "gauss" and seen["adapt"] and seen["da_axis"]
+        assert seen["target_accept"] == 0.7 and seen["laplace_mass"]
+        assert seen["init_optimize"] == 5 and seen["max_step"] == 0.2

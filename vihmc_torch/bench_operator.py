@@ -235,7 +235,8 @@ def run_operator_row(device="cuda", draws: int = 2880, burn: int = 288,
     phases["lanczos_s"] = time.perf_counter() - t0
 
     config = HMCConfig(num_samples=draws, num_leapfrog=L, step_size=0.1,
-                       target_accept=target, jitter_low_frac=0.5)
+                       target_accept=target, sampler="hmc_nuts", adapt_forever=True,
+                       da_axis="chains", jitter_eps=True, jitter_low_frac=0.5)
     seg_walls = []
     t_seg = [time.perf_counter()]
 

@@ -4,14 +4,15 @@ Counterpart of ``sample_chains_resumable`` in ``vihmc_tpu/chains/resume.py``
 (:63-176), without the checkpoint/resume half: ``config.num_samples`` draws
 run in segments of ``segment_size``, with the transition paths of
 :func:`vihmc_torch.hmc.kernel.make_kernel` (paired or unpaired MH test,
-fixed or adapted step, gradient-only or autograd trajectory, with or
-without the REFRESH policy's ``aux_refresh``); within a
-segment every draw advances all chains with one call of the transition, the
-kept positions (every ``thin``-th) stay on the device, and the segment's
-samples and per-draw info arrays go to the host once, at its end. Each
-segment draws its random numbers
-from a generator seeded with ``(seed, segment index)``, so a later resume can
-replay a segment exactly. Resume from ``torch.save`` state is not ported yet.
+fixed or adapted step, gradient-only, autograd or split-Hamiltonian
+trajectory, with or without an ``aux_refresh``); within a segment every draw
+advances all chains with one call of the transition, the kept positions
+(every ``thin``-th) stay on the device, and the segment's samples and
+per-draw info arrays go to the host once, at its end. The state carries the
+global draw index, so the burn boundary of dual averaging holds across
+segments. Each segment draws its random numbers from a generator seeded with
+``(seed, segment index)``, so a later resume can replay a segment exactly.
+Resume from ``torch.save`` state is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ import numpy as np
 import torch
 
 from vihmc_torch.core.device import stream_generator
-from vihmc_torch.hmc.kernel import (HMCConfig, HMCState, draw_noise,
-                                    init_state, make_kernel)
+from vihmc_torch.hmc.kernel import (HMCConfig, HMCState, draw_noise, init_state,
+                                    jitter_l_range, make_kernel)
 
 INFO_KEYS = ("accepted", "accept_prob", "step_size", "divergent", "log_prob")
 
@@ -58,14 +59,19 @@ def sample_chains_resumable(log_prob_fn: Callable, init_positions: torch.Tensor,
                             delta_fn: Optional[Callable] = None, thin: int = 1,
                             seed: int = 0,
                             progress: Optional[Callable] = None,
-                            aux_refresh: Optional[Callable] = None) -> SampleResult:
+                            aux_refresh: Optional[Callable] = None,
+                            aux_draw: Optional[Callable] = None,
+                            shard_log_prob_fn: Optional[Callable] = None,
+                            shard_data=None) -> SampleResult:
     """Run ``config.num_samples`` draws of all chains (see module doc).
 
     ``grad_fn`` None: the trajectory differentiates ``log_prob_fn`` by
     autograd; ``delta_fn`` None: the unpaired MH test on ``log_prob_fn``.
-    ``aux_refresh(z (C, D)) -> (C, D)``: redraw every chain's frozen vector
-    before each draw from normals drawn after the transition's own (so the
-    final state's ``aux`` is ``(C, D)``).
+    ``aux_refresh(z) -> aux``: redraw every chain's aux before each draw from
+    ``aux_draw(generator)``, drawn after the transition's own draws (default:
+    ``(C, D)`` standard normals, the REFRESH policy's). The splitting
+    integrator takes ``shard_log_prob_fn`` and ``shard_data``
+    (:func:`~vihmc_torch.hmc.kernel.make_kernel`).
 
     ``progress(segment, n_segments, state)`` is called after each segment,
     once its samples are on the host.
@@ -76,9 +82,11 @@ def sample_chains_resumable(log_prob_fn: Callable, init_positions: torch.Tensor,
     if thin < 1 or segment_size % thin:
         raise ValueError("thin must divide segment_size")
     dev = init_positions.device
-    kernel = make_kernel(config, inv_mass, grad_fn, delta_fn, log_prob_fn, aux_refresh)
+    kernel = make_kernel(config, inv_mass, grad_fn, delta_fn, log_prob_fn, aux_refresh,
+                         shard_log_prob_fn, shard_data)
     state = init_state(log_prob_fn, init_positions, config, aux, grad_fn)
     aux_dim = None if aux_refresh is None else aux.shape[-1]
+    n_steps_range = jitter_l_range(config)
 
     collected = []
     infos = {k: [] for k in INFO_KEYS}
@@ -86,8 +94,10 @@ def sample_chains_resumable(log_prob_fn: Callable, init_positions: torch.Tensor,
         gen = segment_generator(dev, seed, seg)
         kept, seg_info = [], {k: [] for k in INFO_KEYS}
         for i in range(segment_size):
-            state, info = kernel(state, draw_noise(gen, inv_mass, n_chains, dim, dev,
-                                                   aux_dim))
+            noise = draw_noise(gen, inv_mass, n_chains, dim, dev, aux_dim,
+                               aux_draw if aux_refresh is not None else None,
+                               n_steps_range)
+            state, info = kernel(state, noise)
             if (i + 1) % thin == 0:
                 kept.append(state.position)
             for k in INFO_KEYS:

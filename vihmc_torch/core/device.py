@@ -22,6 +22,14 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def sync(device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU): wall-clock
+    phases end here."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def stream_generator(device, seed: int, stream: int) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded with ``seed * 1_000_003 +
     stream``: the independent random streams of one run seed (a sampler's

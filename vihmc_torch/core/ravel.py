@@ -8,14 +8,18 @@ dicts that puts each layer's bias BEFORE its weight, and the weight is
 means the same parameters on both sides (``tests/test_torch_core.py`` checks
 it against ``ravel_pytree``).
 
-Every function here takes a leading chain dimension: a flat batch is
-``(C, D)``.
+Every function here on flat vectors takes a leading chain dimension: a
+flat batch is ``(C, D)``. For parameter trees (nested dicts, lists and
+tuples of tensors, as the hamiltorch-style API takes them) there is the same
+walk as ``ravel_pytree``: :func:`tree_leaves`, :func:`ravel_tree` and
+:func:`per_segment_vector`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -65,3 +69,50 @@ def scatter_subspace(frozen: torch.Tensor, sub: torch.Tensor,
 def gather_subspace(full: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Subspace coordinates ``(C, d)`` of full ``(C, D)`` vectors."""
     return full[:, idx]
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict/list/tuple in ``ravel_pytree`` order
+    (dict keys sorted, sequences in order)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def ravel_tree(tree):
+    """``(flat (D,), unravel)`` of a tree of tensors: the leaves raveled
+    row-major and concatenated in ``ravel_pytree`` order; ``unravel(flat)``
+    rebuilds the tree (views into ``flat``)."""
+    leaves = [torch.as_tensor(leaf) for leaf in tree_leaves(tree)]
+    shapes = [leaf.shape for leaf in leaves]
+    flat = torch.cat([leaf.reshape(-1) for leaf in leaves]) if leaves else torch.zeros(0)
+
+    def unravel(vec):
+        it = iter(range(len(shapes)))
+        offsets = np.cumsum([0] + [int(np.prod(s)) for s in shapes])
+
+        def build(node):
+            if isinstance(node, dict):
+                return {k: build(node[k]) for k in sorted(node)}
+            if isinstance(node, (list, tuple)):
+                return type(node)(build(v) for v in node)
+            i = next(it)
+            return vec[offsets[i]:offsets[i + 1]].reshape(shapes[i])
+
+        return build(tree)
+
+    return flat, unravel
+
+
+def per_segment_vector(tree, values) -> torch.Tensor:
+    """One scalar per leaf of ``tree``, broadcast into a flat ``(D,)`` f32
+    vector laid out as :func:`ravel_tree` lays out the tree (the per-tensor
+    prior scales of the reference's ``tau_list``)."""
+    sizes = [int(np.prod(np.shape(leaf))) for leaf in tree_leaves(tree)]
+    vals = list(values)
+    if len(vals) != len(sizes):
+        raise ValueError(f"{len(vals)} values for {len(sizes)} leaves")
+    parts = [torch.full((n,), float(v), dtype=torch.float32) for n, v in zip(sizes, vals)]
+    return torch.cat(parts) if parts else torch.zeros(0)

@@ -112,18 +112,23 @@ def get_burgers_train(device="cuda", n_rows=None, path: str = PORT_INPUTS) -> di
     return burgers_dataset(u0, nx=int(z["nx"]), nt=int(z["nt"]))
 
 
-def get_burgers(device="cuda", n_train=None, n_valid=None, path: str = PORT_INPUTS):
+def get_burgers(device="cuda", n_train=None, n_valid=None, path: str = PORT_INPUTS,
+                valid_from=None):
     """``(train, valid)`` splits solved on ``device`` from the exported ``u0``:
     rows ``[0:n_train]`` and ``[n_train:n_train + n_valid]``, the reference
-    loader's slicing (``get_burgers`` of the JAX package). Defaults: the
-    export's ``n_train`` (1000) and ``n_valid`` (200)."""
+    loader's slicing (``get_burgers`` of the JAX package), or validation rows
+    from ``valid_from`` on. Defaults: the export's ``n_train`` (1000) and
+    ``n_valid`` (200)."""
     dev = resolve_device(device)
     z = load_port_inputs(path)
     n_train = int(z["n_train"]) if n_train is None else int(n_train)
     n_valid = int(z["n_valid"]) if n_valid is None else int(n_valid)
-    if n_train + n_valid > z["u0"].shape[0]:
-        raise ValueError(f"{n_train} + {n_valid} rows asked, {z['u0'].shape[0]} exported")
-    u0 = torch.as_tensor(z["u0"][:n_train + n_valid], device=dev)
+    lo = n_train if valid_from is None else int(valid_from)
+    if max(n_train, lo + n_valid) > z["u0"].shape[0]:
+        raise ValueError(f"rows up to {max(n_train, lo + n_valid)} asked, "
+                         f"{z['u0'].shape[0]} exported")
+    u0 = torch.as_tensor(np.concatenate([z["u0"][:n_train], z["u0"][lo:lo + n_valid]]),
+                         device=dev)
     data = burgers_dataset(u0, nx=int(z["nx"]), nt=int(z["nt"]))
 
     def rows(lo, hi):
@@ -132,6 +137,21 @@ def get_burgers(device="cuda", n_train=None, n_valid=None, path: str = PORT_INPU
                 "solution": data["solution"][lo:hi].contiguous()}
 
     return rows(0, n_train), rows(n_train, n_train + n_valid)
+
+
+def get_burgers_baseline(device="cuda", n_train: int = 1000, n_valid: int = 200,
+                         path: str = PORT_INPUTS):
+    """``(train, valid, n_valid_used)`` for the full-parameter baselines:
+    training rows from the front of the export, validation rows from its
+    ``n_train`` (row 1000) on, as every stage-3 run scores; ``n_valid`` is
+    capped at the exported validation rows (200)."""
+    z = load_port_inputs(path)
+    first_valid, n_exported = int(z["n_train"]), int(z["n_valid"])
+    if n_train > first_valid:
+        raise ValueError(f"{n_train} training rows asked, {first_valid} exported")
+    used = min(int(n_valid), n_exported)
+    train, valid = get_burgers(device, n_train, used, path=path, valid_from=first_valid)
+    return train, valid, used
 
 
 def subsample_trunk(split: dict, p: int, generator: Optional[torch.Generator] = None,
@@ -148,3 +168,16 @@ def subsample_trunk(split: dict, p: int, generator: Optional[torch.Generator] = 
         idx = u.topk(p, dim=-1).indices
     idx = torch.as_tensor(idx, dtype=torch.int64, device=sol.device)
     return trunk[idx], torch.gather(sol, 1, idx)
+
+
+def split_shards(split: dict, num_splits: int) -> dict:
+    """The function axis cut into ``num_splits`` equal shards (ValueError if
+    they cannot be equal, as the reference's splitting script): ``branch_in``
+    and ``solution`` gain a leading shard axis, ``trunk_in`` stays shared."""
+    n = split["branch_in"].shape[0]
+    if n % num_splits != 0:
+        raise ValueError(f"{n} examples cannot be split into {num_splits} equal shards")
+    per = n // num_splits
+    return {"branch_in": split["branch_in"].reshape(num_splits, per, -1),
+            "trunk_in": split["trunk_in"],
+            "solution": split["solution"].reshape(num_splits, per, -1)}

@@ -1,7 +1,8 @@
-"""Likelihood and prior (counterpart of ``vihmc_tpu.dists``)."""
+"""Likelihoods and priors (counterpart of ``vihmc_tpu.dists``)."""
 
-from vihmc_torch.dists.likelihoods import gaussian_nll, nll_log_likelihood
-from vihmc_torch.dists.priors import DiagonalGaussianPrior, IsotropicGaussianPrior
+from vihmc_torch.dists.likelihoods import gaussian_nll, get_likelihood, nll_log_likelihood
+from vihmc_torch.dists.priors import (DiagonalGaussianPrior, IsotropicGaussianPrior,
+                                      PerSegmentGaussianPrior)
 
-__all__ = ["gaussian_nll", "nll_log_likelihood", "DiagonalGaussianPrior",
-           "IsotropicGaussianPrior"]
+__all__ = ["gaussian_nll", "get_likelihood", "nll_log_likelihood",
+           "DiagonalGaussianPrior", "IsotropicGaussianPrior", "PerSegmentGaussianPrior"]

@@ -1,7 +1,7 @@
 """Gaussian priors over chain-batched flat vectors.
 
-Counterpart of ``IsotropicGaussianPrior`` and ``DiagonalGaussianPrior`` in
-``vihmc_tpu/dists/priors.py`` (same math as
+Counterpart of ``IsotropicGaussianPrior``, ``DiagonalGaussianPrior`` and
+``PerSegmentGaussianPrior`` in ``vihmc_tpu/dists/priors.py`` (same math as
 ``torch.distributions.Normal.log_prob``, summed).
 """
 
@@ -46,3 +46,21 @@ class DiagonalGaussianPrior:
     def grad(self, q: torch.Tensor) -> torch.Tensor:
         """d log_prob / dq, ``(C, d)``."""
         return -(q - self.loc) / (self.scale * self.scale)
+
+
+@dataclasses.dataclass
+class PerSegmentGaussianPrior:
+    """Zero-mean Gaussian with one scale per parameter tensor, broadcast over
+    the flat vector (:func:`~vihmc_torch.core.ravel.per_segment_vector`):
+    the reference's per-tensor ``tau_list`` priors."""
+
+    scales_flat: torch.Tensor  # (D,)
+
+    def log_prob(self, q: torch.Tensor) -> torch.Tensor:
+        """``(C, D) -> (C,)``."""
+        z = q / self.scales_flat
+        return (-0.5 * z * z - torch.log(self.scales_flat) - 0.5 * _LOG_2PI).sum(-1)
+
+    def grad(self, q: torch.Tensor) -> torch.Tensor:
+        """d log_prob / dq, ``(C, D)``."""
+        return -q / (self.scales_flat * self.scales_flat)

@@ -5,7 +5,8 @@ Counterpart of ``vihmc_tpu/hmc/metric.py``: ``LowRankMetric`` (mass
 ``lowrank_from_eigs``, the metric-agnostic helpers ``mass_velocity`` /
 ``mass_kinetic_energy`` / ``mass_sample_momentum`` for the diagonal and
 low-rank cases, and ``hvp_fn`` / ``preconditioned_hvp`` / ``lanczos_tridiag``
-/ ``lanczos_eigs`` (CGS2 full reorthogonalization, ``which='top'``).
+/ ``lanczos_eigs`` (CGS2 full reorthogonalization, ``which='top'``) /
+``estimate_lowrank_metric``.
 
 Convention, as in JAX: a diagonal metric is passed as the INVERSE mass (a
 posterior variance estimate), while ``LowRankMetric`` stores the mass itself.
@@ -177,3 +178,18 @@ def lanczos_eigs(matvec, dim: int, rank: int, num_iters=None, v0=None,
     ritz_vecs = basis.T @ evecs[:, sel]                  # (dim, rank)
     ritz_vecs = ritz_vecs / torch.linalg.vector_norm(ritz_vecs, dim=0, keepdim=True)
     return ritz_vals, ritz_vecs
+
+
+def estimate_lowrank_metric(log_prob, q0: torch.Tensor, diag_inv_mass, rank: int,
+                            num_iters=None, v0=None, generator=None, aux=None,
+                            min_eig: float = 1.0) -> LowRankMetric:
+    """Lanczos on the preconditioned curvature ``S (-H) S`` of ``log_prob``
+    at ``q0`` (d,), then :func:`lowrank_from_eigs` with the Ritz values
+    floored at ``min_eig`` (``metric.py:386-413`` of the JAX package). The
+    start vector is ``v0``, else a standard normal draw from ``generator``
+    (JAX draws it from its key)."""
+    diag = torch.as_tensor(diag_inv_mass, dtype=torch.float32, device=q0.device)
+    mv = preconditioned_hvp(log_prob, q0, diag, aux=aux)
+    vals, vecs = lanczos_eigs(mv, q0.shape[0], rank, num_iters=num_iters, v0=v0,
+                              generator=generator, device=q0.device)
+    return lowrank_from_eigs(diag, torch.clamp(vals, min=min_eig), vecs)

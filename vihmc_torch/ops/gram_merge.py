@@ -1,9 +1,10 @@
 """Gram-form trajectory gradient of the DeepONet merge + Gaussian NLL.
 
 Counterpart of ``vihmc_tpu/ops/gram_merge.py`` (``merge_nll_gram_cotangents``,
-``make_gram_grad_full``). With residual cotangent r = (y - pred)/var the merge
-cotangents need only K x K Gram matrices and two thin contractions against the
-data, never the (B, P) prediction:
+``make_gram_grad_full``, ``infer_grid_shape``, ``grid_stride_subset``). With
+residual cotangent r = (y - pred)/var the merge cotangents need only K x K
+Gram matrices and two thin contractions against the data, never the (B, P)
+prediction:
 
     d ll/d bout = (y @ tout  - bout @ (tout^T tout) - b sum_j tout_j) / var
     d ll/d tout = (y^T @ bout - tout @ (bout^T bout) - b sum_i bout_i) / var
@@ -13,24 +14,31 @@ The feature VJP then runs through ``torch.autograd`` over the chain-batched
 feature stacks. This is plain matmul work (XLA's in JAX), so it stays
 ``torch.matmul``.
 
-Precision. With ``compute_dtype=torch.bfloat16`` the stacks, the data and the
-cotangents entering the VJP are bf16, as in JAX. Where JAX writes
-``preferred_element_type=float32`` (the Gram matrices and the two data
-contractions) the port upcasts the bf16 operands to f32 and multiplies under
-:func:`~vihmc_torch.core.precision.bf16_exact_tf32`: every bf16 value is exact
-in TF32, so the products are exact and accumulate in f32 to an f32 result --
-the same contract, on the tensor cores. The gradient is a trajectory field
-only: any deterministic field keeps leapfrog reversible and volume-preserving,
-and MH on the exact f32 density stays unbiased.
+The stride surrogates. ``query_subset`` keeps only those query points and
+``fn_subset`` only those training functions, the likelihood term rescaled by
+``P / p`` and ``B / b``: every cost of the field scales with the points and
+functions kept, and the fixed subsets keep it deterministic, so MH on the
+exact full density at the endpoints stays unbiased (only acceptance moves).
+:func:`grid_stride_subset` gives every ``stride``-th point of the regular
+(t, x) grid in both dimensions.
 
-Only the full grid (stride 1) is ported; the query and function subsets can
-follow.
+Precision. With ``compute_dtype=torch.bfloat16`` the stacks, the data and the
+cotangents entering the VJP are bf16, as in JAX (the subsets are taken
+first, and the rescale applies to the f32 cotangents before their cast).
+Where JAX writes ``preferred_element_type=float32`` (the Gram matrices and
+the two data contractions) the port upcasts the bf16 operands to f32 and
+multiplies under :func:`~vihmc_torch.core.precision.bf16_exact_tf32`: every
+bf16 value is exact in TF32, so the products are exact and accumulate in f32
+to an f32 result -- the same contract, on the tensor cores. The gradient is a
+trajectory field only: any deterministic field keeps leapfrog reversible and
+volume-preserving, and MH on the exact f32 density stays unbiased.
 """
 
 from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 from vihmc_torch.core.precision import bf16_exact_tf32
@@ -62,18 +70,32 @@ def merge_nll_gram_cotangents(bout, tout, bias, y, tau):
 
 
 def make_gram_grad_full(cfg: DeepONetConfig, branch_x, trunk_x, y, tau_var,
-                        compute_dtype=None):
+                        compute_dtype=None, query_subset=None, fn_subset=None,
+                        prior=None):
     """``grad_full(flat (C, D)) -> (C, D)`` f32: d log-likelihood / d flat of
     the shared-grid homoscedastic DeepONet (NLL with variance ``tau_var``),
     equal to autograd of the composed likelihood up to the Gram-form
-    rounding. ``compute_dtype=torch.bfloat16`` runs stacks, data and VJP in
-    bf16 (module doc)."""
+    rounding; plus ``prior.grad(flat)`` when a full-vector ``prior`` is given.
+    ``query_subset`` / ``fn_subset`` (index arrays into the P points / the B
+    functions) make it the rescaled stride surrogate; ``compute_dtype=
+    torch.bfloat16`` runs stacks, data and VJP in bf16 (module doc)."""
     if cfg.noise_neurons:
         raise ValueError("Gram-form gradient covers the homoscedastic merge only")
     if trunk_x.ndim != 2:
         raise ValueError("Gram-form gradient requires a shared query grid (P, 2)")
+    ll_scale = 1.0
+    if query_subset is not None:
+        sel = torch.as_tensor(np.asarray(query_subset), dtype=torch.int64,
+                              device=trunk_x.device)
+        ll_scale = trunk_x.shape[0] / sel.shape[0]
+        trunk_x, y = trunk_x[sel], y[:, sel]
+    if fn_subset is not None:
+        fsel = torch.as_tensor(np.asarray(fn_subset), dtype=torch.int64,
+                               device=branch_x.device)
+        ll_scale = ll_scale * (branch_x.shape[0] / fsel.shape[0])
+        branch_x, y = branch_x[fsel], y[fsel]
     dt = torch.float32 if compute_dtype is None else compute_dtype
-    bx, tx, yy = branch_x.to(dt), trunk_x.to(dt), y.to(dt)
+    bx, tx, yy = (t.to(dt).contiguous() for t in (branch_x, trunk_x, y))
 
     def grad_full(flat: torch.Tensor) -> torch.Tensor:
         with torch.enable_grad():
@@ -83,8 +105,36 @@ def make_gram_grad_full(cfg: DeepONetConfig, branch_x, trunk_x, y, tau_var,
             bias = params["b"]
             with torch.no_grad():
                 cts = merge_nll_gram_cotangents(bout, tout, bias, yy, tau_var)
+                if ll_scale != 1.0:
+                    cts = [ll_scale * ct for ct in cts]
             cts = [ct.to(dt) for ct in cts]
             (g,) = torch.autograd.grad((bout, tout, bias), leaf, grad_outputs=cts)
+        if prior is not None:
+            g = g + prior.grad(flat)
         return g
 
     return grad_full
+
+
+def infer_grid_shape(trunk_x):
+    """``(nt, nx)`` of a t-major raveled regular grid ``trunk_x`` (nt nx, 2)
+    with columns (t, x): each t value fills one contiguous block of nx rows.
+    Raises ValueError if the layout does not hold."""
+    t = np.asarray(trunk_x.cpu() if isinstance(trunk_x, torch.Tensor) else trunk_x)[:, 0]
+    nx = int(np.sum(t == t[0]))
+    p = t.shape[0]
+    if nx == 0 or p % nx:
+        raise ValueError(f"not a regular t-major grid: P={p}, nx={nx}")
+    nt = p // nx
+    rows = t.reshape(nt, nx)
+    if not (rows == rows[:, :1]).all():
+        raise ValueError("not a regular t-major grid: t varies within rows")
+    return nt, nx
+
+
+def grid_stride_subset(nt: int, nx: int, stride: int) -> np.ndarray:
+    """Indices of every ``stride``-th point of a t-major (nt, nx) raveled
+    grid in both dimensions, the first point of each included."""
+    ti = np.arange(0, nt, stride)
+    xi = np.arange(0, nx, stride)
+    return (ti[:, None] * nx + xi[None, :]).ravel()

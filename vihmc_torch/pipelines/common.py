@@ -1,7 +1,7 @@
 """Flat-vector model closures, log-densities and the MH delta evaluators.
 
 Counterpart of ``vihmc_tpu/pipelines/common.py``: ``make_flat_mlp``
-(:27-47), ``make_flat_deeponet`` (:50-66), the VI-trainer adapters
+(:27-47), ``make_flat_deeponet`` (:50-66), ``make_log_posterior`` (:69-95), the VI-trainer adapters
 ``mlp_vi_apply`` and ``deeponet_vi_apply`` (:135-151), ``make_deeponet_nll_log_posterior`` (:98-128, the fused merge-NLL
 density of the stage-3 pipeline), ``make_paired_subspace_delta`` (:154-192,
 the composed plain path) and ``make_fused_paired_subspace_delta`` (:195-226,
@@ -19,7 +19,7 @@ import torch
 
 from vihmc_torch.core.precision import true_f32
 from vihmc_torch.core.ravel import scatter_subspace
-from vihmc_torch.dists.likelihoods import GNLL_EPS, nll_log_likelihood
+from vihmc_torch.dists.likelihoods import GNLL_EPS, get_likelihood, nll_log_likelihood
 from vihmc_torch.models.bayesian import (bayesian_deeponet_apply, bayesian_mlp_apply,
                                          check_mode)
 from vihmc_torch.models.deeponet import (DeepONetConfig, deeponet_apply,
@@ -57,6 +57,29 @@ def make_flat_deeponet(cfg: DeepONetConfig, compute_dtype=None):
         return out.float()
 
     return apply_flat
+
+
+def make_log_posterior(forward, y, model_loss, tau_out: float, prior=None,
+                       prior_scale: float = 1.0):
+    """``log_prob(flat (C, D)) -> (C,)``: the log-likelihood of
+    ``forward(flat) -> (C, ...)`` on ``y`` under ``model_loss``
+    (:func:`~vihmc_torch.dists.likelihoods.get_likelihood`) plus
+    ``prior.log_prob(flat) / prior_scale`` (the reference's splitting
+    convention divides the prior across shard potentials). An output with
+    ``y``'s size per chain takes ``y``'s shape; classification logits keep
+    their class axis."""
+    like = get_likelihood(model_loss)
+
+    def log_prob(flat):
+        out = forward(flat)
+        if out[0].numel() == y.numel() and tuple(out.shape[1:]) != tuple(y.shape):
+            out = out.reshape(out.shape[0], *y.shape)
+        ll = like(out, y, tau_out)
+        if prior is not None:
+            ll = ll + prior.log_prob(flat) / prior_scale
+        return ll
+
+    return log_prob
 
 
 def make_deeponet_nll_log_posterior(cfg: DeepONetConfig, branch_x, trunk_x, y,

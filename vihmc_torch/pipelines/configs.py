@@ -1,8 +1,9 @@
-"""The run configs of the three stages.
+"""The run configs of the three stages and of the full-parameter baselines.
 
-Counterparts of ``NNVIRunConfig``, ``SensitivityRunConfig``,
-``VIHMCRunConfig``, ``OperatorVIRunConfig`` and ``trajectory_length`` in
-``vihmc_tpu/pipelines/configs.py`` (:25-28, :56-83, :86-254, :257-275): the
+Counterparts of ``NNHMCRunConfig``, ``NNVIRunConfig``,
+``SensitivityRunConfig``, ``VIHMCRunConfig``, ``OperatorVIRunConfig``,
+``OperatorHMCRunConfig``, ``SplitHMCRunConfig`` and ``trajectory_length`` in
+``vihmc_tpu/pipelines/configs.py`` (:25-53, :56-83, :86-254, :257-331): the
 same fields, the same defaults, and the reference's analytic trajectory-length rule
 ``L = int(pi * post_var / (2 * step_size))``. Every field is kept so that a
 JAX run's config means the same here; :func:`vihmc_torch.pipelines.vi_hmc.
@@ -27,6 +28,31 @@ def trajectory_length(post_var: float, step_size: float) -> int:
     """Half a period of the harmonic oscillator with the posterior's
     marginal variance (the reference's L rule)."""
     return max(1, int(math.pi * post_var / (2.0 * step_size)))
+
+
+@dataclasses.dataclass(frozen=True)
+class NNHMCRunConfig:
+    """Full-parameter HMC for the regression MLP (the reference's
+    Neural_network/HMC config)."""
+
+    model: MLPConfig = dataclasses.field(default_factory=MLPConfig)
+    n_train: int = 20
+    n_val: int = 300
+    tau: float = 1.0                 # per-tensor prior precision
+    tau_out: float = 1.0 / 0.05**2   # likelihood precision ('regression' loss)
+    step_size: float = 1e-4
+    num_samples: int = 1000
+    post_std: float = 0.2024         # empirical posterior std driving L
+    num_chains: int = 1
+    loss: str = "regression"
+
+    @property
+    def L(self) -> int:
+        return trajectory_length(self.post_std**2, self.step_size)
+
+    @property
+    def burn(self) -> int:
+        return self.num_samples // 5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,3 +164,59 @@ class OperatorVIRunConfig:
     posterior_mu_initial: tuple = (0.0, 0.1)
     posterior_rho_initial: tuple = (-5.0, 0.1)
     mode: str = "bbb"
+
+
+@dataclasses.dataclass(frozen=True)
+class OperatorHMCRunConfig:
+    """Full-parameter DeepONet HMC with dual-averaging step adaptation (the
+    reference's Operator_network/HMC config)."""
+
+    model: DeepONetConfig = dataclasses.field(default_factory=DeepONetConfig)
+    n_train: int = 10
+    n_valid: int = 10
+    step_size: float = 1e-4
+    num_samples: int = 10
+    post_std: float = 0.0214
+    prior_var: float = 0.1**2
+    loss: str = "NLL"
+    tau_out: float = 1.0
+    sample_data: bool = False        # random trunk subsampling inside the sampler
+    p: int = 10201
+    target_accept: float = 0.8
+
+    @property
+    def L(self) -> int:
+        return trajectory_length(self.post_std**2, self.step_size)
+
+    @property
+    def burn(self) -> int:
+        return max(1, self.num_samples // 10)
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitHMCRunConfig:
+    """Split-Hamiltonian DeepONet HMC (the reference's
+    Operator_network/HMC config_splitting)."""
+
+    model: DeepONetConfig = dataclasses.field(default_factory=DeepONetConfig)
+    n_train: int = 1000
+    n_valid: int = 1000
+    num_splits: int = 2
+    is_nuts: bool = False
+    step_size: float = 3.45e-4
+    num_samples: int = 1001
+    prior_var: float = 0.1**2
+    post_std: float = 0.0214
+    loss: str = "NLL"
+    tau_out: float = 1.0
+    sample_data: bool = False
+    p: int = 10201
+    target_accept: float = 0.8
+
+    @property
+    def L(self) -> int:
+        return trajectory_length(self.post_std**2, self.step_size)
+
+    @property
+    def burn(self) -> int:
+        return self.num_samples // 2

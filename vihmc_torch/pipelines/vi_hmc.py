@@ -4,49 +4,63 @@ Counterpart of ``vihmc_tpu/pipelines/vi_hmc.py`` (``make_spec``,
 ``make_subspace_prior``, ``build_subspace_posterior``, ``chain_inits``,
 ``evaluate_samples``, ``run_subspace_hmc``, ``run_nn`` and
 ``run_operator``), on the paths the stage-3 runs take
-(``scripts/run_operator_stage3.py --variant autodiff``, the reference's
+(``scripts/run_operator_stage3.py``, all three variants, the reference's
 ``main_VI_HMC_burgers.py`` and ``main_VI_HMC.py``):
 
-* the posterior: the likelihood over the full flat vector with the
-  insensitive coordinates frozen per ``frozen_policy`` -- at the VI mean
-  (MEAN), at one VI draw (DRAW), or redrawn for every chain before every draw
-  (REFRESH, the configs' default) -- plus the VI-posterior subspace prior;
-  with ``use_fused`` the Burgers likelihood is the fused merge-NLL
+* the posterior: the likelihood (any ``loss``) over the full flat vector
+  with the insensitive coordinates frozen per ``frozen_policy`` -- at the VI
+  mean (MEAN), at one VI draw (DRAW), or redrawn for every chain before every
+  draw (REFRESH, the configs' default) -- plus the VI-posterior subspace
+  prior; with ``use_fused`` the Burgers likelihood is the fused merge-NLL
   (``ops.deeponet_merge.fused_merge_nll``: one ``merge_sums`` kernel launch
   per evaluation for all chains);
-* the trajectory field: the full-grid Gram gradient (``use_gram``, f32 by
-  default) or autograd through the density, clipped at a preconditioned norm;
-* plain HMC with a fixed step and step jitter, the unpaired MH test with lp0
-  recomputed in every transition (under REFRESH, at the new frozen vectors),
-  segments thinned on the device;
+* the metric: VI variances, conditional Laplace, or either plus the Lanczos
+  low-rank term (``lowrank_rank``);
+* the trajectory field: the Gram gradient (``use_gram``, f32 by default) on
+  the full grid or on the stride subsets (``coarse_stride``/``fn_stride``),
+  the VI-Gaussian score (``gauss_field``), or autograd through the density,
+  clipped at a preconditioned norm;
+* HMC with a fixed step or any dual-averaging mode, step or length jitter,
+  the unpaired MH test with lp0 recomputed in every transition (under
+  REFRESH, at the new frozen vectors), segments thinned on the device;
 * posterior-predictive scoring of the pooled samples on the validation split
   against the frozen vectors the samples were drawn with (DRAW: the draw;
   REFRESH: each chain's last one; MEAN: the VI mean) and the numpy
   diagnostics battery.
 
 Not ported yet -- the pipeline raises ``NotImplementedError`` on them:
-``algorithm`` other than 'hmc', the Gaussian trajectory field
-(``gauss_field*``), ``lowrank_rank``, ``adapt_mass``, the Gram stride
-surrogates (``coarse_stride``/``fn_stride``), query subsampling
-(``sample_data``), ``save_vi_trace``, ``jitter_l``, losses other than NLL,
-and dual averaging other than the operator recipe's (``adapt_forever``
-coupled over ``da_axis='chains'``, no ``max_step``).
+``algorithm`` other than 'hmc' (NUTS, ChEES, the 'auto' probe),
+``gauss_field_auto``, ``adapt_mass``, query subsampling (``sample_data``)
+and ``save_vi_trace``.
 
-JAX draws the DRAW/REFRESH initial frozen vector from a threefry key, which
-PyTorch cannot replay: the port draws ``mu + sigma N(0, 1)`` from a
-``torch.Generator`` seeded from the run's ``seed``, and takes ``frozen=`` so
-that a test can inject JAX's vector. The refresh normals come from each
-segment's generator after the transition's other draws.
+JAX draws the DRAW/REFRESH initial frozen vector and the Lanczos start
+vector from threefry keys, which PyTorch cannot replay: the port draws them
+from ``torch.Generator`` streams of the run's ``seed``, and takes
+``frozen=`` and ``lanczos_v0=`` so that a test can inject JAX's. The refresh
+normals come from each segment's generator after the transition's other
+draws.
 
-The stage-3 entry point runs the configuration of ``run_operator_stage3.py
---variant autodiff`` on the card (reference DeepONet, B = 1000 x P = 10,201,
-the 81,131-dim 90 % subspace, 16 chains, L = 31, step 1e-4 with jitter,
-450 draws, burn 90, segments of 90, thin 3; DRAW unless ``--frozen-policy``
-says otherwise) and prints one JSON line with the script's summary keys,
-``draws_per_s`` and the phase walls::
+Under ``use_fused`` the low-rank metric's Hessian-vector products
+differentiate the fused density twice: its backward is composed torch
+matmuls, so autograd differentiates it again, and the products are those of
+the composed density -- what the JAX package computes off the TPU, where its
+``fused_merge_nll`` is the composed reference (on the TPU its ``custom_vjp``
+admits no forward-mode derivative, and JAX raises there).
 
-    python -m vihmc_torch.pipelines.vi_hmc [--draws N] [--no-gram]
-        [--frozen-policy draw|refresh|mean] [--device cuda]
+The stage-3 entry point runs the configuration of ``run_operator_stage3.py``
+on the card (reference DeepONet, B = 1000 x P = 10,201, the 81,131-dim 90 %
+subspace, 16 chains, L = 31, step 1e-4 with jitter, 450 draws, burn 90,
+segments of 90, thin 3; DRAW unless ``--frozen-policy`` says otherwise), by
+default the script's default variant ``stride`` (the Gram field on every 3rd
+query point per grid dimension and every 3rd function), and prints one JSON
+line with the script's summary keys, ``draws_per_s`` and the phase walls::
+
+    python -m vihmc_torch.pipelines.vi_hmc [--variant stride|gauss|autodiff]
+        [--stride 3] [--fn-stride 3] [--draws N] [--step S] [--adapt]
+        [--da-axis] [--adapt-forever] [--target-accept 0.65] [--max-step S]
+        [--jitter l|eps|none] [--laplace-mass] [--init-optimize N]
+        [--clip-scale 13] [--no-gram] [--frozen-policy draw|refresh|mean]
+        [--device cuda]
 
 One difference from the script: it reads ``assets/burgers_stage12.npz``; the
 port reads ``assets/burgers_stage12_r2.npz`` (mu, sigma, indices, scores),
@@ -68,21 +82,24 @@ import torch
 
 from vihmc_torch.chains.diagnostics import summarize_np
 from vihmc_torch.chains.resume import sample_chains_resumable
-from vihmc_torch.core.device import resolve_device, split_to, stream_generator, to_f32
+from vihmc_torch.core.device import resolve_device, split_to, stream_generator, sync, to_f32
 from vihmc_torch.core.precision import true_f32
 from vihmc_torch.core.ravel import scatter_subspace
 from vihmc_torch.data.burgers import (get_burgers, load_port_inputs,
                                       load_stage12_artifacts)
 from vihmc_torch.data.synthetic import regression_data
-from vihmc_torch.dists.likelihoods import nll_log_likelihood
+from vihmc_torch.dists.likelihoods import get_likelihood
 from vihmc_torch.dists.priors import DiagonalGaussianPrior, IsotropicGaussianPrior
-from vihmc_torch.hmc.kernel import HMCConfig, clipped_grad_fn, value_and_grad
+from vihmc_torch.hmc.kernel import (HMCConfig, clipped_grad_fn, gaussian_field_grad,
+                                    value_and_grad)
+from vihmc_torch.hmc.metric import estimate_lowrank_metric
 from vihmc_torch.hmc.subspace import (FrozenPolicy, SubspaceSpec, make_aux_refresh,
                                       make_subspace_grad, make_subspace_log_prob)
 from vihmc_torch.io.artifacts import RunStore
 from vihmc_torch.models.deeponet import DeepONetConfig
 from vihmc_torch.models.mlp import MLPConfig
-from vihmc_torch.ops.gram_merge import make_gram_grad_full
+from vihmc_torch.ops.gram_merge import (grid_stride_subset, infer_grid_shape,
+                                        make_gram_grad_full)
 from vihmc_torch.pipelines.common import (conditional_warm_start,
                                           make_deeponet_nll_log_posterior,
                                           make_flat_deeponet, make_flat_mlp)
@@ -96,11 +113,7 @@ EVAL_CHUNK = 32
 #: generator streams of a run's seed (core/device.stream_generator; the
 #: sampler's segments are streams 0, 1, ...)
 _FROZEN_STREAM, _INIT_STREAM, _DATA_STREAM = 700_001, 700_002, 700_003
-
-
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+_LANCZOS_STREAM = 700_004
 
 
 def make_spec(artifacts, device="cpu") -> SubspaceSpec:
@@ -128,16 +141,10 @@ def _check_ported(cfg: VIHMCRunConfig):
     """Raise ``NotImplementedError`` on the settings the port does not run yet."""
     unported = {
         "algorithm": cfg.algorithm != "hmc",
-        "gauss_field": cfg.gauss_field is not None or cfg.gauss_field_auto,
-        "lowrank_rank": bool(cfg.lowrank_rank),
+        "gauss_field_auto": cfg.gauss_field_auto,
         "adapt_mass": cfg.adapt_mass,
-        "coarse_stride/fn_stride": bool(cfg.coarse_stride or cfg.fn_stride),
         "sample_data": cfg.sample_data,
         "save_vi_trace": cfg.save_vi_trace,
-        "jitter_l": cfg.jitter_l,
-        "loss": cfg.loss != "NLL",
-        "adapt_step_size": cfg.adapt_step_size and not (
-            cfg.adapt_forever and cfg.da_axis == "chains" and cfg.max_step is None),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -161,10 +168,12 @@ def build_subspace_posterior(cfg: VIHMCRunConfig, full_forward, y, artifacts,
     dev = torch.device(device)
     spec = make_spec(artifacts, dev)
     if full_ll is None:
+        like = get_likelihood(cfg.loss)
+
         def full_ll(flat):
             with true_f32():
                 pred = full_forward(flat)
-            return nll_log_likelihood(pred.reshape(flat.shape[0], *y.shape), y, cfg.tau_out)
+            return like(pred.reshape(flat.shape[0], *y.shape), y, cfg.tau_out)
 
     policy = FrozenPolicy(cfg.frozen_policy)
     if policy is not FrozenPolicy.MEAN:
@@ -244,6 +253,7 @@ def evaluate_samples(cfg: VIHMCRunConfig, spec: SubspaceSpec, prior, eval_forwar
         samples = samples[None]
     burn = cfg.burn_
     per_chain_base = base.ndim == 2
+    like = get_likelihood(cfg.loss)
 
     def lp_and_pred(chunk):
         q_sub, cid = chunk
@@ -254,8 +264,8 @@ def evaluate_samples(cfg: VIHMCRunConfig, spec: SubspaceSpec, prior, eval_forwar
             full = scatter_subspace(base, q_sub, idx)
         with true_f32():
             pred = eval_forward(full)
-        lp = nll_log_likelihood(pred.reshape(q_sub.shape[0], *y_eval.shape), y_eval,
-                                cfg.tau_out) + prior.log_prob(q_sub)
+        lp = like(pred.reshape(q_sub.shape[0], *y_eval.shape), y_eval,
+                  cfg.tau_out) + prior.log_prob(q_sub)
         return lp, pred
 
     n_chains, n_kept = samples.shape[0], samples.shape[1] - burn
@@ -291,16 +301,19 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
                      eval_forward=None, y_eval=None, store: Optional[RunStore] = None,
                      full_ll=None, full_grad=None, segment_size=None, progress=None,
                      sample_thin: int = 1, evaluate: bool = True, seed: int = 0,
-                     frozen=None, device="cuda"):
+                     frozen=None, lanczos_v0=None, device="cuda"):
     """Subspace HMC, ``algorithm='hmc'`` (see module doc for what is ported).
 
     ``full_ll``: the likelihood override (fused merge-NLL); ``full_grad``: a
     full-flat-vector likelihood-gradient oracle for the trajectory (the Gram
-    gradient) instead of autograd -- the exact density still decides MH.
+    gradient or its stride surrogate) instead of autograd -- the exact
+    density still decides MH. ``gauss_field`` takes the VI-Gaussian score as
+    the field instead. ``lowrank_rank`` builds the low-rank metric by Lanczos
+    at the VI mean from ``lanczos_v0`` (default: normals of the run's seed).
     ``segment_size`` draws per segment (all draws in one when None), every
     ``sample_thin``-th kept. Returns ``result`` (:class:`SampleResult`),
-    ``spec``, ``prior``, ``frozen``, the sampler's ``log_prob`` and
-    ``grad_fn``, ``phases_s``, and with ``evaluate`` the outputs of
+    ``spec``, ``prior``, ``frozen``, the sampler's ``log_prob``, ``grad_fn``
+    and ``inv_mass``, ``phases_s``, and with ``evaluate`` the outputs of
     :func:`evaluate_samples`.
     """
     dev = resolve_device(device)
@@ -310,14 +323,32 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
         cfg, full_forward, y_train, artifacts, frozen=frozen, seed=seed,
         full_ll=full_ll, device=dev)
 
+    # the diagonal view of the metric: the clip and the warm start stay
+    # diagonal when the kinetic metric is low-rank + diagonal
+    inv_mass_diag = inv_mass
+    if cfg.lowrank_rank:
+        diag = inv_mass * torch.ones(spec.subspace_dim, device=dev)
+        inv_mass_diag = diag
+        t_l = time.perf_counter()
+        inv_mass = estimate_lowrank_metric(
+            log_prob, spec.sub_mu(), diag, cfg.lowrank_rank, num_iters=cfg.lowrank_iters,
+            v0=lanczos_v0, generator=stream_generator(dev, seed, _LANCZOS_STREAM), aux=aux0)
+        sync(dev)
+        phases["lanczos_s"] = time.perf_counter() - t_l
+
     grad_fn = None
     if full_grad is not None:
+        if cfg.gauss_field is not None:
+            raise ValueError("gauss_field and a full_grad oracle are mutually exclusive "
+                             "trajectory fields")
         grad_fn = make_subspace_grad(full_grad, spec, prior=prior)
+    elif cfg.gauss_field is not None:
+        grad_fn = gaussian_field_grad(spec.sub_mu(), spec.sub_sigma(), cfg.gauss_field)
     if cfg.clip_grad is not None:
         if grad_fn is not None:
-            grad_fn = clipped_grad_fn(grad_fn, cfg.clip_grad, inv_mass=inv_mass)
+            grad_fn = clipped_grad_fn(grad_fn, cfg.clip_grad, inv_mass=inv_mass_diag)
         else:
-            grad_fn = clipped_grad_fn(log_prob, cfg.clip_grad, inv_mass=inv_mass,
+            grad_fn = clipped_grad_fn(log_prob, cfg.clip_grad, inv_mass=inv_mass_diag,
                                       is_grad=False)
 
     aux_refresh = make_aux_refresh(spec, FrozenPolicy(cfg.frozen_policy))
@@ -328,27 +359,30 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
         # sit far below the typical set of the DRAW conditional)
         oracle = grad_fn if grad_fn is not None else (
             lambda q, a: value_and_grad(log_prob, q, a)[1])
-        inits = conditional_warm_start(oracle, aux0, spec.sub_mu(), inv_mass,
+        inits = conditional_warm_start(oracle, aux0, spec.sub_mu(), inv_mass_diag,
                                        cfg.init_optimize, cfg.num_chains, gen_init,
                                        spread=0.5, lr=cfg.init_optimize_lr)
-    _sync(dev)
+    sync(dev)
     phases["setup_s"] = time.perf_counter() - t0
 
     hmc_cfg = HMCConfig(num_samples=cfg.num_samples, num_leapfrog=cfg.L,
-                        step_size=cfg.step_size, target_accept=cfg.target_accept,
-                        jitter_low_frac=cfg.jitter_low_frac,
+                        step_size=cfg.step_size, burn=cfg.burn_,
                         sampler="hmc_nuts" if cfg.adapt_step_size else "hmc",
-                        jitter_eps=cfg.jitter_eps)
+                        target_accept=cfg.target_accept, jitter_l=cfg.jitter_l,
+                        jitter_eps=cfg.jitter_eps, jitter_low_frac=cfg.jitter_low_frac,
+                        max_step=cfg.max_step, da_axis=cfg.da_axis,
+                        adapt_forever=cfg.adapt_forever)
     t0 = time.perf_counter()
     res = sample_chains_resumable(log_prob, inits, hmc_cfg,
                                   segment_size or cfg.num_samples, inv_mass, aux0,
                                   grad_fn=grad_fn, thin=sample_thin, seed=seed,
                                   progress=progress, aux_refresh=aux_refresh)
-    _sync(dev)
+    sync(dev)
     phases["sampling_s"] = time.perf_counter() - t0
 
     out = {"result": res, "spec": spec, "prior": prior, "frozen": aux0,
-           "log_prob": log_prob, "grad_fn": grad_fn, "phases_s": phases}
+           "log_prob": log_prob, "grad_fn": grad_fn, "inv_mass": inv_mass,
+           "phases_s": phases}
     if evaluate and eval_forward is not None and y_eval is not None:
         t0 = time.perf_counter()
         eval_cfg = cfg
@@ -362,7 +396,7 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
         evald["metrics"]["acceptance_rate"] = res.acceptance_rate
         evald["metrics"]["num_divergent"] = res.num_divergent
         out.update(evald)
-        _sync(dev)
+        sync(dev)
         phases["evaluate_s"] = time.perf_counter() - t0
 
     if store is not None:
@@ -382,7 +416,8 @@ def run_nn(cfg: VIHMCRunConfig, mlp_cfg: MLPConfig, artifacts, data=None,
 
     ``data``: the dict of :func:`~vihmc_torch.data.synthetic.regression_data`
     (tensors or arrays), or None to make it here with noise std
-    ``sqrt(tau_out)`` from a generator seeded with ``seed``.
+    ``sqrt(tau_out)`` under NLL (a variance), ``tau_out^-1/2`` otherwise (a
+    precision), from a generator seeded with ``seed``.
     """
     dev = resolve_device(device)
     if cfg.coarse_stride or cfg.fn_stride or cfg.grad_dtype == "bfloat16":
@@ -390,7 +425,7 @@ def run_nn(cfg: VIHMCRunConfig, mlp_cfg: MLPConfig, artifacts, data=None,
                          "operator workload's Gram gradient only")
     _check_ported(cfg)
     if data is None:
-        data = regression_data(noise_std=cfg.tau_out ** 0.5,
+        data = regression_data(noise_std=cfg.tau_out ** (0.5 if cfg.loss == "NLL" else -0.5),
                                generator=stream_generator(dev, seed, _DATA_STREAM), device=dev)
     else:
         data = split_to(data, dev)
@@ -410,38 +445,52 @@ def run_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artifacts,
                  data=None, store: Optional[RunStore] = None, use_fused: bool = False,
                  use_gram: Optional[bool] = None, segment_size=None, progress=None,
                  sample_thin: int = 1, evaluate: bool = True, seed: int = 0,
-                 frozen=None, device="cuda"):
+                 frozen=None, lanczos_v0=None, device="cuda"):
     """Operator VI-HMC on Burgers (the reference's ``main_VI_HMC_burgers.py``).
 
     ``data``: ``(train, valid)`` dicts of ``branch_in`` (N, nx), ``trunk_in``
     (P, 2), ``solution`` (N, P) -- tensors or arrays -- or None for
     :func:`~vihmc_torch.data.burgers.get_burgers` on ``device``.
     ``use_fused``: the fused merge-NLL density (one ``merge_sums`` launch per
-    evaluation for all chains). ``use_gram``: the full-grid Gram trajectory
-    gradient; None enables it when eligible (plain HMC, NLL, homoscedastic
-    shared-grid merge), False takes autograd through the density. The device
-    is the card unless the caller asks for the CPU.
+    evaluation for all chains; NLL only). ``use_gram``: the Gram trajectory
+    gradient, on the stride subsets of ``coarse_stride``/``fn_stride`` when
+    set; None enables it when eligible (plain HMC, NLL, homoscedastic
+    shared-grid merge, no ``gauss_field``), False takes autograd through the
+    density. The device is the card unless the caller asks for the CPU.
     """
     dev = resolve_device(device)
     _check_ported(cfg)
+    if cfg.gauss_field is not None and (cfg.coarse_stride or cfg.fn_stride):
+        raise ValueError("gauss_field replaces the Gram trajectory oracle; drop "
+                         "coarse_stride/fn_stride")
     t0 = time.perf_counter()
     if data is None:
         train, valid = get_burgers(dev)
     else:
         train, valid = (split_to(s, dev) for s in data)
-    _sync(dev)
+    sync(dev)
     t_data = time.perf_counter() - t0
     apply_flat = make_flat_deeponet(deeponet_cfg)
     bx, tx, y = train["branch_in"], train["trunk_in"], train["solution"]
 
     full_ll = None
-    if use_fused:
+    if use_fused and cfg.loss == "NLL":
         full_ll = make_deeponet_nll_log_posterior(deeponet_cfg, bx, tx, y, cfg.tau_out)
+    gram_eligible = (cfg.loss == "NLL" and not deeponet_cfg.noise_neurons
+                     and tx.ndim == 2 and cfg.gauss_field is None)
     full_grad = None
-    if use_gram is not False:  # None: eligible, since _check_ported passed
+    if (use_gram and cfg.gauss_field is None) or (use_gram is None and gram_eligible):
+        subset = fn_subset = None
+        if cfg.coarse_stride and cfg.coarse_stride > 1:
+            subset = grid_stride_subset(*infer_grid_shape(tx), cfg.coarse_stride)
+        if cfg.fn_stride and cfg.fn_stride > 1:
+            fn_subset = np.arange(0, bx.shape[0], cfg.fn_stride)
         full_grad = make_gram_grad_full(
-            deeponet_cfg, bx, tx, y, cfg.tau_out,
+            deeponet_cfg, bx, tx, y, cfg.tau_out, query_subset=subset, fn_subset=fn_subset,
             compute_dtype=torch.bfloat16 if cfg.grad_dtype == "bfloat16" else None)
+    elif cfg.coarse_stride or cfg.fn_stride:
+        raise ValueError("coarse_stride/fn_stride require the Gram trajectory-gradient "
+                         "path (plain HMC, NLL, shared grid, use_gram)")
     elif cfg.grad_dtype == "bfloat16":
         raise ValueError("grad_dtype='bfloat16' applies to the Gram trajectory-"
                          "gradient path (operator NLL, shared grid, use_gram)")
@@ -452,7 +501,7 @@ def run_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artifacts,
         eval_forward=lambda flat: apply_flat(flat, valid["branch_in"], valid["trunk_in"]),
         y_eval=valid["solution"], store=store, full_ll=full_ll, full_grad=full_grad,
         segment_size=segment_size, progress=progress, sample_thin=sample_thin,
-        evaluate=evaluate, seed=seed, frozen=frozen, device=dev)
+        evaluate=evaluate, seed=seed, frozen=frozen, lanczos_v0=lanczos_v0, device=dev)
     out["phases_s"] = {"data_s": t_data, **out["phases_s"]}
     out["data"] = (train, valid)
     out["apply_flat"] = apply_flat
@@ -467,37 +516,75 @@ def run_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artifacts,
 STAGE3_CLIP_SCALE = 13.0
 
 
-def stage3_config(d_sub: int, n_data: int, draws: int = 450, burn=None,
-                  chains: int = 16, L: int = 31,
-                  frozen_policy: str = "draw") -> VIHMCRunConfig:
-    """The ``run_operator_stage3.py --variant autodiff`` config with its
-    defaults: fixed step 1e-4 with eps-jitter, DRAW policy (the script's
-    ``--frozen-policy`` default), VI-variance mass, clip ``13 sqrt(d_sub)``,
-    no warm start."""
+#: the script's trajectory-field variants (``--variant``); ``stride`` is its default
+STAGE3_VARIANTS = ("stride", "gauss", "autodiff")
+
+
+def stage3_config(d_sub: int, n_data: int, variant: str = "stride", draws: int = 450,
+                  burn=None, chains: int = 16, L: int = 31, step=None, stride: int = 3,
+                  fn_stride: int = 3, adapt: bool = False, da_axis: bool = False,
+                  adapt_forever: bool = False, target_accept: float = 0.65,
+                  max_step=None, jitter: str = "eps", frozen_policy: str = "draw",
+                  init_optimize: int = 0, laplace_mass: bool = False,
+                  clip_scale: float = STAGE3_CLIP_SCALE,
+                  lowrank_rank: int = 0) -> VIHMCRunConfig:
+    """The ``run_operator_stage3.py`` config of one ``variant`` with the
+    script's defaults (:36-81, :117-140): step 1e-4 (``gauss``:
+    ``0.8 d_sub^-1/4`` unless ``step`` is given), fixed unless ``adapt``,
+    eps-jitter, DRAW policy, VI-variance mass, clip ``13 sqrt(d_sub)``, no
+    warm start; ``stride`` keeps every 3rd query point in both grid
+    dimensions and every 3rd function in the Gram field, ``gauss`` leapfrogs
+    on the VI-Gaussian score (alpha 1). ``lowrank_rank`` (no script flag)
+    adds the Lanczos low-rank metric."""
+    if variant not in STAGE3_VARIANTS:
+        raise ValueError(f"variant {variant!r}: one of {STAGE3_VARIANTS}")
+    if jitter not in ("l", "eps", "none"):
+        raise ValueError(f"jitter {jitter!r}: 'l', 'eps' or 'none'")
+    if step is None:
+        step = 0.8 * d_sub ** -0.25 if variant == "gauss" else 1e-4
     return VIHMCRunConfig(
-        step_size=1e-4, num_samples=draws, burn=burn, post_std=0.0214,
+        step_size=step, num_samples=draws, burn=burn, post_std=0.0214,
         num_chains=chains, num_leapfrog=L, loss="NLL", tau_out=1.0,
-        frozen_policy=frozen_policy, vi_mass=True, laplace_mass=False, laplace_n_data=n_data,
-        init_optimize=0, clip_grad=STAGE3_CLIP_SCALE * d_sub ** 0.5,
-        jitter_l=False, jitter_eps=True, jitter_low_frac=0.5,
-        adapt_step_size=False, target_accept=0.65, da_axis=None,
-        adapt_forever=False, max_step=None)
+        frozen_policy=frozen_policy, vi_mass=True, laplace_mass=laplace_mass,
+        laplace_n_data=n_data, init_optimize=init_optimize,
+        clip_grad=clip_scale * d_sub ** 0.5 if clip_scale else None,
+        jitter_l=jitter == "l", jitter_eps=jitter == "eps",
+        jitter_low_frac=0.5 if jitter != "none" else 0.0,
+        adapt_step_size=adapt, target_accept=target_accept,
+        da_axis="chains" if da_axis else None, adapt_forever=adapt_forever,
+        max_step=max_step, lowrank_rank=lowrank_rank,
+        gauss_field=1.0 if variant == "gauss" else None,
+        coarse_stride=stride if variant == "stride" else None,
+        fn_stride=fn_stride if variant == "stride" else None)
 
 
-def run_stage3(device="cuda", draws: int = 450, burn=None, chains: int = 16,
-               L: int = 31, segment: int = 90, thin: int = 3, use_gram=None,
-               seed: int = 0, data=None, artifacts=None, frozen_policy: str = "draw"):
-    """Run the stage-3 configuration and return ``(summary, out)``: the
-    script's summary keys plus ``draws_per_s``, ``phases_s`` and the
-    trajectory field; ``out`` is :func:`run_operator`'s result. ``data`` and
-    ``artifacts`` reuse already loaded ones (default: the port's assets)."""
+def trajectory_field_name(cfg: VIHMCRunConfig, use_gram=None) -> str:
+    if cfg.gauss_field is not None:
+        return f"gauss_alpha_{cfg.gauss_field:g}"
+    if use_gram is False:
+        return "autograd"
+    if cfg.coarse_stride or cfg.fn_stride:
+        return f"gram_stride_{cfg.coarse_stride or 1}x{cfg.fn_stride or 1}_f32"
+    return "gram_f32"
+
+
+def run_stage3(device="cuda", variant: str = "stride", draws: int = 450, burn=None,
+               chains: int = 16, L: int = 31, segment: int = 90, thin: int = 3,
+               use_gram=None, seed: int = 0, data=None, artifacts=None,
+               frozen_policy: str = "draw", **cfg_kw):
+    """Run the stage-3 configuration of ``variant`` and return ``(summary,
+    out)``: the script's summary keys plus ``draws_per_s``, ``phases_s`` and
+    the trajectory field; ``out`` is :func:`run_operator`'s result.
+    ``cfg_kw`` are :func:`stage3_config`'s other settings (the script's
+    flags). ``data`` and ``artifacts`` reuse already loaded ones (default:
+    the port's assets)."""
     dev = resolve_device(device)
     artifacts = load_stage12_artifacts() if artifacts is None else artifacts
     grid = load_port_inputs()
     nx, nt = int(grid["nx"]), int(grid["nt"])
     cfg = stage3_config(len(artifacts["indices"]), int(grid["n_train"]) * nx * nt,
-                        draws=draws, burn=burn, chains=chains, L=L,
-                        frozen_policy=frozen_policy)
+                        variant=variant, draws=draws, burn=burn, chains=chains, L=L,
+                        frozen_policy=frozen_policy, **cfg_kw)
     out = run_operator(cfg, DeepONetConfig(), artifacts, data=data, use_fused=True,
                        use_gram=use_gram, segment_size=segment, sample_thin=thin,
                        seed=seed, device=dev)
@@ -507,13 +594,16 @@ def run_stage3(device="cuda", draws: int = 450, burn=None, chains: int = 16,
     rep = error_report(preds, truth, log_probs=np.asarray(met["expected_log_prob"])[None])
     corr = error_sigma_correlation(preds, truth, nt=nt, nx=nx)
     phases = out["phases_s"]
+    jitter = "l" if cfg.jitter_l else ("eps" if cfg.jitter_eps else "none")
     summary = {
-        "variant": "autodiff",
+        "variant": variant,
         "frozen_policy": frozen_policy,
-        "trajectory_field": "autograd" if use_gram is False else "gram_f32",
+        "trajectory_field": trajectory_field_name(cfg, use_gram),
+        "lowrank_rank": cfg.lowrank_rank,
         "chains": chains, "draws": draws, "thin": thin, "burn": int(cfg.burn_),
-        "L": cfg.L, "step": float(cfg.step_size), "adapt": False,
-        "da_axis": False, "jitter": "eps",
+        "L": cfg.L, "step": float(cfg.step_size), "adapt": cfg.adapt_step_size,
+        "da_axis": cfg.da_axis == "chains", "jitter": jitter,
+        "step_final_median": float(np.median(res.step_sizes[:, -1])),
         "acceptance": float(met["acceptance_rate"]),
         "acceptance_post_burn": float(np.mean(res.accept_probs[:, cfg.burn_:])),
         "expected_mse_of_mean": float(met["expected_mse_of_mean"]),
@@ -537,10 +627,31 @@ def run_stage3(device="cuda", draws: int = 450, burn=None, chains: int = 16,
 def main(argv=None):
     ap = argparse.ArgumentParser(description="stage-3 operator VI-HMC (fused merge-NLL)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--variant", default="stride", choices=STAGE3_VARIANTS,
+                    help="trajectory field: dual-stride Gram surrogate (default), "
+                         "VI-Gaussian score, or the full-grid field")
+    ap.add_argument("--stride", type=int, default=3)
+    ap.add_argument("--fn-stride", type=int, default=3)
     ap.add_argument("--draws", type=int, default=450)
     ap.add_argument("--burn", type=int, default=None, help="default draws // 5")
     ap.add_argument("--chains", type=int, default=16)
     ap.add_argument("--L", type=int, default=31)
+    ap.add_argument("--step", type=float, default=None,
+                    help="initial step (default 1e-4; gauss: 0.8 d^-1/4)")
+    ap.add_argument("--adapt", action="store_true", help="dual-averaging step adaptation")
+    ap.add_argument("--da-axis", action="store_true",
+                    help="couple dual averaging across chains")
+    ap.add_argument("--adapt-forever", action="store_true",
+                    help="dual averaging past burn with the adapting iterate")
+    ap.add_argument("--target-accept", type=float, default=0.65)
+    ap.add_argument("--max-step", type=float, default=None)
+    ap.add_argument("--jitter", choices=("l", "eps", "none"), default="eps")
+    ap.add_argument("--laplace-mass", action="store_true",
+                    help="conditional-Laplace kinetic metric instead of VI sigma^2")
+    ap.add_argument("--init-optimize", type=int, default=0,
+                    help="warm-start Adam steps on the conditional before sampling")
+    ap.add_argument("--clip-scale", type=float, default=STAGE3_CLIP_SCALE,
+                    help="clip = scale * sqrt(subspace dim); 0 disables")
     ap.add_argument("--segment", type=int, default=90)
     ap.add_argument("--thin", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -551,10 +662,15 @@ def main(argv=None):
     field.add_argument("--no-gram", dest="use_gram", action="store_const", const=False,
                        help="autograd trajectory gradient through the fused density")
     args = ap.parse_args(argv)
-    summary, _ = run_stage3(device=args.device, draws=args.draws, burn=args.burn,
-                            chains=args.chains, L=args.L, segment=args.segment,
-                            thin=args.thin, use_gram=args.use_gram, seed=args.seed,
-                            frozen_policy=args.frozen_policy)
+    summary, _ = run_stage3(
+        device=args.device, variant=args.variant, draws=args.draws, burn=args.burn,
+        chains=args.chains, L=args.L, segment=args.segment, thin=args.thin,
+        use_gram=args.use_gram, seed=args.seed, frozen_policy=args.frozen_policy,
+        step=args.step, stride=args.stride, fn_stride=args.fn_stride, adapt=args.adapt,
+        da_axis=args.da_axis, adapt_forever=args.adapt_forever,
+        target_accept=args.target_accept, max_step=args.max_step, jitter=args.jitter,
+        laplace_mass=args.laplace_mass, init_optimize=args.init_optimize,
+        clip_scale=args.clip_scale)
     print(json.dumps(summary))
 
 
