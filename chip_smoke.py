@@ -74,7 +74,8 @@ Phases, each printed with its wall time:
 16. ``hmc_split`` at ``SplitHMCRunConfig`` (1000 functions in 2 shards, L =
     2, composed autograd: no kernel launch), depth cut; at the config's step
     every proposal from the random start diverges (as in JAX), so one split
-    trajectory on the card is held against the CPU's instead;
+    trajectory on the pipeline's own shard density is held, card against
+    CPU, instead;
 17. ``hmc_full`` at ``NNHMCRunConfig`` (the regression MLP, L = 643), depth
     cut.
 
@@ -590,45 +591,35 @@ def baseline_checks(label, out, counts, want_merge, need_accept=True):
           + ", ".join(f"{k_} {v:.2f}" for k_, v in ph.items()))
 
 
-def split_trajectory_check(train, cfg, n_fn=20):
-    """One split-leapfrog trajectory (the config's step, L and shards, at full
-    width on ``n_fn`` functions) on the card against the same on the CPU:
-    positions and momenta within 1e-4 of their scale."""
-    from vihmc_torch.data.burgers import split_shards
-    from vihmc_torch.dists.likelihoods import nll_log_likelihood
-    from vihmc_torch.dists.priors import IsotropicGaussianPrior
+def split_trajectory_check(out, cfg, n_fn=20):
+    """One split-leapfrog trajectory on the pipeline's own shard density and
+    shards (the config's step and L, at full width, the shards cut to
+    ``n_fn`` functions in all): on the card with the density ``hmc_split.run``
+    sampled with, against the same pipeline code on the CPU; positions and
+    momenta within 1e-4 of their scale."""
     from vihmc_torch.hmc.integrators import split_leapfrog
     from vihmc_torch.hmc.kernel import value_and_grad
 
-    apply_flat = make_flat_deeponet(cfg.model)
-    prior = IsotropicGaussianPrior(scale=cfg.prior_var ** 0.5)
+    card = out["shard_data"][0].device
+    cut = tuple(x[:, :n_fn // cfg.num_splits] for x in out["shard_data"])
+    sides = {"card": (out["shard_log_prob"], cut, card),
+             "cpu": (hmc_split.make_shard_log_prob(cfg, out["data"][0]["trunk_in"].cpu()),
+                     tuple(x.cpu() for x in cut), torch.device("cpu"))}
     gen = torch.Generator().manual_seed(11)
     q0 = 0.1 * torch.randn((1, cfg.model.num_params), generator=gen)
     p0 = torch.randn((1, cfg.model.num_params), generator=gen)
-    out = {}
-    card = train["trunk_in"].device
-    for d in (card, torch.device("cpu")):
-        sub = {k: train[k][:n_fn].to(d) for k in ("branch_in", "solution")}
-        shards = split_shards({**sub, "trunk_in": train["trunk_in"].to(d)}, cfg.num_splits)
-        trunk = train["trunk_in"].to(d)
-
-        def shard_lp(flat, shard, aux=None):
-            with true_f32():
-                pred = apply_flat(flat, shard[0], trunk)
-            return nll_log_likelihood(pred, shard[1], cfg.tau_out) \
-                + prior.log_prob(flat) / cfg.num_splits
-
+    ends = {}
+    for side, (shard_lp, shards, d) in sides.items():
         with true_f32():
             q1, p1 = split_leapfrog(
-                lambda q, sh: value_and_grad(lambda x, a: shard_lp(x, sh), q, None),
-                (shards["branch_in"], shards["solution"]), q0.to(d), p0.to(d),
-                cfg.step_size, cfg.L)
-        out[d.type] = (q1.cpu(), p1.cpu())
+                lambda q, sh: value_and_grad(lambda x, a: shard_lp(x, sh, a), q, None),
+                shards, q0.to(d), p0.to(d), cfg.step_size, cfg.L)
+        ends[side] = (q1.cpu(), p1.cpu())
     errs = [((a - b).abs().max() / b.abs().max()).item()
-            for a, b in zip(out[card.type], out["cpu"])]
-    print(f"  split leapfrog ({n_fn} functions, {cfg.num_splits} shards, L {cfg.L}, step "
-          f"{cfg.step_size}): card vs CPU max |dq| {errs[0]:.3g}, |dp| {errs[1]:.3g} of their "
-          f"scale")
+            for a, b in zip(ends["card"], ends["cpu"])]
+    print(f"  split leapfrog on the pipeline's shard density ({n_fn} functions, "
+          f"{cfg.num_splits} shards, L {cfg.L}, step {cfg.step_size}): card vs CPU max |dq| "
+          f"{errs[0]:.3g}, |dp| {errs[1]:.3g} of their scale")
     check(max(errs) < 1e-4, f"split leapfrog card vs CPU {errs}")
 
 
@@ -1226,12 +1217,14 @@ def main(argv=None) -> int:
     reset_counts()
     s_out = hmc_split.run(scfg, data=(s_train, s_valid), num_chains=1, seed=0, device=dev)
     # from the config's random start (0.1 N(0, 1) over 172,401 parameters)
-    # every proposal at its step 3.45e-4 diverges, as the same transition does
-    # in JAX (tests/test_torch_baselines.py holds them equal at a small size)
+    # every proposal at its step 3.45e-4 diverges: the chain never moves. JAX
+    # does the same: the full-width witness in tests/test_torch_baselines.py
+    # gives both packages a non-finite first dH on the 1000 functions and the
+    # same divergent draws
     baseline_checks("hmc_split", s_out, read_counts(), 0, need_accept=False)
     print(f"  hmc_split at the config's step: {s_out['result'].num_divergent} of "
           f"{scfg.num_samples} draws divergent (|dH| > 1000 nats from the random start)")
-    split_trajectory_check(s_train, scfg)
+    split_trajectory_check(s_out, scfg)
     del s_out, s_train, s_valid
     torch.cuda.empty_cache()
     phase("16 hmc_split", t0)

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity_helpers import one_torch_thread  # noqa: F401 (a fixture)
+from torch_parity_helpers import assert_shared_fields_equal, one_torch_thread  # noqa: F401
 
 import vihmc_tpu.pipelines.hmc_full as jfull
 import vihmc_tpu.pipelines.hmc_nuts as jnuts
@@ -232,13 +232,14 @@ def _jax_draws(key, d, aux_draw=None):
 
 
 def _compare_transitions(jparts, tparts, inits, n_it=3, seed=0, aux_draw=None, rtol=1e-4,
-                         atol=5e-5):
+                         atol=5e-5, record=None):
     """Run ``n_it`` transitions of the JAX kernel vmapped over chains and of
-    the port's kernel with JAX's draws; returns the number of acceptances."""
+    the port's kernel with JAX's draws; returns the number of acceptances
+    (``record`` collects each draw's accept flags, divergences and steps)."""
     jkernel, jstate = jparts
     tkernel, tstate = tparts
     c, d = inits.shape
-    step = jax.vmap(jkernel, in_axes=(0, 0, None))
+    step = jax.jit(jax.vmap(jkernel, in_axes=(0, 0, None)))  # one compile, not one per op
     n_accept = 0
     for it in range(n_it):
         keys = jax.random.split(jax.random.key(600 + seed + it), c)
@@ -257,7 +258,10 @@ def _compare_transitions(jparts, tparts, inits, n_it=3, seed=0, aux_draw=None, r
                                    rtol=1e-5)
         np.testing.assert_allclose(tstate.position.numpy(), np.asarray(jstate.position),
                                    rtol=rtol, atol=atol)
+        np.testing.assert_array_equal(tinfo["divergent"].numpy(), np.asarray(jinfo["divergent"]))
         n_accept += int(tinfo["accepted"].sum())
+        if record is not None:
+            record.append({k: tinfo[k].tolist() for k in ("accepted", "divergent", "step_size")})
     return n_accept
 
 
@@ -281,7 +285,8 @@ def test_hmc_full_transition_with_injected_jax_draws(monkeypatch, one_torch_thre
         hmc_full.run(tcfg_run, data={k: np.asarray(v) for k, v in jdata.items()},
                      inits=np.asarray(jinits), device="cpu")
     (tlp, tinits, tcfg, _, tim, taux), _ = seen["torch"]
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg) and tcfg.num_leapfrog == 3
+    assert_shared_fields_equal(tcfg, jcfg)
+    assert tcfg.num_leapfrog == 3
     assert tim == 1.0 and taux is None
     inits = np.asarray(jinits)
     jkernel = j_make_kernel(jlp, jcfg)
@@ -326,7 +331,7 @@ def test_hmc_nuts_transition_with_injected_jax_draws(tiny_burgers, path, monkeyp
                      tidx0=None if jkw["aux"] is None else np.asarray(jkw["aux"]), device="cpu",
                      **NUTS_PATHS[path])
     (tlp, tinits, tcfg, _, _, taux), tkw = seen["torch"]
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert_shared_fields_equal(tcfg, jcfg)
     assert tcfg.sampler == "hmc_nuts" and tcfg.burn == 1 and tcfg.da_axis is None
     assert (tkw["grad_fn"] is None) == (jkw["grad_fn"] is None) == (path != "gram")
     inits = np.asarray(jinits)
@@ -368,7 +373,7 @@ def test_hmc_split_transition_with_injected_jax_draws(tiny_burgers, monkeypatch,
         hmc_split.run(TC.SplitHMCRunConfig(model=DeepONetConfig(**TINY_KW), **kw),
                       data=tiny_burgers, num_chains=3, inits=np.asarray(jinits), device="cpu")
     (tlp, tinits, tcfg, _, _, _), tkw = seen["torch"]
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert_shared_fields_equal(tcfg, jcfg)
     assert tcfg.integrator == "splitting" and tcfg.num_leapfrog == 2
     for a, b in zip(tkw["shard_data"], jkw["shard_data"]):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
@@ -384,25 +389,139 @@ def test_hmc_split_transition_with_injected_jax_draws(tiny_burgers, monkeypatch,
 
 
 # ---------------------------------------------------------------------------
+# the configs' own width: the first draws on the exported Burgers data
+# ---------------------------------------------------------------------------
+
+#: training functions per pipeline in the test: the config's own 10 for
+#: hmc_nuts, 20 of the config's 1000 for hmc_split
+FULL_WIDTH = {"hmc_nuts": 10, "hmc_split": 20}
+
+
+def full_width_witness(pipeline, n_train, n_it):
+    """The config's first transition at full width (the reference DeepONet,
+    172,401 parameters, on the 10,201-point grid of the exported data) in
+    both packages, from JAX's init with JAX's momentum: its Hamiltonian
+    error ``dH = (lp1 - K1) - (lp0 - K0)`` from each package's own
+    trajectory pieces. Then ``n_it`` draws of both kernels with JAX's draws
+    injected, each draw's accept decision, divergence, step, log-density and
+    position held as in :func:`_compare_transitions`, and their flags
+    returned."""
+    from vihmc_tpu.hmc.integrators import leapfrog_grad_only as j_lf
+    from vihmc_tpu.hmc.integrators import split_leapfrog as j_split_lf
+    from vihmc_torch.data.burgers import get_burgers_baseline
+    from vihmc_torch.hmc.integrators import leapfrog_grad_only, split_leapfrog
+    from vihmc_torch.hmc.kernel import value_and_grad
+
+    train, valid, _ = get_burgers_baseline("cpu", n_train, 2)
+    data = tuple({k: v.numpy() for k, v in s.items()} for s in (train, valid))
+    cfg_kw = dict(n_train=n_train, n_valid=2)
+    if pipeline == "hmc_nuts":
+        jmod, tmod, jc, tc = jnuts, hmc_nuts, JC.OperatorHMCRunConfig, TC.OperatorHMCRunConfig
+        run_kw = dict(use_fused=True)
+    else:
+        jmod, tmod, jc, tc = jsplit, hmc_split, JC.SplitHMCRunConfig, TC.SplitHMCRunConfig
+        run_kw = {}
+    seen = {}
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(jmod, "sample_chains", _capture(seen, "jax"))
+        with pytest.raises(_Captured):
+            jmod.run(jc(**cfg_kw), key=jax.random.key(4), data=_j(data), **run_kw)
+        (jlp, jinits, _, jcfg), jkw = seen["jax"]
+        mp.setattr(tmod, "sample_chains_resumable", _capture(seen, "torch"))
+        with pytest.raises(_Captured):
+            tmod.run(tc(**cfg_kw), data=data, inits=np.asarray(jinits), device="cpu", **run_kw)
+        (tlp, _, tcfg, _, _, _), tkw = seen["torch"]
+    finally:
+        mp.undo()
+    assert_shared_fields_equal(tcfg, jcfg)
+    inits = np.asarray(jinits)
+    q0 = inits[0]
+    p0 = _jax_draws(jax.random.split(jax.random.key(600 + 30), 1)[0], q0.size)[0]
+    eps, n_lf = tcfg.step_size, tcfg.num_leapfrog
+    # the first transition's trajectory from each package's own pieces
+    if pipeline == "hmc_nuts":
+        jq1, jp1, _ = j_lf(jkw["grad_fn"], jnp.asarray(q0), jnp.asarray(p0),
+                           jkw["grad_fn"](jnp.asarray(q0)), eps, n_lf)
+        tq0 = torch.as_tensor(q0)[None]
+        tq1, tp1, _ = leapfrog_grad_only(tkw["grad_fn"], tq0, torch.as_tensor(p0)[None],
+                                         tkw["grad_fn"](tq0), eps, n_lf)
+    else:
+        jf = jkw["shard_log_prob_fn"]
+        jq1, jp1 = j_split_lf(lambda q, sh: jax.value_and_grad(lambda x: jf(x, sh))(q),
+                              jkw["shard_data"], jnp.asarray(q0), jnp.asarray(p0), eps, n_lf)
+        tf = tkw["shard_log_prob_fn"]
+        tq1, tp1 = split_leapfrog(
+            lambda q, sh: value_and_grad(lambda x, a: tf(x, sh, a), q, None),
+            tkw["shard_data"], torch.as_tensor(q0)[None], torch.as_tensor(p0)[None], eps, n_lf)
+    j_dh = float((jlp(jq1) - 0.5 * jnp.sum(jp1 ** 2)) - (jlp(jnp.asarray(q0)) - 0.5 * np.sum(p0 ** 2)))
+    t_dh = float((tlp(tq1, None) - 0.5 * (tp1 ** 2).sum())[0]
+                 - (tlp(torch.as_tensor(q0)[None], None)[0] - 0.5 * float(np.sum(p0 ** 2))))
+    flags = []
+    if not n_it:
+        return {"pipeline": pipeline, "n_train": n_train, "L": n_lf, "step": eps,
+                "dH_jax": j_dh, "dH_port": t_dh, "draws": flags}
+    # the kernels, draw by draw
+    jkernel = j_make_kernel(jlp, jcfg, grad_fn=jkw.get("grad_fn"),
+                            shard_log_prob_fn=jkw.get("shard_log_prob_fn"),
+                            shard_data=jkw.get("shard_data"))
+    jstate = jax.vmap(lambda q: j_init_state(jlp, q, jcfg, grad_fn=jkw.get("grad_fn")))(
+        jnp.asarray(inits))
+    tkernel = make_kernel(tcfg, 1.0, tkw.get("grad_fn"), None, tlp,
+                          shard_log_prob_fn=tkw.get("shard_log_prob_fn"),
+                          shard_data=tkw.get("shard_data"))
+    tstate = init_state(tlp, torch.as_tensor(inits), tcfg, None, tkw.get("grad_fn"))
+    _compare_transitions((jkernel, jstate), (tkernel, tstate), inits, n_it=n_it, seed=30,
+                         record=flags)
+    return {"pipeline": pipeline, "n_train": n_train, "L": n_lf, "step": eps,
+            "dH_jax": j_dh, "dH_port": t_dh, "draws": flags}
+
+
+@pytest.mark.parametrize("pipeline", sorted(FULL_WIDTH))
+def test_baselines_at_full_width_match_jax(pipeline):
+    """A witness that the configs' own behaviour is JAX's: at full width on
+    the exported data both packages give the first transition the same
+    Hamiltonian error (rtol 1e-3). The draw-by-draw comparison runs as a
+    script (the ``__main__`` block below)."""
+    out = full_width_witness(pipeline, FULL_WIDTH[pipeline], 0)
+    np.testing.assert_allclose(out["dH_port"], out["dH_jax"], rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
 # whole runs against JAX, in distribution
 # ---------------------------------------------------------------------------
 
-def _same_distribution(a, b, z_max=4.5, std_rtol=None):
+def _std_and_error(x):
+    """Each coordinate's pooled std over (C, S) draws and its Monte-Carlo
+    error, from the ESS of the squared deviations themselves: chains that
+    settle in regions of different width lower it (the ESS counts the
+    spread between chains), and near-antithetic draws, whose ESS for the
+    mean exceeds the draw count, do not raise it."""
+    sd = x.std((0, 1))
+    sq = (x - x.mean((0, 1))) ** 2
+    return sd, np.sqrt(sq.var((0, 1)) / effective_sample_size_np(sq)) / (2 * sd + 1e-30)
+
+
+def _same_distribution(a, b, z_max=4.5, std_rtol=None, std_from_squares=False):
     """Post-burn samples (C, S, D) of both samplers: every coordinate's mean
     within ``z_max`` Monte-Carlo standard errors (ESS-based, the chains
     pooled); its standard deviation too, or within ``std_rtol`` of the other
-    side's when given (where the ESS estimate does not describe the std's
-    error: one chain, or chains that have not mixed), or not at all when
-    ``std_rtol`` is 0."""
+    side's when given (one chain, where the ESS estimate does not describe
+    the std's error). ``std_from_squares``: the std's error from
+    :func:`_std_and_error` (a neural posterior), else ``std / sqrt(2 ESS)``."""
     ess_a, ess_b = effective_sample_size_np(a), effective_sample_size_np(b)
     ma, mb = a.mean((0, 1)), b.mean((0, 1))
     sa, sb = a.std((0, 1)), b.std((0, 1))
     z_mean = np.abs(ma - mb) / np.sqrt(sa ** 2 / ess_a + sb ** 2 / ess_b + 1e-30)
     assert z_mean.max() < z_max, z_mean.max()
-    if std_rtol is None:
+    if std_from_squares:
+        (sa, ea), (sb, eb) = _std_and_error(a), _std_and_error(b)
+        z_std = np.abs(sa - sb) / np.sqrt(ea ** 2 + eb ** 2 + 1e-30)
+        assert z_std.max() < z_max, z_std.max()
+    elif std_rtol is None:
         z_std = np.abs(sa - sb) / np.sqrt(sa ** 2 / (2 * ess_a) + sb ** 2 / (2 * ess_b) + 1e-30)
         assert z_std.max() < z_max, z_std.max()
-    elif std_rtol:
+    else:
         np.testing.assert_allclose(sb, sa, rtol=std_rtol)
 
 
@@ -430,13 +549,18 @@ def test_hmc_full_runs_agree_in_distribution_with_jax(one_torch_thread):
 def test_operator_baselines_agree_in_distribution_with_jax(tiny_burgers, pipeline,
                                                            one_torch_thread, tmp_path):
     """hmc_nuts (fused density, Gram field, dual averaging) and hmc_split on
-    the tiny Burgers data, 6 chains x 60 draws in both packages with their
-    own streams: every parameter's post-burn mean within 4.5 MC standard
-    errors; JAX's metric keys; reevaluate scores the stored samples as the
-    live run did; hmc_nuts's steps after burn are exp(log_step_avg)."""
+    the tiny Burgers data, 6 chains x 100 draws in both packages with their
+    own streams, from starts drawn from the same 0.1 N(0, 1) (the prior):
+    every parameter's post-burn mean and std within 4.5 MC standard errors
+    (the std's from the squared deviations' ESS; the step, 0.02 with
+    L = 8, moves a chain about one prior std per draw, so the chains mix:
+    ESS above half the draw count; the bias, whose posterior std is half the
+    prior's, holds the likelihood); JAX's metric keys; reevaluate
+    scores the stored samples as the live run did; hmc_nuts's steps after
+    burn are exp(log_step_avg)."""
     from vihmc_torch.io.artifacts import RunStore
 
-    kw = dict(n_train=8, n_valid=4, num_samples=60, step_size=2e-3, post_std=0.1)
+    kw = dict(n_train=8, n_valid=4, num_samples=100, step_size=0.02, post_std=0.32)
     if pipeline == "hmc_nuts":
         jout = jnuts.run(JC.OperatorHMCRunConfig(model=JCfg(**TINY_KW), **kw),
                          key=jax.random.key(9), data=_j(tiny_burgers), num_chains=6,
@@ -459,13 +583,12 @@ def test_operator_baselines_agree_in_distribution_with_jax(tiny_burgers, pipelin
     assert res.samples.shape == np.asarray(jout["result"].samples).shape
     assert sorted(tout["metrics"]) == sorted(jout["metrics"])
     assert all(np.isfinite(v).all() for v in tout["metrics"].values())
-    assert res.acceptance_rate > 0.3
+    assert res.acceptance_rate > 0.6 and tcfg.L == 8
     np.testing.assert_allclose(again["metrics"]["expected_mse_of_mean"],
                                tout["metrics"]["expected_mse_of_mean"], rtol=1e-6)
-    # 60 draws do not mix 6 chains: the pooled std is their random starts'
-    # spread, so only the means are held to their Monte-Carlo error
-    _same_distribution(np.asarray(jout["result"].samples)[:, burn:], res.samples[:, burn:],
-                       std_rtol=0)
+    tail = res.samples[:, burn:]
+    assert np.median(effective_sample_size_np(tail)) > 0.5 * tail.shape[0] * tail.shape[1]
+    _same_distribution(np.asarray(jout["result"].samples)[:, burn:], tail, std_from_squares=True)
     if pipeline == "hmc_nuts":
         post = res.step_sizes[:, burn:]
         assert (post == post[:, :1]).all()
@@ -530,3 +653,13 @@ def test_api_predict_model_and_sample_model_match_jax(one_torch_thread):
     # one chain each: the stds to 25 % (seed-to-seed spread of either side ~12 %)
     _same_distribution(np.asarray(jres.samples)[None, 100:], tres.samples[None, 100:],
                        std_rtol=0.25)
+
+
+if __name__ == "__main__":
+    # the full-width witness over the configs' first draws (hmc_split also
+    # at its own 1000 functions), one JSON line each:
+    #   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_baselines.py
+    import json
+
+    for name, n_train, n in (("hmc_nuts", 10, 10), ("hmc_split", 20, 4), ("hmc_split", 1000, 4)):
+        print(json.dumps(full_width_witness(name, n_train, n)), flush=True)

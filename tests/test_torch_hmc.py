@@ -365,16 +365,14 @@ def test_operator_row_control_flow_on_cpu():
 
 
 def test_hmc_config_fields_and_defaults_match_jax():
-    """The port's HMCConfig has every field of JAX's with JAX's default; the
-    fields whose paths are not ported raise NotImplementedError when set away
-    from their default, and the settings JAX rejects raise ValueError."""
-    import dataclasses
-
+    """Every field of the port's HMCConfig is one of JAX's, with JAX's
+    default; the fields whose paths are not ported raise NotImplementedError
+    when set away from their default, and the settings JAX rejects raise
+    ValueError."""
+    from torch_parity_helpers import assert_shared_fields_equal
     from vihmc_torch.hmc.kernel import check_config
 
-    jf = {f.name: f.default for f in dataclasses.fields(JConfig)}
-    tf = {f.name: f.default for f in dataclasses.fields(HMCConfig)}
-    assert tf == jf
+    assert_shared_fields_equal(HMCConfig(), JConfig())
     for field, value in (("adapt_mass", True), ("mass_schedule", "windowed"),
                          ("refresh_during_burn", False), ("init_step_search", True),
                          ("momentum_persistence", 0.5), ("store_aux_trace", True),

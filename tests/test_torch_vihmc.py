@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity_helpers import one_torch_thread, tiny_problem  # noqa: F401 (a fixture)
+from torch_parity_helpers import (assert_shared_fields_equal, one_torch_thread,  # noqa: F401
+                                  tiny_problem)
 
 import vihmc_torch.ops.deeponet_merge as tmerge
 from vihmc_tpu.chains.diagnostics import summarize_np as j_summarize
@@ -241,24 +242,26 @@ def test_refresh_transition_with_injected_jax_draws(field, one_torch_thread):
 
 def test_refresh_normals_come_after_the_transition_draws():
     """draw_noise without a refresh consumes the generator as the DRAW path
-    always has (the momentum normals, then the two uniforms); with one it
-    gives the same draws and then the refresh normals. A DRAW run of
+    always has (the momentum normals, then the two uniforms); with a refresh
+    hook it gives the same draws and then the hook's. A DRAW run of
     sample_chains_resumable equals a transition loop fed exactly those
-    draws, so the REFRESH code leaves DRAW and MEAN streams as they were."""
+    draws, so the REFRESH code leaves DRAW and MEAN streams as they were; a
+    REFRESH run equals one fed those draws and then (C, D) normals."""
     c, d, big_d = 3, 5, 11
     im = torch.linspace(0.5, 2.0, d)
     plain = draw_noise(torch.Generator().manual_seed(4), im, c, d, "cpu")
     gen = torch.Generator().manual_seed(4)
     z1, u = torch.randn((c, d), generator=gen), torch.rand((2, c), generator=gen)
     z_aux = torch.randn((c, big_d), generator=gen)
-    with_aux = draw_noise(torch.Generator().manual_seed(4), im, c, d, "cpu", aux_dim=big_d)
+    with_aux = draw_noise(torch.Generator().manual_seed(4), im, c, d, "cpu",
+                          aux_draw=lambda g: torch.randn((c, big_d), generator=g))
     for nz in (plain, with_aux):
         assert torch.equal(nz.z1, z1) and torch.equal(nz.u_jitter, u[0])
         assert torch.equal(nz.u_accept, u[1])
     assert plain.z_aux is None and torch.equal(with_aux.z_aux, z_aux)
 
     def log_prob(q, aux):
-        return -0.5 * ((q - aux[:d]) ** 2 / im).sum(-1)
+        return -0.5 * ((q - aux[..., :d]) ** 2 / im).sum(-1)
 
     cfg = HMCConfig(num_samples=6, num_leapfrog=3, step_size=0.4, sampler="hmc",
                     jitter_eps=True)
@@ -277,6 +280,25 @@ def test_refresh_normals_come_after_the_transition_draws():
             kept.append(state.position)
     np.testing.assert_array_equal(res.samples, torch.stack(kept, 1).numpy())
     assert torch.equal(res.final_state.aux, aux)
+
+    # REFRESH: the default refresh draw is (C, D) normals after those draws
+    def refresh(z):
+        return z
+
+    res = sample_chains_resumable(log_prob, q0, cfg, 3, im, aux, seed=9, aux_refresh=refresh)
+    kernel = make_kernel(cfg, im, None, None, log_prob, aux_refresh=refresh)
+    state = init_state(log_prob, q0, cfg, aux)
+    kept = []
+    for seg in range(2):
+        gen = segment_generator("cpu", 9, seg)
+        for _ in range(3):
+            z1, u = torch.randn((c, d), generator=gen), torch.rand((2, c), generator=gen)
+            z_aux = torch.randn((c, big_d), generator=gen)
+            state, _ = kernel(state, TransitionNoise(z1=z1, z2=None, u_jitter=u[0],
+                                                     u_accept=u[1], z_aux=z_aux))
+            kept.append(state.position)
+    np.testing.assert_array_equal(res.samples, torch.stack(kept, 1).numpy())
+    assert torch.equal(res.final_state.aux, z_aux)
 
 
 @pytest.mark.parametrize("policy", ["mean", "draw", "refresh"])
@@ -670,7 +692,7 @@ def test_run_operator_ported_settings_match_jax(tiny_burgers_run, setting, monke
                                                 one_torch_thread):
     """Each stage-3 setting the port now runs, on the tiny Burgers data with
     the fused density: both pipelines are stopped at their sampler call and
-    hand it the same HMCConfig (every field), the same inits, frozen vector,
+    hand it the same HMCConfig (every shared field), the same inits, frozen vector,
     log-density (rtol 1e-5) and trajectory field (rtol 2e-4 of its scale) at
     the inits, and the same metric (a low-rank one from JAX's Lanczos start
     vector: U U^T to 2e-3 of its scale). Then the port runs the setting to
@@ -709,7 +731,7 @@ def test_run_operator_ported_settings_match_jax(tiny_burgers_run, setting, monke
                         frozen=np.asarray(jkw["aux"]), lanczos_v0=torch.as_tensor(v0),
                         device="cpu")
     (tlp, tinits, tcfg, seg, tim, taux), tkw = seen["torch"]
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert_shared_fields_equal(tcfg, jcfg)
     assert seg == jkw["segment_size"] and tkw["thin"] == jkw["thin"]
     np.testing.assert_array_equal(tinits.numpy(), np.asarray(jinits))
     np.testing.assert_array_equal(taux.numpy(), np.asarray(jkw["aux"]))

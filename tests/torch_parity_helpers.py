@@ -71,6 +71,14 @@ def tiny_problem(seed=0, n_fn=9, nt=5, nx=4, sub_dim=16, tau=0.5, y_scale=0.5):
                 jprior, tspec, tprior)
 
 
+def assert_shared_fields_equal(tcfg, jcfg):
+    """Every field of the port's config is one of the JAX config's and holds
+    the same value (a JAX field with no effect anywhere has no counterpart)."""
+    tf, jf = dataclasses.asdict(tcfg), dataclasses.asdict(jcfg)
+    assert set(tf) <= set(jf), sorted(set(tf) - set(jf))
+    assert tf == {k: jf[k] for k in tf}
+
+
 @pytest.fixture
 def one_torch_thread():
     """One CPU thread for torch: the port's tiny models run faster so, and the

@@ -85,7 +85,13 @@ def sample_chains_resumable(log_prob_fn: Callable, init_positions: torch.Tensor,
     kernel = make_kernel(config, inv_mass, grad_fn, delta_fn, log_prob_fn, aux_refresh,
                          shard_log_prob_fn, shard_data)
     state = init_state(log_prob_fn, init_positions, config, aux, grad_fn)
-    aux_dim = None if aux_refresh is None else aux.shape[-1]
+    if aux_refresh is None:
+        aux_draw = None
+    elif aux_draw is None:
+        aux_dim = aux.shape[-1]
+
+        def aux_draw(g):
+            return torch.randn((n_chains, aux_dim), generator=g, device=dev)
     n_steps_range = jitter_l_range(config)
 
     collected = []
@@ -94,9 +100,7 @@ def sample_chains_resumable(log_prob_fn: Callable, init_positions: torch.Tensor,
         gen = segment_generator(dev, seed, seg)
         kept, seg_info = [], {k: [] for k in INFO_KEYS}
         for i in range(segment_size):
-            noise = draw_noise(gen, inv_mass, n_chains, dim, dev, aux_dim,
-                               aux_draw if aux_refresh is not None else None,
-                               n_steps_range)
+            noise = draw_noise(gen, inv_mass, n_chains, dim, dev, aux_draw, n_steps_range)
             state, info = kernel(state, noise)
             if (i + 1) % thin == 0:
                 kept.append(state.position)

@@ -1,7 +1,8 @@
 """The HMC transition, chain-batched.
 
 Counterpart of ``vihmc_tpu/hmc/kernel.py``. :class:`HMCConfig` has every
-field of the JAX config with its default and meaning; the fields whose paths
+field of the JAX config that has an effect there (``store_burn`` has none),
+with its default and meaning; the fields whose paths
 are not ported (``adapt_mass``, ``mass_schedule``, ``refresh_during_burn=False``,
 ``init_step_search``, ``momentum_persistence``, ``store_aux_trace``,
 ``metric_axis``) raise ``NotImplementedError`` when set away from their
@@ -73,7 +74,6 @@ class HMCConfig:
     sampler: str = "hmc"                # 'hmc' (fixed step) | 'hmc_nuts' (dual averaging)
     integrator: str = "leapfrog"        # 'leapfrog' | 'splitting'
     target_accept: float = 0.8
-    store_burn: bool = True             # no effect, as in JAX: every draw is kept
     adapt_mass: bool = False            # not ported
     mass_schedule: str = "half"         # not ported (only with adapt_mass)
     jitter_l: bool = False              # trajectory length ~ U{max(1, round(frac L)), ..., L}
@@ -144,22 +144,18 @@ class TransitionNoise:
 
 
 def draw_noise(generator: torch.Generator, inv_mass, n_chains: int, dim: int,
-               device, aux_dim: Optional[int] = None, aux_draw: Optional[Callable] = None,
+               device, aux_draw: Optional[Callable] = None,
                n_steps_range=None) -> TransitionNoise:
     """One transition's draws, in this order: the momentum normals, the two
     uniforms, then only when their option is on: the refresh hook's draw
-    (``aux_draw(generator)``, or ``(C, aux_dim)`` normals for REFRESH) and the
-    ``jitter_l`` lengths, uniform integers in ``n_steps_range`` -- so every
-    configuration keeps the streams it had before those options existed."""
+    ``aux_draw(generator)`` and the ``jitter_l`` lengths, uniform integers in
+    ``n_steps_range`` -- so every configuration keeps the streams it had
+    before those options existed."""
     s1, s2 = momentum_normals_shape(inv_mass, n_chains, dim)
     z1 = torch.randn(s1, generator=generator, device=device)
     z2 = None if s2 is None else torch.randn(s2, generator=generator, device=device)
     u = torch.rand((2, n_chains), generator=generator, device=device)
-    z_aux = None
-    if aux_draw is not None:
-        z_aux = aux_draw(generator)
-    elif aux_dim is not None:
-        z_aux = torch.randn((n_chains, aux_dim), generator=generator, device=device)
+    z_aux = None if aux_draw is None else aux_draw(generator)
     n_steps = None
     if n_steps_range is not None:
         n_steps = torch.randint(n_steps_range[0], n_steps_range[1], (n_chains,),

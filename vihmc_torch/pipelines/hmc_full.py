@@ -24,6 +24,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import sys
 import time
 from typing import Optional
 
@@ -197,6 +198,16 @@ def summarize_run(out: dict, cfg, dev) -> dict:
     }
 
 
+def divergence_note(out):
+    """Say on stderr when most draws diverged: the chains then barely left
+    their random starts, and the metrics score those starts."""
+    res = out["result"]
+    n = res.accepted.size
+    if 2 * res.num_divergent > n or not res.accepted.any():
+        print(f"{int(res.accepted.sum())} of {n} proposals accepted, {res.num_divergent} "
+              f"divergent: the chains barely left their random starts", file=sys.stderr)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="full-parameter HMC of the regression MLP")
     ap.add_argument("--device", default="cuda")
@@ -211,6 +222,7 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, num_chains=args.chains)
     dev = resolve_device(args.device)
     out = run(cfg, seed=args.seed, device=dev)
+    divergence_note(out)
     print(json.dumps(summarize_run(out, cfg, dev)))
 
 

@@ -60,7 +60,7 @@ from vihmc_torch.models.mlp import mlp_stack
 from vihmc_torch.ops.gram_merge import make_gram_grad_full
 from vihmc_torch.pipelines.common import make_deeponet_nll_log_posterior, make_flat_deeponet
 from vihmc_torch.pipelines.configs import OperatorHMCRunConfig
-from vihmc_torch.pipelines.hmc_full import host_metrics, summarize_run
+from vihmc_torch.pipelines.hmc_full import divergence_note, host_metrics, summarize_run
 from vihmc_torch.pipelines.predict import posterior_predictive, predictive_metrics
 
 #: generator streams of a run's seed (the sampler's segment is stream 0)
@@ -261,6 +261,7 @@ def main(argv=None):
     cap_note(cfg, used)
     out = run(cfg, data=(train, valid), num_chains=args.chains, use_fused=not args.composed,
               seed=args.seed, device=dev)
+    divergence_note(out)
     line = summarize_run(out, cfg, dev)
     line.update(use_fused=not args.composed, sample_data=cfg.sample_data, n_valid=used,
                 trajectory_field="gram_f32" if out["grad_fn"] is not None else "autograd")

@@ -41,12 +41,30 @@ from vihmc_torch.hmc.kernel import HMCConfig
 from vihmc_torch.io.artifacts import RunStore
 from vihmc_torch.pipelines.common import make_flat_deeponet
 from vihmc_torch.pipelines.configs import SplitHMCRunConfig
-from vihmc_torch.pipelines.hmc_full import host_metrics, summarize_run
+from vihmc_torch.pipelines.hmc_full import divergence_note, host_metrics, summarize_run
 from vihmc_torch.pipelines.hmc_nuts import (cap_note, load_data, reevaluate,  # noqa: F401
                                             score_on_validation)
 
 #: generator stream of the chain inits (the sampler's segment is stream 0)
 _INIT_STREAM = 730_001
+
+
+def make_shard_log_prob(cfg: SplitHMCRunConfig, trunk: torch.Tensor):
+    """``shard_log_prob(flat (C, d), (branch, solution), aux) -> (C,)``: one
+    shard's likelihood on the query points ``trunk`` plus its share of the
+    prior (hmc_split.py:49-53)."""
+    apply_flat = make_flat_deeponet(cfg.model)
+    like = get_likelihood(cfg.loss)
+    prior = IsotropicGaussianPrior(scale=cfg.prior_var ** 0.5)
+
+    def shard_log_prob(flat, shard, aux=None):
+        branch, sol = shard
+        with true_f32():
+            pred = apply_flat(flat, branch, trunk)
+        return like(pred.reshape(flat.shape[0], *sol.shape), sol, cfg.tau_out) \
+            + prior.log_prob(flat) / cfg.num_splits
+
+    return shard_log_prob
 
 
 def run(cfg: SplitHMCRunConfig = SplitHMCRunConfig(), data=None, num_chains: int = 1,
@@ -73,13 +91,7 @@ def run(cfg: SplitHMCRunConfig = SplitHMCRunConfig(), data=None, num_chains: int
     like = get_likelihood(cfg.loss)
     prior = IsotropicGaussianPrior(scale=cfg.prior_var ** 0.5)
     trunk = train["trunk_in"]
-
-    def shard_log_prob(flat, shard, aux=None):
-        branch, sol = shard
-        with true_f32():
-            pred = apply_flat(flat, branch, trunk)
-        return like(pred.reshape(flat.shape[0], *sol.shape), sol, cfg.tau_out) \
-            + prior.log_prob(flat) / cfg.num_splits
+    shard_log_prob = make_shard_log_prob(cfg, trunk)
 
     def log_prob(flat, aux=None):
         with true_f32():
@@ -137,6 +149,7 @@ def main(argv=None):
     train, valid, used = load_data(cfg, dev)
     cap_note(cfg, used)
     out = run(cfg, data=(train, valid), num_chains=args.chains, seed=args.seed, device=dev)
+    divergence_note(out)
     line = summarize_run(out, cfg, dev)
     line.update(num_splits=cfg.num_splits, is_nuts=cfg.is_nuts, n_valid=used)
     print(json.dumps(line))
