@@ -77,11 +77,29 @@ Phases, each printed with its wall time:
     trajectory on the pipeline's own shard density is held, card against
     CPU, instead;
 17. ``hmc_full`` at ``NNHMCRunConfig`` (the regression MLP, L = 643), depth
-    cut.
+    cut;
+18. the NN bench row through ``bench_nn`` at full width (1024 chains, L = 96,
+    the 73-dim subspace of ``nn_stage12.npz``, DRAW, coupled dual averaging
+    with step jitter, the clipped autodiff field, the 400-step warm start),
+    depth cut to one key and a few hundred draws: draws/s, fs-ESS/s and the
+    acceptance (finite and positive), then one transition at 1024 chains
+    under ``torch.profiler``: device time against wall, the per-draw host
+    time;
+19. stage 3 with ``algorithm='nuts'`` at full width (the stride Gram field,
+    the fused density, 16 chains), depth cut (``nuts_max_depth`` 3, a few
+    draws): every tree leaf evaluates the density, so ``merge_sums`` runs
+    1 + (2^depth - 1) x draws times; the wall per leaf;
+20. stage 3 with ``algorithm='chees'`` (a small ``chees_max_steps``): the
+    density at the trajectory's end only, ``merge_sums`` 1 + draws times;
+21. the adaptive metric on the card: NN stage 3 (``vi_hmc.run_nn`` on the
+    row's posterior) with ``adapt_mass`` under the windowed schedule -- the
+    adapted inverse mass finite and positive, dual averaging restarted at
+    every window's last draw and nowhere else -- and the NN row with
+    momentum persistence 0.5.
 
-Before each driven path (3, 6, 7, 8, 9, 10, 11, 12-17) every kernel count is
-set to 0, and it is read just after (stages 1 and 2, ``hmc_split`` and
-``hmc_full`` run no kernel of the port). Every depth cut is printed. The second-to-last line is a JSON object describing every
+Before each driven path (3, 6, 7, 8, 9, 10, 11, 12-21) every kernel count is
+set to 0, and it is read just after (stages 1 and 2, ``hmc_split``,
+``hmc_full`` and the NN paths of 18 and 21 run no kernel of the port). Every depth cut is printed. The second-to-last line is a JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result. It needs a CUDA
 device and the rest of the repository; it imports nothing of JAX.
@@ -94,6 +112,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -101,14 +120,17 @@ import time
 import numpy as np
 import torch
 
+from vihmc_torch import bench_nn
 from vihmc_torch.bench_operator import (build_operator_problem, operator_fns,
                                         run_operator_row)
 from vihmc_torch.core.precision import true_f32
 from vihmc_torch.core.ravel import scatter_subspace
 from vihmc_torch.data.burgers import (get_burgers, load_port_inputs,
                                       load_stage12_artifacts)
+from vihmc_torch.chains.resume import sample_chains_resumable
 from vihmc_torch.hmc.integrators import leapfrog_grad_only
-from vihmc_torch.hmc.kernel import clipped_grad_fn
+from vihmc_torch.hmc.kernel import (clipped_grad_fn, draw_noise, init_state, make_kernel,
+                                    mass_window_schedule)
 from vihmc_torch.hmc.subspace import make_subspace_grad
 from vihmc_torch.models.deeponet import (DeepONetConfig, deeponet_features,
                                          unravel_deeponet)
@@ -123,6 +145,7 @@ from vihmc_torch.ops.leapfrog import (fused_leapfrog_update,
                                       leapfrog_update_reference)
 import vihmc_torch.pipelines.vi_hmc as vi_hmc
 from vihmc_torch.data.burgers import STAGE12_ASSET, subsample_trunk
+from vihmc_torch.data.synthetic import regression_data
 from vihmc_torch.models.mlp import MLPConfig
 from vihmc_torch.pipelines import hmc_full, hmc_nuts, hmc_split, sensitivity, vi_train
 from vihmc_torch.pipelines.common import (make_deeponet_nll_log_posterior,
@@ -161,6 +184,13 @@ L2_ROTATION = 8              # input copies cycled per timing: 8 x 15.6 MB excee
 # scores were computed on a TPU at default matmul precision)
 SENS_OVERLAP_MARGIN = 0.05
 NN_BUNDLE = STAGE12_ASSET.replace("burgers_stage12_r2", "nn_stage12_r2")
+# depth cuts of phases 18-21 (the row's or the config's own value in brackets)
+NN_DRAWS, NN_SEGMENT = 240, 120          # NN row draws, segment (2880, 480)
+S3_NUTS_DRAWS, NUTS_DEPTH = 4, 3         # stage-3 NUTS draws, max depth (450, 6)
+S3_CHEES_DRAWS, CHEES_MAX_STEPS = 4, 8   # stage-3 ChEES draws, step cap (450, 256)
+ADAPT_DRAWS, ADAPT_BURN = 60, 40         # NN stage 3, windowed metric (450, 90)
+PERSIST_DRAWS = 24                       # NN row with --persist 0.5 (2880)
+DISPATCH_OPS = 2000                      # one-element adds timed for the host's dispatch cost
 
 KERNELS = {
     "paired_sums": {"route": "cuda", "source": "vihmc_torch/csrc/paired_sums.cu",
@@ -822,6 +852,188 @@ def nn_flow_phase(dev, epochs, nn_bundle):
     return {"vi_s": vi_s, "stage3_s": h_s, "acceptance": res.acceptance_rate}
 
 
+def nn_row_phase(dev):
+    """Phase 18: the NN bench row at full width, depth cut."""
+    kw = dict(chains=1024, L=96, draws=NN_DRAWS, thin=24, segment=NN_SEGMENT,
+              keys=(2,))
+    print(f"  depth cut: one key (row: 5 keys after the warm run), draws {kw['draws']}, "
+          f"burn {kw['draws'] // 5}, segments of {kw['segment']} (row: 2880, 576, 480); "
+          f"chains {kw['chains']}, L {kw['L']}, thin {kw['thin']}")
+    reset_counts()
+    t0 = time.perf_counter()
+    st = bench_nn.bench_nn(device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect_no_launches("NN row")
+    print("  NN row: " + json.dumps({k_: st[k_] for k_ in (
+        "draws_per_s", "ess_per_s", "ess_median", "ess_min", "rhat_max",
+        "ess_weight_median_by_key", "ess_weight_at_chain_floor", "rhat_weight_max",
+        "acceptance", "adapted_step", "warm_start_s", "phases_s")}))
+    print(f"  NN row: {st['draws_per_s']:.3f} draws/s of {kw['chains']} chains "
+          f"({1e3 / st['draws_per_s']:.2f} ms per draw, {1e3 / st['draws_per_s'] / kw['L']:.3f}"
+          f" ms per leapfrog step), fs-ESS/s {st['ess_per_s']:.3f}, acceptance "
+          f"{st['acceptance']:.4f}; phase wall {wall:.2f} s")
+    check(math.isfinite(st["acceptance"]) and st["acceptance"] > 0.0,
+          f"NN row: acceptance {st['acceptance']}")
+    check(math.isfinite(st["ess_per_s"]) and st["ess_per_s"] > 0.0, "NN row: fs-ESS/s")
+    # one transition of the row at 1024 chains: device time against wall
+    log_prob, aux0, refresh, spec, *_ = bench_nn.build_nn_problem(dev)
+    d = spec.subspace_dim
+    inv_mass = spec.sub_sigma() ** 2
+    field = clipped_grad_fn(log_prob, bench_nn.CLIP_SCALE * d ** 0.5, inv_mass=inv_mass,
+                            is_grad=False)
+    cfg = bench_nn.nn_config(kw["draws"], kw["L"], 0.1, False)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    q0 = spec.sub_mu() + 0.01 * spec.sub_sigma() * torch.randn(
+        (kw["chains"], d), generator=gen, device=dev)
+    state = init_state(log_prob, q0, cfg, aux0, field, inv_mass=inv_mass)
+    kernel = make_kernel(cfg, inv_mass, field, None, log_prob)
+    noise = draw_noise(gen, inv_mass, kw["chains"], d, dev)
+    dev_ms = profile_line(f"NN row transition at {kw['chains']} chains (L {kw['L']})",
+                          lambda: kernel(state, noise), 5)
+    # the wall of a transition without the profiler's per-op cost
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    for _ in range(3):
+        kernel(state, noise)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - tw) / 3
+    host_ms = wall_ms - (0.0 if math.isnan(dev_ms) else dev_ms)
+    print(f"  NN row per draw (one transition, no profiler): wall {wall_ms:.2f} ms, device "
+          + ("not measured" if math.isnan(dev_ms) else f"{dev_ms:.2f} ms")
+          + f"; wall not covered by device work {host_ms:.2f} ms "
+          f"({wall_ms / kw['L']:.3f} ms of wall per leapfrog step)")
+    host = host_reading(lambda: kernel(state, noise))
+    print(f"  NN row host: {host['cpu']}, {host['cores']} usable cores; "
+          f"{host['us_per_op']:.2f} us of wall per dispatched one-element op; one transition "
+          f"issues {host['device_ops_per_call']:.0f} device ops -> "
+          f"{host['us_per_op'] * host['device_ops_per_call'] / 1e3:.2f} ms of dispatch at that "
+          f"rate, against {host_ms:.2f} ms of wall not covered by device work")
+    return st
+
+
+def host_reading(fn, reps: int = 3) -> dict:
+    """The host side of ``fn``: the CPU's model and usable cores, the wall
+    per dispatched operation (``DISPATCH_OPS`` one-element adds on the card,
+    issued back to back; their device work is a few microseconds each), and
+    the device operations (kernels and copies) one call of ``fn`` issues,
+    counted by ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cpu = "unknown"
+    if os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            cpu = next((ln.split(":", 1)[1].strip() for ln in f
+                        if ln.startswith("model name")), cpu)
+    x = torch.zeros(1, device="cuda")
+    for _ in range(50):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DISPATCH_OPS):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    op_us = 1e6 * (time.perf_counter() - t0) / DISPATCH_OPS
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    n_ops = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0) / reps
+    return {"cpu": cpu, "cores": len(os.sched_getaffinity(0)), "us_per_op": op_us,
+            "device_ops_per_call": n_ops}
+
+
+def nuts_chees_phase(label, dev, data, arts, want, **kw):
+    """Phases 19-20: stage 3 under NUTS or ChEES, launches held to ``want``."""
+    summary, out, counts = run_stage3_path(label, dev, data, arts, want, **kw)
+    res = out["result"]
+    check(out["algorithm"] == kw["algorithm"], f"{label}: algorithm {out['algorithm']}")
+    draw_ms = 1e3 * summary["sampling_seconds"] / kw["draws"]
+    if kw["algorithm"] == "nuts":
+        leaves = res.aux_trace["tree_leaves"]
+        n_leaf = 2 ** kw["nuts_max_depth"] - 1
+        check(bool((leaves >= 1).all() and (leaves <= n_leaf).all()),
+              f"{label}: tree leaves {leaves}")
+        print(f"  {label}: {draw_ms:.2f} ms per draw, {draw_ms / n_leaf:.2f} ms per leaf "
+              f"({n_leaf} leaves evaluated per draw, each one fused density and one field); "
+              f"leaves merged before the trees stopped: mean {leaves.mean():.2f}")
+    else:
+        n_steps = res.aux_trace["n_steps"]
+        check(bool((n_steps >= 1).all() and (n_steps <= kw["chees_max_steps"]).all()),
+              f"{label}: step counts {n_steps}")
+        print(f"  {label}: {draw_ms:.2f} ms per draw; leapfrog steps per draw "
+              f"{n_steps.tolist()}, trajectory length {res.aux_trace['traj_length'].tolist()}"
+              f", {draw_ms / max(float(n_steps.mean()), 1.0):.2f} ms per step")
+    del out
+    torch.cuda.empty_cache()
+    return summary, counts
+
+
+def adaptive_metric_phase(dev):
+    """Phase 21: the windowed adaptive metric and momentum persistence."""
+    from vihmc_torch.pipelines.configs import VIHMCRunConfig as Cfg
+
+    with np.load(bench_nn.NN_STAGE12_ASSET) as z:
+        arts_nn = {k_: z[k_] for k_ in ("mu", "sigma", "indices")}
+    with np.load(bench_nn.NN_PORT_INPUTS) as z:
+        x, y = z["x_train"], z["y_train"]
+    # the validation grid and its noise-free targets (the training noise is unused)
+    grid = regression_data(20, 300, noise=torch.zeros(20, 1), device="cpu")
+    data_nn = {"x_train": x, "y_train": y, "x_val": grid["x_val"].numpy(),
+               "y_val": grid["y_val"].numpy()}
+    cfg = Cfg(num_samples=ADAPT_DRAWS, burn=ADAPT_BURN, num_chains=64,
+              num_leapfrog=20, frozen_policy="draw", vi_mass=True, adapt_step_size=True,
+              adapt_mass=True, mass_schedule="windowed", init_optimize=400)
+    start, ends = mass_window_schedule(cfg.burn_)
+    print(f"  NN stage 3, windowed adaptive metric: {cfg.num_samples} draws, burn {cfg.burn_}"
+          f" (windows from {start}, ends {list(ends)}), {cfg.num_chains} chains, L {cfg.L}")
+    t_seen = []
+    reset_counts()
+    out = vi_hmc.run_nn(cfg, MLPConfig(), arts_nn, data=data_nn, seed=0, device=dev,
+                        segment_size=1,
+                        progress=lambda i, n, st: t_seen.append(float(st.da.t[0])))
+    expect_no_launches("NN stage 3, adaptive metric")
+    res = out["result"]
+    im = res.final_state.inv_mass
+    restarts = [i for i, t_ in enumerate(t_seen) if t_ == 0.0]
+    print(f"  adapted inverse mass {tuple(im.shape)}: min {float(im.min()):.4g}, max "
+          f"{float(im.max()):.4g}, against the VI variances' median "
+          f"{float(out['spec'].sub_sigma().median() ** 2):.4g}; dual averaging restarted "
+          f"after draws {restarts} (window ends {[e - 1 for e in ends]}); acceptance "
+          f"{res.acceptance_rate:.4f}")
+    check(bool(torch.isfinite(im).all()) and bool((im > 0).all()), "adapted inverse mass")
+    check(restarts == [e - 1 for e in ends], f"restarts {restarts} at window ends {ends}")
+    check(bool(np.isfinite(res.samples).all()) and res.acceptance_rate > 0.0,
+          "adaptive metric: samples or acceptance")
+    # momentum persistence: the row's entry point, then the carried momentum
+    # across a segment boundary
+    pk = dict(chains=1024, L=96, draws=PERSIST_DRAWS, thin=1, segment=PERSIST_DRAWS, keys=(3,), persist=0.5)
+    print(f"  NN row with --persist 0.5: draws {pk['draws']} (row 2880), one key")
+    reset_counts()
+    st = bench_nn.bench_nn(device=dev, **pk)
+    expect_no_launches("NN row, persist 0.5")
+    print(f"  NN row, persist 0.5: acceptance {st['acceptance']:.4f}, {st['draws_per_s']:.3f}"
+          f" draws/s, fs-ESS/s {st['ess_per_s']:.3f}")
+    check(math.isfinite(st["acceptance"]) and st["acceptance"] > 0.0, "persist: acceptance")
+    log_prob, aux0, _, spec, *_ = bench_nn.build_nn_problem(dev)
+    inv_mass = spec.sub_sigma() ** 2
+    field = clipped_grad_fn(log_prob, bench_nn.CLIP_SCALE * spec.subspace_dim ** 0.5,
+                            inv_mass=inv_mass, is_grad=False)
+    pcfg = bench_nn.nn_config(12, 96, 0.1, False, persist=0.5)
+    r = sample_chains_resumable(log_prob, spec.sub_mu().expand(1024, -1).clone(), pcfg, 6,
+                                inv_mass, aux0, grad_fn=field, seed=4)
+    mom = r.final_state.momentum
+    print(f"  persistent momentum after 2 segments of 6: {tuple(mom.shape)}, rms "
+          f"{float(mom.pow(2).mean().sqrt()):.4g}, acceptance {r.acceptance_rate:.4f}")
+    check(bool(torch.isfinite(mom).all()) and float(mom.abs().max()) > 0.0,
+          "persistent momentum")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke run on one GPU")
     ap.add_argument("--draws", type=int, default=240, help="operator-row draws")
@@ -1240,6 +1452,40 @@ def main(argv=None) -> int:
     print(f"  hmc_full: {1e3 * f_out['phases_s']['sampling_s'] / (fcfg.num_samples * fcfg.L):.3f}"
           f" ms per leapfrog step of the {fcfg.model.num_params}-parameter MLP")
     phase("17 hmc_full", t0)
+
+    # ---- phase 18: the NN bench row at full width ----
+    t0 = time.perf_counter()
+    nn_row_phase(dev)
+    torch.cuda.empty_cache()
+    phase("18 NN row", t0)
+
+    # ---- phase 19: stage 3 under NUTS (every leaf one fused density) ----
+    t0 = time.perf_counter()
+    s3n = dict(variant="stride", algorithm="nuts", nuts_max_depth=NUTS_DEPTH,
+               draws=S3_NUTS_DRAWS, burn=S3_NUTS_DRAWS // 2, chains=16, L=31,
+               segment=S3_NUTS_DRAWS, thin=1)
+    print(f"  depth cut: nuts_max_depth {s3n['nuts_max_depth']} (config 6), draws "
+          f"{s3n['draws']}, burn {s3n['burn']} (stage-3 config 450, 90)")
+    # 1 density at init (NUTS keeps lp0 in its state), then every leaf
+    nuts_chees_phase("stage 3 nuts", dev, data, arts,
+                     1 + (2 ** s3n["nuts_max_depth"] - 1) * s3n["draws"], **s3n)
+    phase("19 stage 3 nuts", t0)
+
+    # ---- phase 20: stage 3 under ChEES (the density at the end point) ----
+    t0 = time.perf_counter()
+    s3c = dict(variant="stride", algorithm="chees", chees_max_steps=CHEES_MAX_STEPS,
+               draws=S3_CHEES_DRAWS, burn=S3_CHEES_DRAWS // 2, chains=16, L=31,
+               segment=S3_CHEES_DRAWS, thin=1)
+    print(f"  depth cut: chees_max_steps {s3c['chees_max_steps']} (config 256), draws "
+          f"{s3c['draws']}, burn {s3c['burn']}")
+    nuts_chees_phase("stage 3 chees", dev, data, arts, 1 + s3c["draws"], **s3c)
+    phase("20 stage 3 chees", t0)
+
+    # ---- phase 21: the adaptive metric and momentum persistence ----
+    t0 = time.perf_counter()
+    adaptive_metric_phase(dev)
+    torch.cuda.empty_cache()
+    phase("21 adaptive metric", t0)
 
     launches = {"paired_sums": row_counts["paired_sums"],
                 "merge_sums": s3_counts["merge_sums"],

@@ -486,3 +486,29 @@ def test_hmc_nuts_fused_on_cuda_launches_and_frozen_step(cuda_device):
     np.testing.assert_allclose(post[:, 0], torch.exp(res.final_state.da.log_step_avg).cpu(),
                                rtol=1e-6)
     assert np.isfinite(res.samples).all()
+
+
+@pytest.mark.parametrize("algorithm", ["nuts", "chees"])
+def test_stage3_nuts_and_chees_on_cuda_launch_merge_sums(cuda_device, algorithm):
+    """Stage 3 under NUTS (depth 3) and ChEES (at most 6 steps) on the card
+    with the fused density and the stride Gram field (small DeepONet, 3
+    chains, 5 draws): ``merge_sums`` launched 1 + 7 x draws times for NUTS
+    (every tree leaf evaluates the density) and 1 + draws for ChEES (the
+    trajectory's end only); finite samples and metrics."""
+    from vihmc_torch.pipelines.configs import VIHMCRunConfig
+    from vihmc_torch.pipelines.vi_hmc import run_operator
+
+    cfg_d, data, arts = _small_stage3_case(26)
+    cfg = VIHMCRunConfig(num_samples=5, step_size=1e-3, num_chains=3, num_leapfrog=4,
+                         tau_out=1.0, frozen_policy="draw", vi_mass=True,
+                         clip_grad=13.0 * 40 ** 0.5, coarse_stride=3, fn_stride=3,
+                         algorithm=algorithm, nuts_max_depth=3, chees_max_steps=6)
+    n = merge_sums.launches
+    out = run_operator(cfg, cfg_d, arts, data=data, use_fused=True, use_gram=True,
+                       segment_size=5, device=cuda_device)
+    torch.cuda.synchronize()
+    per_draw = 7 if algorithm == "nuts" else 1
+    assert merge_sums.launches - n == 1 + per_draw * cfg.num_samples
+    assert out["algorithm"] == algorithm
+    assert np.isfinite(out["result"].samples).all()
+    assert all(np.isfinite(v).all() for v in out["metrics"].values())

@@ -9,48 +9,84 @@ trajectory, with or without an ``aux_refresh``); within a segment every draw
 advances all chains with one call of the transition, the kept positions
 (every ``thin``-th) stay on the device, and the segment's samples and
 per-draw info arrays go to the host once, at its end. The state carries the
-global draw index, so the burn boundary of dual averaging holds across
-segments. Each segment draws its random numbers from a generator seeded with
-``(seed, segment index)``, so a later resume can replay a segment exactly.
-Resume from ``torch.save`` state is not ported yet.
+global draw index, the adaptive metric's accumulators and the carried
+momentum, so the burn, switch and window boundaries and the momentum
+persistence hold across segments. Each segment draws its random numbers from
+a generator seeded with ``(seed, segment index)``, so a later resume can
+replay a segment exactly. :func:`run_segments` is the loop itself, which the
+NUTS and ChEES samplers share. Resume from ``torch.save`` state is not ported
+yet.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from vihmc_torch.core.device import stream_generator
-from vihmc_torch.hmc.kernel import (HMCConfig, HMCState, draw_noise, init_state,
+from vihmc_torch.hmc.kernel import (HMCConfig, SampleResult, draw_noise, init_state,
                                     jitter_l_range, make_kernel)
 
 INFO_KEYS = ("accepted", "accept_prob", "step_size", "divergent", "log_prob")
-
-
-@dataclasses.dataclass
-class SampleResult:
-    samples: np.ndarray        # (C, S // thin, d)
-    log_probs: np.ndarray      # (C, S)
-    accept_probs: np.ndarray   # (C, S)
-    accepted: np.ndarray       # (C, S) bool
-    step_sizes: np.ndarray     # (C, S)
-    divergent: np.ndarray      # (C, S) bool
-    final_state: HMCState
-
-    @property
-    def acceptance_rate(self) -> float:
-        return float(np.mean(self.accepted))
-
-    @property
-    def num_divergent(self) -> int:
-        return int(np.sum(self.divergent))
+#: the generator stream of the initial step search (segments are streams 0, 1, ...)
+STEP_SEARCH_STREAM = 0x1517
 
 
 def segment_generator(device, seed: int, segment: int) -> torch.Generator:
     return stream_generator(device, seed, segment)
+
+
+def run_segments(step: Callable, state, n_total: int, segment_size: int, thin: int,
+                 seed: int, device, info_keys=INFO_KEYS, extra_keys=(),
+                 progress: Optional[Callable] = None):
+    """Advance ``state`` by ``ceil(n_total / segment_size)`` segments of
+    ``segment_size`` draws, ``step(state, generator) -> (state, info)`` per
+    draw with the segment's generator; keep every ``thin``-th position on the
+    device and copy each segment's kept positions and info arrays to the host
+    once. ``info[k]`` is ``(C,)`` for ``info_keys`` and, for ``extra_keys``,
+    any shape (a scalar per draw is kept as ``(S,)``). Returns ``(state,
+    samples (C, n_total // thin, d), infos)``."""
+    if thin < 1 or segment_size % thin:
+        raise ValueError("thin must divide segment_size")
+    n_segments = -(-n_total // segment_size)
+    keys = tuple(info_keys) + tuple(extra_keys)
+    collected, infos = [], {k: [] for k in keys}
+    for seg in range(n_segments):
+        gen = segment_generator(device, seed, seg)
+        kept, seg_info = [], {k: [] for k in keys}
+        for i in range(segment_size):
+            state, info = step(state, gen)
+            if (i + 1) % thin == 0:
+                kept.append(state.position)
+            for k in keys:
+                seg_info[k].append(torch.as_tensor(info[k]))
+        # thinned on the device; one host copy per segment
+        collected.append(torch.stack(kept, dim=1).cpu().numpy())
+        for k in keys:
+            v = torch.stack(seg_info[k], dim=-1 if k in info_keys else 0)
+            infos[k].append(v.cpu().numpy())
+        if progress is not None:
+            progress(seg + 1, n_segments, state)
+    out = {k: np.concatenate(infos[k], axis=1)[:, :n_total] for k in info_keys}
+    out.update({k: np.concatenate(infos[k], axis=0)[:n_total] for k in extra_keys})
+    return state, np.concatenate(collected, axis=1)[:, :n_total // thin], out
+
+
+def resolve_aux_draw(aux_refresh, aux_draw, aux, n_chains: int, device):
+    """The refresh hook's draw: None without a hook, ``aux_draw`` when given,
+    else the REFRESH policy's ``(C, D)`` standard normals."""
+    if aux_refresh is None:
+        return None
+    if aux_draw is not None:
+        return aux_draw
+    aux_dim = aux.shape[-1]
+
+    def default_draw(g):
+        return torch.randn((n_chains, aux_dim), generator=g, device=device)
+
+    return default_draw
 
 
 def sample_chains_resumable(log_prob_fn: Callable, init_positions: torch.Tensor,
@@ -71,51 +107,34 @@ def sample_chains_resumable(log_prob_fn: Callable, init_positions: torch.Tensor,
     ``aux_draw(generator)``, drawn after the transition's own draws (default:
     ``(C, D)`` standard normals, the REFRESH policy's). The splitting
     integrator takes ``shard_log_prob_fn`` and ``shard_data``
-    (:func:`~vihmc_torch.hmc.kernel.make_kernel`).
+    (:func:`~vihmc_torch.hmc.kernel.make_kernel`). With ``init_step_search``
+    the search's momentum normals come from the stream
+    ``STEP_SEARCH_STREAM`` of ``seed``.
 
     ``progress(segment, n_segments, state)`` is called after each segment,
     once its samples are on the host.
     """
     n_chains, dim = init_positions.shape
-    n_total = config.num_samples
-    n_segments = -(-n_total // segment_size)
-    if thin < 1 or segment_size % thin:
-        raise ValueError("thin must divide segment_size")
     dev = init_positions.device
     kernel = make_kernel(config, inv_mass, grad_fn, delta_fn, log_prob_fn, aux_refresh,
                          shard_log_prob_fn, shard_data)
-    state = init_state(log_prob_fn, init_positions, config, aux, grad_fn)
-    if aux_refresh is None:
-        aux_draw = None
-    elif aux_draw is None:
-        aux_dim = aux.shape[-1]
-
-        def aux_draw(g):
-            return torch.randn((n_chains, aux_dim), generator=g, device=dev)
+    step_noise = None
+    if config.init_step_search:
+        step_noise = torch.randn((n_chains, dim),
+                                 generator=stream_generator(dev, seed, STEP_SEARCH_STREAM),
+                                 device=dev)
+    state = init_state(log_prob_fn, init_positions, config, aux, grad_fn, inv_mass=inv_mass,
+                       step_noise=step_noise)
+    aux_draw = resolve_aux_draw(aux_refresh, aux_draw, aux, n_chains, dev)
     n_steps_range = jitter_l_range(config)
 
-    collected = []
-    infos = {k: [] for k in INFO_KEYS}
-    for seg in range(n_segments):
-        gen = segment_generator(dev, seed, seg)
-        kept, seg_info = [], {k: [] for k in INFO_KEYS}
-        for i in range(segment_size):
-            noise = draw_noise(gen, inv_mass, n_chains, dim, dev, aux_draw, n_steps_range)
-            state, info = kernel(state, noise)
-            if (i + 1) % thin == 0:
-                kept.append(state.position)
-            for k in INFO_KEYS:
-                seg_info[k].append(info[k])
-        # thinned on the device; one host copy per segment
-        collected.append(torch.stack(kept, dim=1).cpu().numpy())
-        for k in INFO_KEYS:
-            infos[k].append(torch.stack(seg_info[k], dim=1).cpu().numpy())
-        if progress is not None:
-            progress(seg + 1, n_segments, state)
+    def step(st, gen):
+        return kernel(st, draw_noise(gen, inv_mass, n_chains, dim, dev, aux_draw,
+                                     n_steps_range))
 
-    out = {k: np.concatenate(v, axis=1)[:, :n_total] for k, v in infos.items()}
+    state, samples, out = run_segments(step, state, config.num_samples, segment_size, thin,
+                                       seed, dev, progress=progress)
     return SampleResult(
-        samples=np.concatenate(collected, axis=1)[:, :n_total // thin],
-        log_probs=out["log_prob"], accept_probs=out["accept_prob"],
+        samples=samples, log_probs=out["log_prob"], accept_probs=out["accept_prob"],
         accepted=out["accepted"], step_sizes=out["step_size"],
         divergent=out["divergent"], final_state=state)

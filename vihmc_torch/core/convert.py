@@ -1,7 +1,10 @@
 """Carry the JAX package's numpy arrays into the port's tensors.
 
 The tests use these to put both sides on identical inputs: a flat parameter
-vector, a parameter or variational tree, a low-rank metric, a sampler state.
+vector, a parameter or variational tree, a low-rank metric, a sampler state
+(HMC and NUTS: ``HMCState`` with its Welford moments, carried metric and
+momentum; ChEES: ``ChEESState``), so a test can start the port from the
+state JAX is in.
 They take numpy arrays (what ``np.asarray`` of a JAX array gives) and never
 import JAX.
 """
@@ -12,7 +15,8 @@ import numpy as np
 import torch
 
 from vihmc_torch.hmc.adaptation import DualAveragingState
-from vihmc_torch.hmc.kernel import HMCState
+from vihmc_torch.hmc.chees import ChEESState
+from vihmc_torch.hmc.kernel import HMCState, WelfordState
 from vihmc_torch.hmc.metric import LowRankMetric
 from vihmc_torch.models.deeponet import DeepONetConfig, unravel_deeponet
 
@@ -68,12 +72,18 @@ def metric_from_jax(diag_mass, u, chol_cap, device="cpu") -> LowRankMetric:
 
 
 def state_from_jax(position, log_prob, grad, aux, log_step, log_step_avg,
-                   h_bar, mu, t, device="cpu") -> HMCState:
-    """An :class:`HMCState` from a JAX chain-batched state's arrays.
+                   h_bar, mu, t, device="cpu", welford=None, inv_mass=None,
+                   momentum=None, iteration: int = 0) -> HMCState:
+    """An :class:`HMCState` (the HMC and the NUTS kernel's) from a JAX
+    chain-batched state's arrays.
 
     ``position``/``grad`` (C, d), ``log_prob`` and the dual-averaging fields
     (C,) or scalars (broadcast over chains), ``aux`` the frozen full vector
-    (D,) or the JAX per-chain copy (C, D), whose chains must agree.
+    (D,), or the JAX per-chain copy (C, D): one shared vector when the chains
+    agree, else each chain's (as REFRESH leaves it). ``welford``: the JAX
+    ``WelfordState``'s ``(mean, m2, count)`` (:func:`welford_from_jax`);
+    ``inv_mass`` the carried (C, d) metric, ``momentum`` the carried (C, d)
+    momentum; ``iteration`` the global index of the next draw.
     """
     pos = _t(position, device)
     c = pos.shape[0]
@@ -81,14 +91,44 @@ def state_from_jax(position, log_prob, grad, aux, log_step, log_step_avg,
     def per_chain(x):
         return _t(x, device).expand(c).clone()
 
-    aux_t = _t(aux, device)
-    if aux_t.ndim == 2:
-        if not bool((aux_t == aux_t[:1]).all()):
-            raise ValueError("the port shares one frozen vector across chains")
+    aux_t = None if aux is None else _t(aux, device)
+    if aux_t is not None and aux_t.ndim == 2 and bool((aux_t == aux_t[:1]).all()):
         aux_t = aux_t[0].clone()
     da = DualAveragingState(log_step=per_chain(log_step),
                             log_step_avg=per_chain(log_step_avg),
                             h_bar=per_chain(h_bar), mu=per_chain(mu),
                             t=per_chain(t))
     return HMCState(position=pos, log_prob=per_chain(log_prob),
-                    grad=_t(grad, device), da=da, aux=aux_t)
+                    grad=_t(grad, device), da=da, aux=aux_t, iteration=iteration,
+                    welford=None if welford is None else welford_from_jax(*welford,
+                                                                          device=device),
+                    inv_mass=None if inv_mass is None else _t(inv_mass, device),
+                    momentum=None if momentum is None else _t(momentum, device))
+
+
+def welford_from_jax(mean, m2, count, device="cpu") -> WelfordState:
+    """A :class:`WelfordState` from a JAX chain-batched one's arrays: ``mean``
+    and ``m2`` (C, d), ``count`` (C,) or a scalar (the same for every chain)."""
+    count = np.asarray(count, np.float32).ravel()
+    if not (count == count[0]).all():
+        raise ValueError("the chains' Welford counts differ")
+    return WelfordState(mean=_t(mean, device), m2=_t(m2, device),
+                        count=torch.tensor(float(count[0]), dtype=torch.float32,
+                                           device=device))
+
+
+def chees_state_from_jax(positions, log_probs, grads, log_step, log_step_avg, h_bar, mu,
+                         t, log_T, adam_m, adam_v, adam_t, aux=None, iteration: int = 0,
+                         device="cpu") -> ChEESState:
+    """A :class:`~vihmc_torch.hmc.chees.ChEESState` from a JAX ``ChEESState``'s
+    arrays (scalar dual averaging and Adam state; ``aux`` as in
+    :func:`state_from_jax`)."""
+    aux_t = None if aux is None else _t(aux, device)
+    if aux_t is not None and aux_t.ndim == 2 and bool((aux_t == aux_t[:1]).all()):
+        aux_t = aux_t[0].clone()
+    da = DualAveragingState(log_step=_t(log_step, device), log_step_avg=_t(log_step_avg, device),
+                            h_bar=_t(h_bar, device), mu=_t(mu, device), t=_t(t, device))
+    return ChEESState(position=_t(positions, device), log_prob=_t(log_probs, device),
+                      grad=_t(grads, device), da=da, log_T=_t(log_T, device),
+                      adam_m=_t(adam_m, device), adam_v=_t(adam_v, device),
+                      adam_t=_t(adam_t, device), aux=aux_t, iteration=iteration)

@@ -2,11 +2,14 @@
 
 Counterpart of ``vihmc_tpu/hmc/metric.py``: ``LowRankMetric`` (mass
 ``M = D + U U^T`` with the k x k capacitance Cholesky factored once),
-``lowrank_from_eigs``, the metric-agnostic helpers ``mass_velocity`` /
-``mass_kinetic_energy`` / ``mass_sample_momentum`` for the diagonal and
-low-rank cases, and ``hvp_fn`` / ``preconditioned_hvp`` / ``lanczos_tridiag``
-/ ``lanczos_eigs`` (CGS2 full reorthogonalization, ``which='top'``) /
-``estimate_lowrank_metric``.
+``lowrank_from_eigs``, ``EigenMetric`` (the two-sided eigenvalue-corrected
+metric ``M = S^-1 (I + V (Lam - I) V^T) S^-1``, :77-131) and
+``eigen_metric_from_eigs``, the metric-agnostic helpers ``mass_velocity`` /
+``mass_kinetic_energy`` / ``mass_sample_momentum`` for the diagonal,
+low-rank and eigen cases, ``mass_diag_inv`` (:220) / ``as_inv_mass`` (:236),
+``hutchinson_diag`` (:288), and ``hvp_fn`` / ``preconditioned_hvp`` /
+``lanczos_tridiag`` / ``lanczos_eigs`` (CGS2 full reorthogonalization,
+``which='top'`` or ``'both'``) / ``estimate_lowrank_metric``.
 
 Convention, as in JAX: a diagonal metric is passed as the INVERSE mass (a
 posterior variance estimate), while ``LowRankMetric`` stores the mass itself.
@@ -18,6 +21,7 @@ test) controls every random number.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -38,6 +42,49 @@ class LowRankMetric:
     def dense(self) -> torch.Tensor:
         """Dense M -- tests and small problems only."""
         return torch.diag(self.diag_mass) + self.u @ self.u.T
+
+
+@dataclasses.dataclass
+class EigenMetric:
+    """Mass ``M = S^-1 W(Lam) S^-1`` with ``S = diag(sqrt(diag_inv_mass))``,
+    ``W(a) x = x + V diag(a - 1) V^T x`` and ORTHONORMAL ``v`` (d, k): the
+    base diagonal metric with k preconditioned directions corrected to their
+    curvatures ``eigvals``, stiffened (lambda > 1) or softened (lambda < 1).
+    Every operation is exact and O(dk) without a solve: the momentum is
+    ``S^-1 W(sqrt Lam) z``, the velocity ``S W(1/Lam) S p``."""
+
+    diag_inv_mass: torch.Tensor  # (d,)
+    v: torch.Tensor              # (d, k) orthonormal
+    eigvals: torch.Tensor        # (k,)
+
+    @property
+    def rank(self) -> int:
+        return int(self.v.shape[-1])
+
+    def w_apply(self, a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """``W(a) x`` for ``x`` (..., d)."""
+        return x + ((x @ self.v) * (a - 1.0)) @ self.v.T
+
+    def dense(self) -> torch.Tensor:
+        """Dense M -- tests and small problems only."""
+        s_inv = 1.0 / torch.sqrt(self.diag_inv_mass)
+        inner = (torch.eye(self.v.shape[0], dtype=self.v.dtype, device=self.v.device)
+                 + self.v @ ((self.eigvals - 1.0)[:, None] * self.v.T))
+        return (s_inv[:, None] * inner) * s_inv[None, :]
+
+
+def eigen_metric_from_eigs(diag_inv_mass, eigvals, eigvecs, min_eig: float = 0.01,
+                           max_eig: float = math.inf) -> EigenMetric:
+    """An :class:`EigenMetric` from preconditioned Ritz pairs, the eigenvalues
+    clipped to ``[min_eig, max_eig]`` (underconverged soft Ritz values would
+    overstate the widening)."""
+    diag_inv_mass = torch.as_tensor(diag_inv_mass, dtype=torch.float32)
+    dev = diag_inv_mass.device
+    lam = torch.clamp(torch.as_tensor(eigvals, dtype=torch.float32, device=dev),
+                      min_eig, max_eig)
+    return EigenMetric(diag_inv_mass=diag_inv_mass,
+                       v=torch.as_tensor(eigvecs, dtype=torch.float32, device=dev),
+                       eigvals=lam)
 
 
 def make_lowrank_metric(diag_mass, u) -> LowRankMetric:
@@ -70,6 +117,9 @@ def mass_velocity(inv_mass, p: torch.Tensor) -> torch.Tensor:
         rhs = (w @ inv_mass.u).T                                 # (k, C)
         z = torch.cholesky_solve(rhs, inv_mass.chol_cap).T       # (C, k)
         return w - d_inv * (z @ inv_mass.u.T)
+    if isinstance(inv_mass, EigenMetric):
+        s = torch.sqrt(inv_mass.diag_inv_mass)
+        return s * inv_mass.w_apply(1.0 / inv_mass.eigvals, s * p)
     return inv_mass * p
 
 
@@ -90,11 +140,36 @@ def momentum_normals_shape(inv_mass, n_chains: int, dim: int):
 
 def mass_sample_momentum(inv_mass, z1: torch.Tensor, z2=None) -> torch.Tensor:
     """``p ~ N(0, M)`` from standard normals: ``sqrt(D) z1 + U z2`` for a
-    low-rank metric (``Cov p = D + U U^T``), ``z1 / sqrt(inv_mass)`` for a
-    diagonal one."""
+    low-rank metric (``Cov p = D + U U^T``), ``S^-1 W(sqrt Lam) z1`` for an
+    eigen metric, ``z1 / sqrt(inv_mass)`` for a diagonal one."""
     if isinstance(inv_mass, LowRankMetric):
         return torch.sqrt(inv_mass.diag_mass) * z1 + z2 @ inv_mass.u.T
+    if isinstance(inv_mass, EigenMetric):
+        return (inv_mass.w_apply(torch.sqrt(inv_mass.eigvals), z1)
+                / torch.sqrt(inv_mass.diag_inv_mass))
     return z1 / torch.sqrt(torch.as_tensor(inv_mass, dtype=z1.dtype, device=z1.device))
+
+
+def mass_diag_inv(inv_mass, template=None):
+    """A (d,) diagonal-inverse-mass view for preconditioned norms and clips:
+    ``1/diag_mass`` of a low-rank metric (an upper bound on the marginals of
+    ``M^-1``), the base diagonal of an eigen metric, else ``inv_mass``
+    (broadcast like ``template`` when given)."""
+    if isinstance(inv_mass, LowRankMetric):
+        return 1.0 / inv_mass.diag_mass
+    if isinstance(inv_mass, EigenMetric):
+        return inv_mass.diag_inv_mass
+    if template is not None:
+        return inv_mass * torch.ones_like(template)
+    return inv_mass
+
+
+def as_inv_mass(inv_mass, device=None):
+    """Structured metrics pass through; scalars and arrays become float32
+    tensors (on ``device`` when given)."""
+    if isinstance(inv_mass, (LowRankMetric, EigenMetric)):
+        return inv_mass
+    return torch.as_tensor(inv_mass, dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +209,20 @@ def preconditioned_hvp(log_prob, q0, diag_inv_mass, aux=None):
     return hvp
 
 
+def hutchinson_diag(matvec, dim: int, n_probes: int, generator=None, probes=None,
+                    device="cpu") -> torch.Tensor:
+    """Hutchinson estimate of ``diag(A)``, ``mean_i v_i * (A v_i)`` over
+    Rademacher probes ``v_i``: ``probes`` (n_probes, dim) when given (a test
+    injects JAX's), else drawn from ``generator``."""
+    if probes is None:
+        bits = torch.randint(0, 2, (n_probes, dim), generator=generator, device=device)
+        probes = 2.0 * bits.to(torch.float32) - 1.0
+    acc = torch.zeros(dim, dtype=torch.float32, device=probes.device)
+    for v in probes:
+        acc = acc + v * matvec(v)
+    return acc / n_probes
+
+
 def lanczos_tridiag(matvec, v0: torch.Tensor, num_iters: int):
     """Lanczos with full reorthogonalization (two classical Gram-Schmidt
     passes against the whole stored basis per iteration). ``v0`` (dim,) is the
@@ -159,9 +248,11 @@ def lanczos_tridiag(matvec, v0: torch.Tensor, num_iters: int):
 
 
 def lanczos_eigs(matvec, dim: int, rank: int, num_iters=None, v0=None,
-                 generator=None, device="cpu"):
-    """The ``rank`` LARGEST eigenpairs of a symmetric operator, descending
-    (``which='top'`` of the JAX function). ``num_iters`` defaults to
+                 generator=None, device="cpu", which: str = "top"):
+    """Extreme eigenpairs of a symmetric operator: ``which='top'`` the
+    ``rank`` LARGEST, descending; ``'both'`` the ``rank // 2`` largest
+    (descending) then the ``rank - rank // 2`` smallest (ascending), as an
+    :class:`EigenMetric` needs. ``num_iters`` defaults to
     ``min(dim, max(2*rank, rank+10))``. The start vector is ``v0`` if given,
     else a standard normal draw from ``generator``."""
     if num_iters is None:
@@ -173,7 +264,12 @@ def lanczos_eigs(matvec, dim: int, rank: int, num_iters=None, v0=None,
     alphas, betas, basis = lanczos_tridiag(matvec, v0.to(torch.float32), num_iters)
     t = torch.diag(alphas) + torch.diag(betas, 1) + torch.diag(betas, -1)
     evals, evecs = torch.linalg.eigh(t)                  # ascending
-    sel = torch.arange(num_iters - 1, num_iters - rank - 1, -1, device=evals.device)
+    if which == "both":
+        n_top = rank // 2
+        sel = torch.cat([torch.arange(num_iters - 1, num_iters - n_top - 1, -1),
+                         torch.arange(rank - n_top)]).to(evals.device)
+    else:
+        sel = torch.arange(num_iters - 1, num_iters - rank - 1, -1, device=evals.device)
     ritz_vals = evals[sel]
     ritz_vecs = basis.T @ evecs[:, sel]                  # (dim, rank)
     ritz_vecs = ritz_vecs / torch.linalg.vector_norm(ritz_vecs, dim=0, keepdim=True)

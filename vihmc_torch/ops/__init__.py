@@ -12,13 +12,14 @@ from vihmc_torch.ops.deeponet_merge import (fused_merge_nll,
                                             paired_delta_reference,
                                             paired_sums,
                                             paired_sums_reference)
-from vihmc_torch.ops.gram_merge import (make_gram_grad_full,
-                                        merge_nll_gram_cotangents)
+from vihmc_torch.ops.gram_merge import (grid_stride_subset, infer_grid_shape,
+                                        make_gram_grad_full, merge_nll_gram_cotangents)
 from vihmc_torch.ops.leapfrog import (fused_leapfrog_update,
                                       leapfrog_update_reference)
 
 __all__ = ["fused_merge_nll", "fused_paired_delta", "merge_nll_reference",
            "merge_sums", "merge_sums_reference", "paired_delta_reference",
-           "paired_sums", "paired_sums_reference", "make_gram_grad_full",
+           "paired_sums", "paired_sums_reference", "grid_stride_subset",
+           "infer_grid_shape", "make_gram_grad_full",
            "merge_nll_gram_cotangents", "fused_leapfrog_update",
            "leapfrog_update_reference"]

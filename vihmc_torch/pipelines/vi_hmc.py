@@ -20,25 +20,38 @@ Counterpart of ``vihmc_tpu/pipelines/vi_hmc.py`` (``make_spec``,
   the full grid or on the stride subsets (``coarse_stride``/``fn_stride``),
   the VI-Gaussian score (``gauss_field``), or autograd through the density,
   clipped at a preconditioned norm;
-* HMC with a fixed step or any dual-averaging mode, step or length jitter,
-  the unpaired MH test with lp0 recomputed in every transition (under
-  REFRESH, at the new frozen vectors), segments thinned on the device;
+* the sampler (``algorithm``): HMC with a fixed step or any dual-averaging
+  mode, step or length jitter and the adaptive metric (``adapt_mass`` under
+  the ``'half'`` or ``'windowed'`` ``mass_schedule``), the unpaired MH test
+  with lp0 recomputed in every transition (under REFRESH, at the new frozen
+  vectors); NUTS (``'nuts'``, ``nuts_max_depth`` doublings, every leaf one
+  exact density evaluation); ChEES-HMC (``'chees'``, ``chees_max_steps``);
+  or ``'auto'``, the stiffness probe (an 8-iteration Lanczos on the
+  preconditioned Hessian at the VI mean: NUTS if its largest eigenvalue
+  exceeds ``auto_stiffness_threshold`` and there is no low-rank metric, else
+  HMC; vi_hmc.py:237-265); segments thinned on the device for all three;
+* ``gauss_field_auto`` (vi_hmc.py:306-311, :408-431): a short HMC probe with
+  the VI-Gaussian field, kept when its mean acceptance reaches
+  ``gauss_field_floor``, else the configured field;
 * posterior-predictive scoring of the pooled samples on the validation split
   against the frozen vectors the samples were drawn with (DRAW: the draw;
   REFRESH: each chain's last one; MEAN: the VI mean) and the numpy
   diagnostics battery.
 
 Not ported yet -- the pipeline raises ``NotImplementedError`` on them:
-``algorithm`` other than 'hmc' (NUTS, ChEES, the 'auto' probe),
-``gauss_field_auto``, ``adapt_mass``, query subsampling (``sample_data``)
-and ``save_vi_trace``.
+query subsampling (``sample_data``) and ``save_vi_trace``. It raises JAX's
+``ValueError`` on the combinations JAX rejects (``lowrank_rank`` or
+``gauss_field_auto`` with NUTS/ChEES, ChEES with ``adapt_mass``).
 
 JAX draws the DRAW/REFRESH initial frozen vector and the Lanczos start
-vector from threefry keys, which PyTorch cannot replay: the port draws them
+vectors from threefry keys, which PyTorch cannot replay: the port draws them
 from ``torch.Generator`` streams of the run's ``seed``, and takes
-``frozen=`` and ``lanczos_v0=`` so that a test can inject JAX's. The refresh
-normals come from each segment's generator after the transition's other
-draws.
+``frozen=``, ``lanczos_v0=`` and ``probe_v0=`` (the 'auto' probe's) so that
+a test can inject JAX's. The refresh normals come from each segment's
+generator after the transition's other draws. JAX runs NUTS and ChEES in one
+unthinned call; the port runs them in the same segments as HMC and thins
+them too, so the evaluation's ``burn // sample_thin`` counts kept draws on
+every path.
 
 Under ``use_fused`` the low-rank metric's Hessian-vector products
 differentiate the fused density twice: its backward is composed torch
@@ -56,6 +69,7 @@ query point per grid dimension and every 3rd function), and prints one JSON
 line with the script's summary keys, ``draws_per_s`` and the phase walls::
 
     python -m vihmc_torch.pipelines.vi_hmc [--variant stride|gauss|autodiff]
+        [--algorithm hmc|nuts|chees|auto] [--nuts-max-depth 6]
         [--stride 3] [--fn-stride 3] [--draws N] [--step S] [--adapt]
         [--da-axis] [--adapt-forever] [--target-accept 0.65] [--max-step S]
         [--jitter l|eps|none] [--laplace-mass] [--init-optimize N]
@@ -81,6 +95,8 @@ import numpy as np
 import torch
 
 from vihmc_torch.chains.diagnostics import summarize_np
+from vihmc_torch.chains.parallel import (sample_chains, sample_chains_chees,
+                                         sample_chains_nuts)
 from vihmc_torch.chains.resume import sample_chains_resumable
 from vihmc_torch.core.device import resolve_device, split_to, stream_generator, sync, to_f32
 from vihmc_torch.core.precision import true_f32
@@ -90,9 +106,12 @@ from vihmc_torch.data.burgers import (get_burgers, load_port_inputs,
 from vihmc_torch.data.synthetic import regression_data
 from vihmc_torch.dists.likelihoods import get_likelihood
 from vihmc_torch.dists.priors import DiagonalGaussianPrior, IsotropicGaussianPrior
+from vihmc_torch.hmc.chees import ChEESConfig
 from vihmc_torch.hmc.kernel import (HMCConfig, clipped_grad_fn, gaussian_field_grad,
                                     value_and_grad)
-from vihmc_torch.hmc.metric import estimate_lowrank_metric
+from vihmc_torch.hmc.metric import (estimate_lowrank_metric, lanczos_eigs,
+                                    preconditioned_hvp)
+from vihmc_torch.hmc.nuts import NUTSConfig
 from vihmc_torch.hmc.subspace import (FrozenPolicy, SubspaceSpec, make_aux_refresh,
                                       make_subspace_grad, make_subspace_log_prob)
 from vihmc_torch.io.artifacts import RunStore
@@ -113,7 +132,11 @@ EVAL_CHUNK = 32
 #: generator streams of a run's seed (core/device.stream_generator; the
 #: sampler's segments are streams 0, 1, ...)
 _FROZEN_STREAM, _INIT_STREAM, _DATA_STREAM = 700_001, 700_002, 700_003
-_LANCZOS_STREAM = 700_004
+_LANCZOS_STREAM, _AUTO_STREAM = 700_004, 700_005
+#: the gauss_field_auto probe samples with the streams of seed + this
+_PROBE_SEED_OFFSET = 500_000
+#: the sampling algorithms of stage 3
+ALGORITHMS = ("hmc", "nuts", "chees", "auto")
 
 
 def make_spec(artifacts, device="cpu") -> SubspaceSpec:
@@ -140,9 +163,6 @@ def make_subspace_prior(cfg: VIHMCRunConfig, spec: SubspaceSpec):
 def _check_ported(cfg: VIHMCRunConfig):
     """Raise ``NotImplementedError`` on the settings the port does not run yet."""
     unported = {
-        "algorithm": cfg.algorithm != "hmc",
-        "gauss_field_auto": cfg.gauss_field_auto,
-        "adapt_mass": cfg.adapt_mass,
         "sample_data": cfg.sample_data,
         "save_vi_trace": cfg.save_vi_trace,
     }
@@ -150,6 +170,8 @@ def _check_ported(cfg: VIHMCRunConfig):
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)} "
                                   f"(see vihmc_torch/pipelines/vi_hmc.py)")
+    if cfg.algorithm not in ALGORITHMS:
+        raise ValueError(f"algorithm {cfg.algorithm!r}: one of {ALGORITHMS}")
 
 
 def build_subspace_posterior(cfg: VIHMCRunConfig, full_forward, y, artifacts,
@@ -297,23 +319,44 @@ def evaluate_samples(cfg: VIHMCRunConfig, spec: SubspaceSpec, prior, eval_forwar
     }
 
 
+def _auto_probe(cfg: VIHMCRunConfig, log_prob, aux0, spec: SubspaceSpec, inv_mass,
+                probe_v0, seed: int, dev) -> dict:
+    """The 'auto' stiffness probe (vi_hmc.py:237-265): the largest eigenvalue
+    of the preconditioned conditional curvature at the VI mean, from an
+    8-iteration Lanczos (``min(8, d)``), picks NUTS when it exceeds
+    ``auto_stiffness_threshold`` and no low-rank metric absorbs it, else HMC."""
+    d = spec.subspace_dim
+    diag_p = inv_mass * torch.ones(d, device=dev)
+    mv = preconditioned_hvp(log_prob, spec.sub_mu(), diag_p, aux=aux0)
+    vals, _ = lanczos_eigs(mv, d, 1, num_iters=min(8, d), v0=probe_v0,
+                           generator=stream_generator(dev, seed, _AUTO_STREAM), device=dev)
+    lam_max = float(vals[0])
+    stiff = lam_max > cfg.auto_stiffness_threshold
+    return {"lambda_max": lam_max,
+            "algorithm": "nuts" if (stiff and not cfg.lowrank_rank) else "hmc"}
+
+
 def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
                      eval_forward=None, y_eval=None, store: Optional[RunStore] = None,
                      full_ll=None, full_grad=None, segment_size=None, progress=None,
                      sample_thin: int = 1, evaluate: bool = True, seed: int = 0,
-                     frozen=None, lanczos_v0=None, device="cuda"):
-    """Subspace HMC, ``algorithm='hmc'`` (see module doc for what is ported).
+                     frozen=None, lanczos_v0=None, probe_v0=None, device="cuda"):
+    """Subspace VI-HMC with ``cfg.algorithm`` (see module doc for what is ported).
 
     ``full_ll``: the likelihood override (fused merge-NLL); ``full_grad``: a
     full-flat-vector likelihood-gradient oracle for the trajectory (the Gram
     gradient or its stride surrogate) instead of autograd -- the exact
-    density still decides MH. ``gauss_field`` takes the VI-Gaussian score as
-    the field instead. ``lowrank_rank`` builds the low-rank metric by Lanczos
-    at the VI mean from ``lanczos_v0`` (default: normals of the run's seed).
+    density still decides MH (and weights NUTS's leaves). ``gauss_field``
+    takes the VI-Gaussian score as the field instead, or with
+    ``gauss_field_auto`` probes it first. ``lowrank_rank`` builds the
+    low-rank metric by Lanczos at the VI mean from ``lanczos_v0`` (default:
+    normals of the run's seed); ``probe_v0`` is the 'auto' probe's start.
     ``segment_size`` draws per segment (all draws in one when None), every
     ``sample_thin``-th kept. Returns ``result`` (:class:`SampleResult`),
     ``spec``, ``prior``, ``frozen``, the sampler's ``log_prob``, ``grad_fn``
-    and ``inv_mass``, ``phases_s``, and with ``evaluate`` the outputs of
+    and ``inv_mass``, ``algorithm``, ``phases_s``, ``auto_probe`` (under
+    'auto'), ``gauss_field_used`` and ``gauss_field_probe_acceptance``
+    (under ``gauss_field_auto``), and with ``evaluate`` the outputs of
     :func:`evaluate_samples`.
     """
     dev = resolve_device(device)
@@ -323,10 +366,19 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
         cfg, full_forward, y_train, artifacts, frozen=frozen, seed=seed,
         full_ll=full_ll, device=dev)
 
+    auto_probe = None
+    if cfg.algorithm == "auto":
+        t_a = time.perf_counter()
+        auto_probe = _auto_probe(cfg, log_prob, aux0, spec, inv_mass, probe_v0, seed, dev)
+        cfg = dataclasses.replace(cfg, algorithm=auto_probe["algorithm"])
+        phases["auto_probe_s"] = time.perf_counter() - t_a
+
     # the diagonal view of the metric: the clip and the warm start stay
     # diagonal when the kinetic metric is low-rank + diagonal
     inv_mass_diag = inv_mass
     if cfg.lowrank_rank:
+        if cfg.algorithm != "hmc":
+            raise ValueError("lowrank_rank requires algorithm='hmc' and no query subsampling")
         diag = inv_mass * torch.ones(spec.subspace_dim, device=dev)
         inv_mass_diag = diag
         t_l = time.perf_counter()
@@ -338,18 +390,27 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
 
     grad_fn = None
     if full_grad is not None:
-        if cfg.gauss_field is not None:
+        if cfg.gauss_field is not None and not cfg.gauss_field_auto:
             raise ValueError("gauss_field and a full_grad oracle are mutually exclusive "
-                             "trajectory fields")
+                             "trajectory fields (set gauss_field_auto to probe-and-fall-back)")
         grad_fn = make_subspace_grad(full_grad, spec, prior=prior)
-    elif cfg.gauss_field is not None:
+    elif cfg.gauss_field is not None and not cfg.gauss_field_auto:
         grad_fn = gaussian_field_grad(spec.sub_mu(), spec.sub_sigma(), cfg.gauss_field)
+    gauss_fn = None
+    if cfg.gauss_field_auto:
+        if cfg.algorithm != "hmc":
+            raise ValueError("gauss_field_auto requires algorithm='hmc' and no query "
+                             "subsampling")
+        gauss_fn = gaussian_field_grad(spec.sub_mu(), spec.sub_sigma(),
+                                       1.0 if cfg.gauss_field is None else cfg.gauss_field)
     if cfg.clip_grad is not None:
         if grad_fn is not None:
             grad_fn = clipped_grad_fn(grad_fn, cfg.clip_grad, inv_mass=inv_mass_diag)
         else:
             grad_fn = clipped_grad_fn(log_prob, cfg.clip_grad, inv_mass=inv_mass_diag,
                                       is_grad=False)
+        if gauss_fn is not None:
+            gauss_fn = clipped_grad_fn(gauss_fn, cfg.clip_grad, inv_mass=inv_mass_diag)
 
     aux_refresh = make_aux_refresh(spec, FrozenPolicy(cfg.frozen_policy))
     gen_init = stream_generator(dev, seed, _INIT_STREAM)
@@ -365,24 +426,69 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
     sync(dev)
     phases["setup_s"] = time.perf_counter() - t0
 
-    hmc_cfg = HMCConfig(num_samples=cfg.num_samples, num_leapfrog=cfg.L,
-                        step_size=cfg.step_size, burn=cfg.burn_,
-                        sampler="hmc_nuts" if cfg.adapt_step_size else "hmc",
-                        target_accept=cfg.target_accept, jitter_l=cfg.jitter_l,
-                        jitter_eps=cfg.jitter_eps, jitter_low_frac=cfg.jitter_low_frac,
-                        max_step=cfg.max_step, da_axis=cfg.da_axis,
-                        adapt_forever=cfg.adapt_forever)
+    gauss_used = probe_acceptance = None
+    if gauss_fn is not None:
+        # a short fixed-step HMC probe on the VI-Gaussian field: kept when its
+        # mean MH probability reaches the floor, else the configured field
+        t_p = time.perf_counter()
+        probe_cfg = HMCConfig(num_samples=max(1, cfg.gauss_field_probe_draws),
+                              num_leapfrog=cfg.L, step_size=cfg.step_size, burn=0,
+                              sampler="hmc", jitter_l=cfg.jitter_l, jitter_eps=cfg.jitter_eps,
+                              jitter_low_frac=cfg.jitter_low_frac, max_step=cfg.max_step)
+        probe = sample_chains(log_prob, inits, probe_cfg, inv_mass=inv_mass, aux=aux0,
+                              aux_refresh=aux_refresh, grad_fn=gauss_fn,
+                              seed=seed + _PROBE_SEED_OFFSET)
+        probe_acceptance = float(np.mean(probe.accept_probs))
+        gauss_used = probe_acceptance >= cfg.gauss_field_floor
+        if gauss_used:
+            grad_fn = gauss_fn
+        phases["gauss_probe_s"] = time.perf_counter() - t_p
+
     t0 = time.perf_counter()
-    res = sample_chains_resumable(log_prob, inits, hmc_cfg,
-                                  segment_size or cfg.num_samples, inv_mass, aux0,
-                                  grad_fn=grad_fn, thin=sample_thin, seed=seed,
-                                  progress=progress, aux_refresh=aux_refresh)
+    seg = segment_size or cfg.num_samples
+    if cfg.algorithm == "chees":
+        if cfg.adapt_mass:
+            raise ValueError("adapt_mass is not supported with algorithm='chees' (ChEES "
+                             "adapts step size and trajectory length; use vi_mass for a "
+                             "fixed preconditioner)")
+        chees_cfg = ChEESConfig(num_samples=cfg.num_samples, step_size=cfg.step_size,
+                                init_traj_length=max(cfg.L, 1) * cfg.step_size,
+                                burn=cfg.burn_, max_steps=cfg.chees_max_steps,
+                                target_accept=min(cfg.target_accept, 0.651))
+        res = sample_chains_chees(log_prob, inits, chees_cfg, inv_mass=inv_mass, aux=aux0,
+                                  aux_refresh=aux_refresh, grad_fn=grad_fn, seed=seed,
+                                  thin=sample_thin, segment_size=seg, progress=progress)
+    elif cfg.algorithm == "nuts":
+        nuts_cfg = NUTSConfig(num_samples=cfg.num_samples, max_depth=cfg.nuts_max_depth,
+                              step_size=cfg.step_size, burn=cfg.burn_, adapt_step_size=True,
+                              target_accept=cfg.target_accept, adapt_mass=cfg.adapt_mass,
+                              mass_schedule=cfg.mass_schedule)
+        res = sample_chains_nuts(log_prob, inits, nuts_cfg, inv_mass=inv_mass, aux=aux0,
+                                 aux_refresh=aux_refresh, grad_fn=grad_fn, seed=seed,
+                                 thin=sample_thin, segment_size=seg, progress=progress)
+    else:
+        hmc_cfg = HMCConfig(num_samples=cfg.num_samples, num_leapfrog=cfg.L,
+                            step_size=cfg.step_size, burn=cfg.burn_,
+                            sampler="hmc_nuts" if cfg.adapt_step_size else "hmc",
+                            target_accept=cfg.target_accept, adapt_mass=cfg.adapt_mass,
+                            mass_schedule=cfg.mass_schedule, jitter_l=cfg.jitter_l,
+                            jitter_eps=cfg.jitter_eps, jitter_low_frac=cfg.jitter_low_frac,
+                            max_step=cfg.max_step, da_axis=cfg.da_axis,
+                            adapt_forever=cfg.adapt_forever)
+        res = sample_chains_resumable(log_prob, inits, hmc_cfg, seg, inv_mass, aux0,
+                                      grad_fn=grad_fn, thin=sample_thin, seed=seed,
+                                      progress=progress, aux_refresh=aux_refresh)
     sync(dev)
     phases["sampling_s"] = time.perf_counter() - t0
 
     out = {"result": res, "spec": spec, "prior": prior, "frozen": aux0,
            "log_prob": log_prob, "grad_fn": grad_fn, "inv_mass": inv_mass,
-           "phases_s": phases}
+           "algorithm": cfg.algorithm, "phases_s": phases}
+    if auto_probe is not None:
+        out["auto_probe"] = auto_probe
+    if gauss_used is not None:
+        out["gauss_field_used"] = gauss_used
+        out["gauss_field_probe_acceptance"] = probe_acceptance
     if evaluate and eval_forward is not None and y_eval is not None:
         t0 = time.perf_counter()
         eval_cfg = cfg
@@ -410,7 +516,7 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
 def run_nn(cfg: VIHMCRunConfig, mlp_cfg: MLPConfig, artifacts, data=None,
            store: Optional[RunStore] = None, segment_size=None, progress=None,
            sample_thin: int = 1, evaluate: bool = True, seed: int = 0, frozen=None,
-           device="cuda"):
+           lanczos_v0=None, probe_v0=None, device="cuda"):
     """NN regression VI-HMC (the reference's ``main_VI_HMC.py``): autograd
     trajectories through the MLP likelihood on the synthetic data.
 
@@ -435,7 +541,8 @@ def run_nn(cfg: VIHMCRunConfig, mlp_cfg: MLPConfig, artifacts, data=None,
         y_train=data["y_train"], artifacts=artifacts,
         eval_forward=lambda flat: apply_flat(flat, data["x_val"]), y_eval=data["y_val"],
         store=store, segment_size=segment_size, progress=progress, sample_thin=sample_thin,
-        evaluate=evaluate, seed=seed, frozen=frozen, device=dev)
+        evaluate=evaluate, seed=seed, frozen=frozen, lanczos_v0=lanczos_v0,
+        probe_v0=probe_v0, device=dev)
     out["data"] = data
     out["apply_flat"] = apply_flat
     return out
@@ -445,7 +552,7 @@ def run_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artifacts,
                  data=None, store: Optional[RunStore] = None, use_fused: bool = False,
                  use_gram: Optional[bool] = None, segment_size=None, progress=None,
                  sample_thin: int = 1, evaluate: bool = True, seed: int = 0,
-                 frozen=None, lanczos_v0=None, device="cuda"):
+                 frozen=None, lanczos_v0=None, probe_v0=None, device="cuda"):
     """Operator VI-HMC on Burgers (the reference's ``main_VI_HMC_burgers.py``).
 
     ``data``: ``(train, valid)`` dicts of ``branch_in`` (N, nx), ``trunk_in``
@@ -454,15 +561,18 @@ def run_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artifacts,
     ``use_fused``: the fused merge-NLL density (one ``merge_sums`` launch per
     evaluation for all chains; NLL only). ``use_gram``: the Gram trajectory
     gradient, on the stride subsets of ``coarse_stride``/``fn_stride`` when
-    set; None enables it when eligible (plain HMC, NLL, homoscedastic
-    shared-grid merge, no ``gauss_field``), False takes autograd through the
-    density. The device is the card unless the caller asks for the CPU.
+    set; None enables it when eligible (algorithm 'hmc' or 'auto', NLL,
+    homoscedastic shared-grid merge, no ``gauss_field`` unless
+    ``gauss_field_auto``), False takes autograd through the density. The
+    device is the card unless the caller asks for the CPU.
     """
     dev = resolve_device(device)
     _check_ported(cfg)
-    if cfg.gauss_field is not None and (cfg.coarse_stride or cfg.fn_stride):
+    gauss_only = cfg.gauss_field is not None and not cfg.gauss_field_auto
+    if gauss_only and (cfg.coarse_stride or cfg.fn_stride):
         raise ValueError("gauss_field replaces the Gram trajectory oracle; drop "
-                         "coarse_stride/fn_stride")
+                         "coarse_stride/fn_stride (or set gauss_field_auto to "
+                         "probe-and-fall-back)")
     t0 = time.perf_counter()
     if data is None:
         train, valid = get_burgers(dev)
@@ -476,10 +586,12 @@ def run_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artifacts,
     full_ll = None
     if use_fused and cfg.loss == "NLL":
         full_ll = make_deeponet_nll_log_posterior(deeponet_cfg, bx, tx, y, cfg.tau_out)
-    gram_eligible = (cfg.loss == "NLL" and not deeponet_cfg.noise_neurons
-                     and tx.ndim == 2 and cfg.gauss_field is None)
+    # 'auto' resolves to HMC unless the probe picks NUTS, and the Gram field
+    # is the gauss_field_auto probe's fallback: both are Gram-eligible
+    gram_eligible = (cfg.algorithm in ("hmc", "auto") and cfg.loss == "NLL"
+                     and not deeponet_cfg.noise_neurons and tx.ndim == 2 and not gauss_only)
     full_grad = None
-    if (use_gram and cfg.gauss_field is None) or (use_gram is None and gram_eligible):
+    if (use_gram and not gauss_only) or (use_gram is None and gram_eligible):
         subset = fn_subset = None
         if cfg.coarse_stride and cfg.coarse_stride > 1:
             subset = grid_stride_subset(*infer_grid_shape(tx), cfg.coarse_stride)
@@ -501,7 +613,8 @@ def run_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artifacts,
         eval_forward=lambda flat: apply_flat(flat, valid["branch_in"], valid["trunk_in"]),
         y_eval=valid["solution"], store=store, full_ll=full_ll, full_grad=full_grad,
         segment_size=segment_size, progress=progress, sample_thin=sample_thin,
-        evaluate=evaluate, seed=seed, frozen=frozen, lanczos_v0=lanczos_v0, device=dev)
+        evaluate=evaluate, seed=seed, frozen=frozen, lanczos_v0=lanczos_v0,
+        probe_v0=probe_v0, device=dev)
     out["phases_s"] = {"data_s": t_data, **out["phases_s"]}
     out["data"] = (train, valid)
     out["apply_flat"] = apply_flat
@@ -527,7 +640,9 @@ def stage3_config(d_sub: int, n_data: int, variant: str = "stride", draws: int =
                   max_step=None, jitter: str = "eps", frozen_policy: str = "draw",
                   init_optimize: int = 0, laplace_mass: bool = False,
                   clip_scale: float = STAGE3_CLIP_SCALE,
-                  lowrank_rank: int = 0) -> VIHMCRunConfig:
+                  lowrank_rank: int = 0, algorithm: str = "hmc", nuts_max_depth: int = 6,
+                  chees_max_steps: int = 256, adapt_mass: bool = False,
+                  mass_schedule: str = "half") -> VIHMCRunConfig:
     """The ``run_operator_stage3.py`` config of one ``variant`` with the
     script's defaults (:36-81, :117-140): step 1e-4 (``gauss``:
     ``0.8 d_sub^-1/4`` unless ``step`` is given), fixed unless ``adapt``,
@@ -535,7 +650,9 @@ def stage3_config(d_sub: int, n_data: int, variant: str = "stride", draws: int =
     warm start; ``stride`` keeps every 3rd query point in both grid
     dimensions and every 3rd function in the Gram field, ``gauss`` leapfrogs
     on the VI-Gaussian score (alpha 1). ``lowrank_rank`` (no script flag)
-    adds the Lanczos low-rank metric."""
+    adds the Lanczos low-rank metric; ``algorithm`` and ``nuts_max_depth``
+    (the entry point's flags), ``chees_max_steps``, ``adapt_mass`` and
+    ``mass_schedule`` select the sampler and the adaptive metric."""
     if variant not in STAGE3_VARIANTS:
         raise ValueError(f"variant {variant!r}: one of {STAGE3_VARIANTS}")
     if jitter not in ("l", "eps", "none"):
@@ -552,7 +669,9 @@ def stage3_config(d_sub: int, n_data: int, variant: str = "stride", draws: int =
         jitter_low_frac=0.5 if jitter != "none" else 0.0,
         adapt_step_size=adapt, target_accept=target_accept,
         da_axis="chains" if da_axis else None, adapt_forever=adapt_forever,
-        max_step=max_step, lowrank_rank=lowrank_rank,
+        max_step=max_step, lowrank_rank=lowrank_rank, algorithm=algorithm,
+        nuts_max_depth=nuts_max_depth, chees_max_steps=chees_max_steps,
+        adapt_mass=adapt_mass, mass_schedule=mass_schedule,
         gauss_field=1.0 if variant == "gauss" else None,
         coarse_stride=stride if variant == "stride" else None,
         fn_stride=fn_stride if variant == "stride" else None)
@@ -576,8 +695,11 @@ def run_stage3(device="cuda", variant: str = "stride", draws: int = 450, burn=No
     out)``: the script's summary keys plus ``draws_per_s``, ``phases_s`` and
     the trajectory field; ``out`` is :func:`run_operator`'s result.
     ``cfg_kw`` are :func:`stage3_config`'s other settings (the script's
-    flags). ``data`` and ``artifacts`` reuse already loaded ones (default:
-    the port's assets)."""
+    flags, and ``algorithm`` etc.). ``data`` and ``artifacts`` reuse already
+    loaded ones (default: the port's assets). The stride variant's field is
+    the Gram field, which JAX builds by default for HMC only: under NUTS or
+    ChEES it is asked for (``use_gram=True``) unless ``use_gram`` says
+    otherwise."""
     dev = resolve_device(device)
     artifacts = load_stage12_artifacts() if artifacts is None else artifacts
     grid = load_port_inputs()
@@ -585,6 +707,8 @@ def run_stage3(device="cuda", variant: str = "stride", draws: int = 450, burn=No
     cfg = stage3_config(len(artifacts["indices"]), int(grid["n_train"]) * nx * nt,
                         variant=variant, draws=draws, burn=burn, chains=chains, L=L,
                         frozen_policy=frozen_policy, **cfg_kw)
+    if use_gram is None and variant == "stride" and cfg.algorithm in ("nuts", "chees"):
+        use_gram = True
     out = run_operator(cfg, DeepONetConfig(), artifacts, data=data, use_fused=True,
                        use_gram=use_gram, segment_size=segment, sample_thin=thin,
                        seed=seed, device=dev)
@@ -597,13 +721,14 @@ def run_stage3(device="cuda", variant: str = "stride", draws: int = 450, burn=No
     jitter = "l" if cfg.jitter_l else ("eps" if cfg.jitter_eps else "none")
     summary = {
         "variant": variant,
+        "algorithm": out["algorithm"],
         "frozen_policy": frozen_policy,
         "trajectory_field": trajectory_field_name(cfg, use_gram),
         "lowrank_rank": cfg.lowrank_rank,
         "chains": chains, "draws": draws, "thin": thin, "burn": int(cfg.burn_),
         "L": cfg.L, "step": float(cfg.step_size), "adapt": cfg.adapt_step_size,
         "da_axis": cfg.da_axis == "chains", "jitter": jitter,
-        "step_final_median": float(np.median(res.step_sizes[:, -1])),
+        "step_final_median": float(np.median(np.asarray(res.step_sizes)[..., -1])),
         "acceptance": float(met["acceptance_rate"]),
         "acceptance_post_burn": float(np.mean(res.accept_probs[:, cfg.burn_:])),
         "expected_mse_of_mean": float(met["expected_mse_of_mean"]),
@@ -621,6 +746,13 @@ def run_stage3(device="cuda", variant: str = "stride", draws: int = 450, burn=No
         "phases_s": phases,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }
+    if "auto_probe" in out:
+        summary["auto_probe"] = out["auto_probe"]
+    if res.aux_trace is not None and "tree_leaves" in res.aux_trace:
+        summary["tree_leaves_mean"] = float(np.mean(res.aux_trace["tree_leaves"]))
+    if res.aux_trace is not None and "n_steps" in res.aux_trace:
+        summary["chees_n_steps_mean"] = float(np.mean(res.aux_trace["n_steps"]))
+        summary["chees_traj_length_final"] = float(res.aux_trace["traj_length"][-1])
     return summary, out
 
 
@@ -630,6 +762,10 @@ def main(argv=None):
     ap.add_argument("--variant", default="stride", choices=STAGE3_VARIANTS,
                     help="trajectory field: dual-stride Gram surrogate (default), "
                          "VI-Gaussian score, or the full-grid field")
+    ap.add_argument("--algorithm", default="hmc", choices=ALGORITHMS,
+                    help="sampler: HMC, NUTS, ChEES-HMC, or the stiffness probe's choice")
+    ap.add_argument("--nuts-max-depth", type=int, default=6,
+                    help="NUTS tree depth (2^depth - 1 density evaluations per draw)")
     ap.add_argument("--stride", type=int, default=3)
     ap.add_argument("--fn-stride", type=int, default=3)
     ap.add_argument("--draws", type=int, default=450)
@@ -670,7 +806,8 @@ def main(argv=None):
         da_axis=args.da_axis, adapt_forever=args.adapt_forever,
         target_accept=args.target_accept, max_step=args.max_step, jitter=args.jitter,
         laplace_mass=args.laplace_mass, init_optimize=args.init_optimize,
-        clip_scale=args.clip_scale)
+        clip_scale=args.clip_scale, algorithm=args.algorithm,
+        nuts_max_depth=args.nuts_max_depth)
     print(json.dumps(summary))
 
 
