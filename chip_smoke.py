@@ -115,6 +115,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -143,11 +144,14 @@ from vihmc_torch.ops.gram_merge import (grid_stride_subset, infer_grid_shape,
                                         make_gram_grad_full)
 from vihmc_torch.ops.leapfrog import (fused_leapfrog_update,
                                       leapfrog_update_reference)
+import vihmc_torch.chains.resume as chains_resume
 import vihmc_torch.pipelines.vi_hmc as vi_hmc
 from vihmc_torch.data.burgers import STAGE12_ASSET, subsample_trunk
 from vihmc_torch.data.synthetic import regression_data
 from vihmc_torch.models.mlp import MLPConfig
-from vihmc_torch.pipelines import hmc_full, hmc_nuts, hmc_split, sensitivity, vi_train
+from vihmc_torch.data.burgers import load_burgers_mat
+from vihmc_torch.io.artifacts import RunStore
+from vihmc_torch.pipelines import cli, hmc_full, hmc_nuts, hmc_split, sensitivity, vi_train
 from vihmc_torch.pipelines.common import (make_deeponet_nll_log_posterior,
                                           make_flat_deeponet)
 from vihmc_torch.pipelines.configs import (NNHMCRunConfig, NNVIRunConfig,
@@ -190,6 +194,9 @@ S3_NUTS_DRAWS, NUTS_DEPTH = 4, 3         # stage-3 NUTS draws, max depth (450, 6
 S3_CHEES_DRAWS, CHEES_MAX_STEPS = 4, 8   # stage-3 ChEES draws, step cap (450, 256)
 ADAPT_DRAWS, ADAPT_BURN = 60, 40         # NN stage 3, windowed metric (450, 90)
 PERSIST_DRAWS = 24                       # NN row with --persist 0.5 (2880)
+CLI_DRAWS, CLI_EPOCHS = 40, 200          # phase 22: NN vi-hmc draws (100), vi-nn epochs (10,000)
+RESUME_DRAWS, RESUME_SEGMENT = 30, 10    # phase 23 (450 draws in segments of 90)
+SUB_DRAWS, SUB_P = 8, 1000               # phase 24: draws (450), query points kept
 DISPATCH_OPS = 2000                      # one-element adds timed for the host's dispatch cost
 
 KERNELS = {
@@ -1034,6 +1041,201 @@ def adaptive_metric_phase(dev):
           "persistent momentum")
 
 
+def timed_cli(label: str, argv, walls: dict):
+    """``cli.run(argv + --device cuda)``: exit code 0 required; its wall."""
+    t0 = time.perf_counter()
+    rc, out = cli.run(list(argv) + ["--device", "cuda"] if argv[0] != "postprocess"
+                      else list(argv))
+    torch.cuda.synchronize()
+    walls[label] = time.perf_counter() - t0
+    check(rc == 0, f"{label}: exit code {rc}")
+    return out
+
+
+def cli_phase(dev, tmp):
+    """Phase 22: the command line on the card, in process."""
+    walls = {}
+    out = os.path.join(tmp, "runs")
+    common = ["--out", out]
+    print(f"  depth cut: vi-nn epochs {CLI_EPOCHS} (config 10,000), vi-hmc draws {CLI_DRAWS} "
+          f"(config 100), vi-operator epochs 2 (config 1000)")
+    reset_counts()
+    timed_cli("vi-nn", ["vi-nn", "--epochs", str(CLI_EPOCHS), "--with-sensitivity", "--mode",
+                        "lrt", "--uid", "vi"] + common, walls)
+    hmc = timed_cli("vi-hmc", ["vi-hmc", "--artifacts", os.path.join(out, "vi"), "--workload",
+                               "nn", "--policy", "refresh", "--save-vi-trace", "--num-samples",
+                               str(CLI_DRAWS), "--uid", "hmc"] + common, walls)
+    res = hmc["result"]
+    trace = np.load(os.path.join(out, "hmc", "vi_params.npy"))
+    n_chains = res.samples.shape[0]
+    check(trace.shape == (n_chains, CLI_DRAWS, 141),
+          f"vi_params {trace.shape}: one 141-parameter vector per chain and draw expected")
+    samples = torch.as_tensor(res.samples, device=dev)
+    worst = 0.0
+    for s_ in range(CLI_DRAWS):
+        lp = hmc["log_prob"](samples[:, s_], torch.as_tensor(trace[:, s_], device=dev))
+        worst = max(worst, float(np.max(np.abs(lp.cpu().numpy() - res.log_probs[:, s_])
+                                        / np.abs(res.log_probs[:, s_]))))
+    print(f"  vi_params {trace.shape}: each stored sample's log-density under its draw's "
+          f"stored frozen vector against the sampler's record, max rel diff {worst:.3g}")
+    check(worst <= 1e-5, "vi_params: the stored frozen vectors are not the ones the draws used")
+    re = timed_cli("reevaluate", ["reevaluate", "--run", os.path.join(out, "hmc"),
+                                  "--artifacts", os.path.join(out, "vi"), "--uid", "re"]
+                   + common, walls)
+    diffs = {k: float(np.max(np.abs(np.asarray(v) - np.asarray(hmc["metrics"][k]))
+                             / np.maximum(np.abs(np.asarray(hmc["metrics"][k])), 1e-30)))
+             for k, v in re["metrics"].items()}
+    print(f"  reevaluate against the vi-hmc run's metrics, max rel diff per metric: "
+          + json.dumps(diffs))
+    check(max(diffs.values()) <= 1e-6, "reevaluate: metrics differ from the vi-hmc run's")
+    timed_cli("predict", ["predict", "--run", os.path.join(out, "hmc"), "--artifacts",
+                          os.path.join(out, "vi"), "--keep", "16", "--uid", "pred"] + common,
+              walls)
+    preds = np.load(os.path.join(out, "pred", "predictions.npy"))
+    check(preds.shape[0] == 16 and bool(np.isfinite(preds).all()), f"predict: {preds.shape}")
+    timed_cli("vi-hmc (mean, 4 draws)", ["vi-hmc", "--artifacts", os.path.join(out, "vi"),
+                                         "--policy", "mean", "--num-samples", "4",
+                                         "--num-chains", "2", "--uid", "hmc2"] + common, walls)
+    stacked = os.path.join(tmp, "stacked.npy")
+    timed_cli("postprocess", ["postprocess", "--runs", os.path.join(out, "hmc"),
+                              os.path.join(out, "hmc2"), "--out", stacked], walls)
+    want_rows = n_chains * CLI_DRAWS + 2 * 4   # --burn 0
+    check(np.load(stacked).shape == (want_rows, res.samples.shape[-1]), "postprocess rows")
+    expect_no_launches("command line, NN")
+
+    import scipy.io
+
+    t0 = time.perf_counter()
+    train, valid = get_burgers(dev)
+    full = {k: torch.cat([train[k], valid[k]]) if k != "trunk_in" else train[k]
+            for k in ("branch_in", "trunk_in", "solution")}
+    mat = os.path.join(tmp, "DeepOnet_data.mat")
+    scipy.io.savemat(mat, {k: v.cpu().numpy() for k, v in full.items()})
+    loaded = load_burgers_mat(mat, dev)
+    same = all(torch.equal(loaded[k], full[k]) for k in full)
+    print(f"  .mat of the exported Burgers data ({os.path.getsize(mat) / 1e6:.1f} MB, "
+          f"{time.perf_counter() - t0:.2f} s): loads to get_burgers's arrays: {same}")
+    check(same, ".mat round trip")
+    reset_counts()
+    op = timed_cli("vi-operator", ["vi-operator", "--mat", mat, "--epochs", "2",
+                                   "--uid", "op"] + common, walls)
+    expect_no_launches("command line, vi-operator")
+    check(op["model"].num_params == DeepONetConfig().num_params == 172_401,
+          "vi-operator: the reference DeepONet")
+    check(bool(np.isfinite(op["metrics"]).all()), "vi-operator: metrics")
+    print("  command walls (s): " + json.dumps({k: round(v, 3) for k, v in walls.items()}))
+
+
+def resume_phase(dev, data, arts, tmp):
+    """Phase 23: resume at full width, bit for bit."""
+    grid = load_port_inputs()
+    n_data = int(grid["n_train"]) * int(grid["nx"]) * int(grid["nt"])
+    cfg = stage3_config(len(arts["indices"]), n_data, variant="stride", draws=RESUME_DRAWS,
+                        chains=16, L=31)
+    print(f"  depth cut: draws {RESUME_DRAWS}, segments of {RESUME_SEGMENT} (stage-3 config "
+          f"450, 90)")
+    saves = []
+    real_save = chains_resume.save_checkpoint
+
+    def timed_save(directory, step, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = real_save(directory, step, state)
+        saves.append((time.perf_counter() - t0, os.path.getsize(path) + os.path.getsize(
+            os.path.join(directory, f"samples_seg{step - 1:05d}.npy"))))
+        return path
+
+    class Stop(Exception):
+        pass
+
+    def stop(seg, n_seg, state):
+        raise Stop
+
+    def leg(label, draws_here, **kw):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = None
+        try:
+            out = vi_hmc.run_operator(cfg, DeepONetConfig(), arts, data=data, use_fused=True,
+                                      segment_size=RESUME_SEGMENT, evaluate=False, device=dev,
+                                      **kw)
+        except Stop:
+            pass
+        torch.cuda.synchronize()
+        check((out is None) == (kw.get("progress") is stop), f"{label}: stopped or not")
+        counts = read_counts()
+        want = 1 + 2 * draws_here
+        print(f"  {label}: {time.perf_counter() - t0:.2f} s, launches {counts}; merge_sums "
+              f"expected 1 + 2 x {draws_here} = {want}")
+        check(counts["merge_sums"] == want, f"{label}: merge_sums {counts['merge_sums']}")
+        check(counts["paired_sums"] == 0 and counts["leapfrog_update"] == 0, f"{label}")
+        return out
+
+    full = leg("uninterrupted", RESUME_DRAWS)
+    ck = os.path.join(tmp, "stage3_ck")
+    chains_resume.save_checkpoint = timed_save
+    try:
+        leg("stopped after segment 1", RESUME_SEGMENT, checkpoint_dir=ck, progress=stop)
+        check(chains_resume.latest_step(ck) == 1, "checkpoint after segment 1")
+        resumed = leg("resumed", RESUME_DRAWS - RESUME_SEGMENT, checkpoint_dir=ck)
+    finally:
+        chains_resume.save_checkpoint = real_save
+    a, b = resumed["result"].samples, full["result"].samples
+    equal = a.shape == b.shape and np.array_equal(a, b)
+    print(f"  resumed samples {a.shape} equal the uninterrupted run's bit for bit: {equal} "
+          f"(max |diff| {float(np.max(np.abs(a - b))) if a.shape == b.shape else 'n/a'})")
+    check(equal, "resume: samples differ from the uninterrupted run")
+    print(f"  checkpoint per segment: {saves[0][1] / 1e6:.2f} MB (state + the segment's "
+          f"samples), save " + ", ".join(f"{1e3 * t_:.1f} ms" for t_, _ in saves))
+    draw_s = full["phases_s"]["sampling_s"] / RESUME_DRAWS
+    del full, resumed
+    torch.cuda.empty_cache()
+    return draw_s
+
+
+def subsample_phase(dev, data, arts, tmp, stride_draw_s):
+    """Phase 24: query subsampling under REFRESH with the VI trace."""
+    grid = load_port_inputs()
+    n_data = int(grid["n_train"]) * int(grid["nx"]) * int(grid["nt"])
+    cfg = dataclasses.replace(
+        stage3_config(len(arts["indices"]), n_data, variant="autodiff", draws=SUB_DRAWS,
+                      chains=16, L=31, frozen_policy="refresh"),
+        sample_data=True, p=SUB_P, save_vi_trace=True)
+    n_points = data[0]["trunk_in"].shape[0]
+    print(f"  depth cut: draws {SUB_DRAWS} (stage-3 config 450); p {SUB_P} of {n_points}")
+    store = RunStore(tmp, uid="subsample")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = vi_hmc.run_operator(cfg, DeepONetConfig(), arts, data=data, use_fused=True,
+                              store=store, evaluate=False, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect_no_launches("stage 3 sample_data")
+    res = out["result"]
+    trace = res.aux_trace
+    check(isinstance(trace, dict) and sorted(trace) == ["frozen", "tidx"],
+          f"aux_trace keys {sorted(trace) if isinstance(trace, dict) else type(trace)}")
+    tidx = trace["tidx"]
+    check(tidx.shape == (16, SUB_DRAWS, SUB_P), f"tidx {tidx.shape}")
+    distinct = all(len(np.unique(row)) == SUB_P for row in tidx.reshape(-1, SUB_P))
+    changes = all(not np.array_equal(tidx[c, s_], tidx[c, s_ + 1])
+                  for c in range(16) for s_ in range(SUB_DRAWS - 1))
+    stored = np.load(os.path.join(store.path, "vi_params.npy"))
+    print(f"  trace frozen {trace['frozen'].shape}, tidx {tidx.shape}: {SUB_P} distinct "
+          f"points in every set {distinct}, every draw a new set {changes}; stored vi_params "
+          f"{stored.shape} is the frozen part: {np.array_equal(stored, trace['frozen'])}")
+    check(distinct and changes, "tidx: p distinct indices, new every draw")
+    check(np.array_equal(stored, trace["frozen"]), "vi_params is not the trace's frozen part")
+    check(bool(np.isfinite(res.samples).all()) and res.acceptance_rate > 0.0,
+          f"sample_data: acceptance {res.acceptance_rate}")
+    draw_s = out["phases_s"]["sampling_s"] / SUB_DRAWS
+    print(f"  sample_data draw {1e3 * draw_s:.2f} ms (autograd through the composed density on "
+          f"{SUB_P} points, L = {cfg.L}) beside the stride draw's {1e3 * stride_draw_s:.2f} ms "
+          f"(phase 23); acceptance {res.acceptance_rate:.4f}; run wall {wall:.2f} s")
+    del out
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke run on one GPU")
     ap.add_argument("--draws", type=int, default=240, help="operator-row draws")
@@ -1486,6 +1688,23 @@ def main(argv=None) -> int:
     adaptive_metric_phase(dev)
     torch.cuda.empty_cache()
     phase("21 adaptive metric", t0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- phase 22: the command line on the card ----
+        t0 = time.perf_counter()
+        cli_phase(dev, tmp)
+        torch.cuda.empty_cache()
+        phase("22 command line", t0)
+
+        # ---- phase 23: resume at full width ----
+        t0 = time.perf_counter()
+        stride_draw_s = resume_phase(dev, data, arts, tmp)
+        phase("23 resume", t0)
+
+        # ---- phase 24: query subsampling at full width ----
+        t0 = time.perf_counter()
+        subsample_phase(dev, data, arts, tmp, stride_draw_s)
+        phase("24 query subsampling", t0)
 
     launches = {"paired_sums": row_counts["paired_sums"],
                 "merge_sums": s3_counts["merge_sums"],

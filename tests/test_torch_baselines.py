@@ -290,7 +290,7 @@ def test_hmc_full_transition_with_injected_jax_draws(monkeypatch, one_torch_thre
     assert tim == 1.0 and taux is None
     inits = np.asarray(jinits)
     jkernel = j_make_kernel(jlp, jcfg)
-    jstate = jax.vmap(lambda q: j_init_state(jlp, q, jcfg))(jnp.asarray(inits))
+    jstate = jax.jit(jax.vmap(lambda q: j_init_state(jlp, q, jcfg)))(jnp.asarray(inits))
     tstate = init_state(tlp, torch.as_tensor(inits), tcfg, None)
     np.testing.assert_allclose(tstate.log_prob.numpy(), np.asarray(jstate.log_prob), rtol=1e-5)
     n = _compare_transitions((jkernel, jstate), (make_kernel(tcfg, 1.0, None, None, tlp), tstate),
@@ -338,8 +338,8 @@ def test_hmc_nuts_transition_with_injected_jax_draws(tiny_burgers, path, monkeyp
     jaux = jkw["aux"]
     jkernel = j_make_kernel(jlp, dataclasses.replace(jcfg, burn=2), aux_refresh=jkw["aux_refresh"],
                             grad_fn=jkw["grad_fn"])
-    jstate = jax.vmap(lambda q: j_init_state(jlp, q, jcfg, aux=jaux,
-                                             grad_fn=jkw["grad_fn"]))(jnp.asarray(inits))
+    jstate = jax.jit(jax.vmap(lambda q: j_init_state(jlp, q, jcfg, aux=jaux,
+                                                     grad_fn=jkw["grad_fn"])))(jnp.asarray(inits))
     tcfg2 = dataclasses.replace(tcfg, burn=2)
     tstate = init_state(tlp, torch.as_tensor(inits), tcfg2, taux, tkw["grad_fn"])
     np.testing.assert_allclose(tstate.log_prob.numpy(), np.asarray(jstate.log_prob), rtol=1e-5)
@@ -380,7 +380,7 @@ def test_hmc_split_transition_with_injected_jax_draws(tiny_burgers, monkeypatch,
     inits = np.asarray(jinits)
     jkernel = j_make_kernel(jlp, jcfg, shard_log_prob_fn=jkw["shard_log_prob_fn"],
                             shard_data=jkw["shard_data"])
-    jstate = jax.vmap(lambda q: j_init_state(jlp, q, jcfg))(jnp.asarray(inits))
+    jstate = jax.jit(jax.vmap(lambda q: j_init_state(jlp, q, jcfg)))(jnp.asarray(inits))
     tstate = init_state(tlp, torch.as_tensor(inits), tcfg, None)
     tkernel = make_kernel(tcfg, 1.0, None, None, tlp, shard_log_prob_fn=tkw["shard_log_prob_fn"],
                           shard_data=tkw["shard_data"])
@@ -441,20 +441,23 @@ def full_width_witness(pipeline, n_train, n_it):
     eps, n_lf = tcfg.step_size, tcfg.num_leapfrog
     # the first transition's trajectory from each package's own pieces
     if pipeline == "hmc_nuts":
-        jq1, jp1, _ = j_lf(jkw["grad_fn"], jnp.asarray(q0), jnp.asarray(p0),
-                           jkw["grad_fn"](jnp.asarray(q0)), eps, n_lf)
+        jq1, jp1, _ = jax.jit(lambda q, p: j_lf(jkw["grad_fn"], q, p, jkw["grad_fn"](q), eps,
+                                                n_lf))(jnp.asarray(q0), jnp.asarray(p0))
         tq0 = torch.as_tensor(q0)[None]
         tq1, tp1, _ = leapfrog_grad_only(tkw["grad_fn"], tq0, torch.as_tensor(p0)[None],
                                          tkw["grad_fn"](tq0), eps, n_lf)
     else:
         jf = jkw["shard_log_prob_fn"]
-        jq1, jp1 = j_split_lf(lambda q, sh: jax.value_and_grad(lambda x: jf(x, sh))(q),
-                              jkw["shard_data"], jnp.asarray(q0), jnp.asarray(p0), eps, n_lf)
+        jq1, jp1 = jax.jit(lambda q, p: j_split_lf(
+            lambda qq, sh: jax.value_and_grad(lambda x: jf(x, sh))(qq), jkw["shard_data"], q, p,
+            eps, n_lf))(jnp.asarray(q0), jnp.asarray(p0))
         tf = tkw["shard_log_prob_fn"]
         tq1, tp1 = split_leapfrog(
             lambda q, sh: value_and_grad(lambda x, a: tf(x, sh, a), q, None),
             tkw["shard_data"], torch.as_tensor(q0)[None], torch.as_tensor(p0)[None], eps, n_lf)
-    j_dh = float((jlp(jq1) - 0.5 * jnp.sum(jp1 ** 2)) - (jlp(jnp.asarray(q0)) - 0.5 * np.sum(p0 ** 2)))
+    jlp_jit = jax.jit(jlp)
+    j_dh = float((jlp_jit(jq1) - 0.5 * jnp.sum(jp1 ** 2))
+                 - (jlp_jit(jnp.asarray(q0)) - 0.5 * np.sum(p0 ** 2)))
     t_dh = float((tlp(tq1, None) - 0.5 * (tp1 ** 2).sum())[0]
                  - (tlp(torch.as_tensor(q0)[None], None)[0] - 0.5 * float(np.sum(p0 ** 2))))
     flags = []
@@ -465,7 +468,7 @@ def full_width_witness(pipeline, n_train, n_it):
     jkernel = j_make_kernel(jlp, jcfg, grad_fn=jkw.get("grad_fn"),
                             shard_log_prob_fn=jkw.get("shard_log_prob_fn"),
                             shard_data=jkw.get("shard_data"))
-    jstate = jax.vmap(lambda q: j_init_state(jlp, q, jcfg, grad_fn=jkw.get("grad_fn")))(
+    jstate = jax.jit(jax.vmap(lambda q: j_init_state(jlp, q, jcfg, grad_fn=jkw.get("grad_fn"))))(
         jnp.asarray(inits))
     tkernel = make_kernel(tcfg, 1.0, tkw.get("grad_fn"), None, tlp,
                           shard_log_prob_fn=tkw.get("shard_log_prob_fn"),

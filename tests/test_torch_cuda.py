@@ -512,3 +512,61 @@ def test_stage3_nuts_and_chees_on_cuda_launch_merge_sums(cuda_device, algorithm)
     assert out["algorithm"] == algorithm
     assert np.isfinite(out["result"].samples).all()
     assert all(np.isfinite(v).all() for v in out["metrics"].values())
+
+
+def test_resume_on_cuda_with_merge_sums_is_bit_equal(cuda_device, tmp_path):
+    """Stage 3 on the card with the fused density (small DeepONet, 3 chains,
+    12 draws in segments of 4, REFRESH): stopped after segment 1 by a
+    progress callback that raises, then resumed into the same checkpoint
+    directory; the samples equal the uninterrupted run's bit for bit.
+    ``merge_sums`` runs 1 + 2 x draws-run-in-the-call times on each leg (the
+    initial state is evaluated on a resume too, as in JAX)."""
+    from vihmc_torch.pipelines.configs import VIHMCRunConfig
+    from vihmc_torch.pipelines.vi_hmc import run_operator
+
+    cfg_d, data, arts = _small_stage3_case(27)
+    cfg = VIHMCRunConfig(num_samples=12, step_size=1e-3, num_chains=3, num_leapfrog=4,
+                         tau_out=1.0, frozen_policy="refresh", vi_mass=True,
+                         clip_grad=13.0 * 40 ** 0.5, jitter_eps=True, jitter_low_frac=0.5)
+    kw = dict(data=data, use_fused=True, segment_size=4, evaluate=False, device=cuda_device)
+
+    def launches(fn):
+        n = merge_sums.launches
+        out = fn()
+        torch.cuda.synchronize()
+        return out, merge_sums.launches - n
+
+    full, n_full = launches(lambda: run_operator(cfg, cfg_d, arts, **kw))
+    assert n_full == 1 + 2 * 12
+
+    class Stop(Exception):
+        pass
+
+    def stop(seg, n_seg, state):
+        raise Stop
+
+    ck = str(tmp_path / "ck")
+    n0 = merge_sums.launches
+    with pytest.raises(Stop):
+        run_operator(cfg, cfg_d, arts, checkpoint_dir=ck, progress=stop, **kw)
+    torch.cuda.synchronize()
+    assert merge_sums.launches - n0 == 1 + 2 * 4
+    resumed, n_res = launches(lambda: run_operator(cfg, cfg_d, arts, checkpoint_dir=ck, **kw))
+    assert n_res == 1 + 2 * 8
+    np.testing.assert_array_equal(resumed["result"].samples, full["result"].samples)
+    assert torch.equal(resumed["result"].final_state.aux, full["result"].final_state.aux)
+
+
+def test_cli_vi_hmc_on_cuda(cuda_device, tmp_path):
+    """The command line on the card: vi-nn with sensitivity, then vi-hmc
+    --device cuda with the VI trace; finite samples and trace."""
+    from vihmc_torch.pipelines import cli
+
+    out = str(tmp_path)
+    assert cli.main(["vi-nn", "--epochs", "5", "--with-sensitivity", "--out", out,
+                     "--uid", "vi", "--device", "cuda"]) == 0
+    assert cli.main(["vi-hmc", "--artifacts", f"{out}/vi", "--num-samples", "6",
+                     "--num-chains", "2", "--policy", "refresh", "--save-vi-trace",
+                     "--out", out, "--uid", "hmc", "--device", "cuda"]) == 0
+    assert np.isfinite(np.load(tmp_path / "hmc" / "hmc_params.npy")).all()
+    assert np.load(tmp_path / "hmc" / "vi_params.npy").shape == (2, 6, 141)

@@ -60,3 +60,50 @@ def test_exported_inputs_are_the_jax_draws():
     np.testing.assert_array_equal(z["frozen_draw"],
                                   np.asarray(draw_full(jax.random.key(0), spec)))
     assert z["solution_rows"].shape == (4, int(a["nx"]) * int(a["nt"]))
+
+
+def test_generate_burgers_dataset_with_jax_coefficients():
+    """The GRF initial conditions from JAX's own standard-normal coefficients
+    (``ka, kb = split(key)``, burgers.py:42-45) and the dataset assembled from
+    them: rtol 1e-5, atol 1e-5 on O(1) values (the same solver, a short
+    horizon)."""
+    from vihmc_torch.data.burgers import generate_burgers_dataset as t_generate
+
+    key = jax.random.key(7)
+    n, nx, nt = 3, 17, 9
+    ka, kb = jax.random.split(key)
+    coeffs = tuple(np.asarray(jax.random.normal(k, (n, 12))) for k in (ka, kb))
+    want = generate_burgers_dataset(key, n, nx=nx, nt=nt)
+    got = t_generate(None, n, nx=nx, nt=nt, coefficients=coeffs)
+    for k in ("branch_in", "trunk_in", "solution"):
+        assert got[k].shape == want[k].shape
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-5, atol=1e-5)
+    drawn = t_generate(torch.Generator().manual_seed(0), n, nx=nx, nt=nt)
+    assert drawn["solution"].shape == (n, nx * nt) and torch.isfinite(drawn["solution"]).all()
+
+
+def test_load_burgers_mat_and_get_burgers_match_jax(tmp_path):
+    """A .mat written with scipy.io.savemat loads to the same arrays in both
+    packages (exactly), and both get_burgers slice it into the same splits
+    (rows [0:n_train] and [n_train:n_train + n_valid], clipped)."""
+    import scipy.io
+
+    from vihmc_tpu.data.burgers import get_burgers as j_get
+    from vihmc_tpu.data.burgers import load_burgers_mat as j_load
+    from vihmc_torch.data.burgers import get_burgers, load_burgers_mat
+
+    rng = np.random.default_rng(3)
+    mat = {"branch_in": rng.normal(size=(7, 9)), "trunk_in": rng.random((15, 2)),
+           "solution": rng.normal(size=(7, 15))}
+    path = str(tmp_path / "DeepOnet_data.mat")
+    scipy.io.savemat(path, mat)
+    got, want = load_burgers_mat(path), j_load(path)
+    for k in mat:
+        assert got[k].dtype == torch.float32
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    t_split = get_burgers("cpu", 5, 4, mat_path=path)
+    j_split = j_get(jax.random.key(0), 5, 4, path)
+    for t_part, j_part in zip(t_split, j_split):
+        for k in mat:
+            np.testing.assert_array_equal(t_part[k].numpy(), np.asarray(j_part[k]))
+    assert t_split[1]["branch_in"].shape[0] == 2

@@ -366,17 +366,14 @@ def test_operator_row_control_flow_on_cpu():
 
 def test_hmc_config_fields_and_defaults_match_jax():
     """Every field of the port's HMCConfig is one of JAX's, with JAX's
-    default; the one field whose path is not ported (store_aux_trace) raises
-    NotImplementedError when set, every other option is accepted, and the
+    default; every option is accepted (store_aux_trace too), and the
     settings JAX rejects raise ValueError."""
     from torch_parity_helpers import assert_shared_fields_equal
-    from vihmc_torch.hmc.kernel import _UNPORTED, check_config
+    from vihmc_torch.hmc.kernel import check_config
 
     assert_shared_fields_equal(HMCConfig(), JConfig())
-    assert _UNPORTED == ("store_aux_trace",)
-    with pytest.raises(NotImplementedError, match="store_aux_trace"):
-        check_config(HMCConfig(store_aux_trace=True))
-    for field, value in (("adapt_mass", True), ("mass_schedule", "windowed"),
+    for field, value in (("store_aux_trace", True), ("adapt_mass", True),
+                         ("mass_schedule", "windowed"),
                          ("refresh_during_burn", False), ("init_step_search", True),
                          ("momentum_persistence", 0.5), ("metric_axis", "chains")):
         check_config(HMCConfig(**{field: value}))

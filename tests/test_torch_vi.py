@@ -413,21 +413,16 @@ def test_regression_data_matches_jax_with_injected_noise():
     assert again["y_train"].shape == (20, 1) and again["x_val"].shape == (300, 1)
 
 
-@pytest.mark.parametrize("setting", ["lrt", "learn_noise", "noise_type", "beta_schedule",
-                                     "n_save", "cone"])
+@pytest.mark.parametrize("setting", ["learn_noise", "noise_type", "cone"])
 def test_unported_stage1_settings_raise(setting):
-    """The modes and features no configured pipeline uses raise
-    NotImplementedError before any training."""
+    """The features no configured pipeline uses raise NotImplementedError
+    before any training."""
     with pytest.raises(NotImplementedError, match="not ported"):
-        if setting == "lrt":
-            mlp_vi_apply(MLPConfig(), mode="lrt")
-        elif setting == "cone":
+        if setting == "cone":
             tvt.run_operator(TC.OperatorVIRunConfig(dataset="Cone"), device="cpu")
         else:
             vi = {"learn_noise": VIConfig(elbo=telbo.ELBOConfig(learn_noise=True)),
-                  "noise_type": VIConfig(elbo=telbo.ELBOConfig(noise_type=1)),
-                  "beta_schedule": VIConfig(beta_type="Blundell"),
-                  "n_save": VIConfig(n_save=5)}[setting]
+                  "noise_type": VIConfig(elbo=telbo.ELBOConfig(noise_type=1))}[setting]
             tvt.run_nn(TC.NNVIRunConfig(vi=vi), device="cpu")
 
 
@@ -559,3 +554,207 @@ def test_run_operator_epoch_loop_on_cpu(monkeypatch):
         **dict(cfg_kw, model=JDCfg(**dict(SMALL_DEEPONET_KW, in_branch=9))))
     jm = np.asarray(jvt.run_operator(jcfg, key=jax.random.key(1), data=data)["metrics"])
     assert jm.shape == m.shape
+
+
+def _jax_normals(key, shape):
+    return np.asarray(jax.random.normal(key, shape), np.float32)
+
+
+def _t_layer(layer):
+    return {k: torch.as_tensor(np.asarray(v)) for k, v in layer.items()}
+
+
+@pytest.mark.parametrize("case", ["bbb_linear", "lrt_linear", "bbb_conv_same_s2",
+                                  "lrt_conv_same", "lrt_conv_valid_s2"])
+def test_layer_applies_match_jax(case):
+    """The layer-level Bayesian applies with JAX's normals injected (``kw, kb
+    = split(key)`` for the weight-space layers, one normal per output for the
+    local-reparameterization ones; bayesian.py:123-193): rtol 1e-5, atol
+    1e-5. The conv layers take NCHW inputs and OIHW weights on both sides,
+    with XLA's 'SAME' split of the padding."""
+    from vihmc_tpu.models import bayesian as jb
+    from vihmc_torch.models import bayesian as tb
+
+    rng = np.random.default_rng(11)
+    key = jax.random.key(12)
+    conv = "conv" in case
+    w_shape = (4, 3, 3, 2) if conv else (5, 3)
+    lmu = {"w": jnp.asarray(0.4 * rng.normal(size=w_shape), jnp.float32),
+           "b": jnp.asarray(0.2 * rng.normal(size=(w_shape[0],)), jnp.float32)}
+    lrho = {"w": jnp.asarray(-1.5 + 0.3 * rng.normal(size=w_shape), jnp.float32),
+            "b": jnp.asarray(-2.0 + 0.3 * rng.normal(size=(w_shape[0],)), jnp.float32)}
+    x = jnp.asarray(rng.normal(size=(2, 3, 7, 6) if conv else (6, 3)), jnp.float32)
+    stride = 2 if "s2" in case else 1
+    padding = "VALID" if "valid" in case else "SAME"
+    kw = dict(stride=stride, padding=padding) if conv else {}
+    name = case.split("_")[0] + ("_conv2d_apply" if conv else "_linear_apply")
+    want = np.asarray(getattr(jb, name)(key, lmu, lrho, x, sample=True, **kw))
+    if case.startswith("bbb"):
+        k_w, k_b = jax.random.split(key)
+        eps = (torch.as_tensor(_jax_normals(k_w, w_shape)),
+               torch.as_tensor(_jax_normals(k_b, (w_shape[0],))))
+    else:
+        eps = torch.as_tensor(_jax_normals(key, want.shape))
+    fn = getattr(tb, name)
+    got = fn(_t_layer(lmu), _t_layer(lrho), torch.as_tensor(np.asarray(x)), eps=eps, **kw)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    mean = fn(_t_layer(lmu), _t_layer(lrho), torch.as_tensor(np.asarray(x)), sample=False, **kw)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(getattr(jb, name)(
+        key, lmu, lrho, x, sample=False, **kw)), rtol=1e-5, atol=1e-5)
+    drawn = fn(_t_layer(lmu), _t_layer(lrho), torch.as_tensor(np.asarray(x)),
+               generator=torch.Generator().manual_seed(0), **kw)
+    assert drawn.shape == got.shape and torch.isfinite(drawn).all()
+
+
+def _jax_lrt_eps(key, num_ens, stacks, bias=False):
+    """The activation normals JAX's 'lrt' forward draws from ``key``: per
+    member ``split(key, num_ens)`` (train.py:115); the MLP splits the member
+    key over its layers (bayesian.py:209), the DeepONet into ``kb, kt,
+    kbias`` and each stack over its layers (bayesian.py:235-240), each layer
+    one normal per output activation. ``stacks``: a list of per-layer output
+    shapes (MLP), or ``{'branch': [...], 'trunk': [...]}``."""
+    members = []
+    for ke in jax.random.split(key, num_ens):
+        if not bias:
+            members.append([_jax_normals(k, s) for k, s in
+                            zip(jax.random.split(ke, len(stacks)), stacks)])
+            continue
+        kb, kt, kbias = jax.random.split(ke, 3)
+        members.append({
+            "branch": [_jax_normals(k, s) for k, s in
+                       zip(jax.random.split(kb, len(stacks["branch"])), stacks["branch"])],
+            "trunk": [_jax_normals(k, s) for k, s in
+                      zip(jax.random.split(kt, len(stacks["trunk"])), stacks["trunk"])],
+            "b": _jax_normals(kbias, ())})
+    if not bias:
+        return [torch.as_tensor(np.stack([m[i] for m in members])) for i in range(len(stacks))]
+    return {"branch": [torch.as_tensor(np.stack([m["branch"][i] for m in members]))
+                       for i in range(len(stacks["branch"]))],
+            "trunk": [torch.as_tensor(np.stack([m["trunk"][i] for m in members]))
+                      for i in range(len(stacks["trunk"]))],
+            "b": torch.as_tensor(np.stack([m["b"] for m in members]))}
+
+
+@pytest.mark.parametrize("model", ["mlp", "deeponet"])
+def test_lrt_elbo_and_gradient_match_jax(model):
+    """The 'lrt' negative ELBO (ensemble mean, rtol 1e-5) and its gradients
+    with respect to mu and rho (rtol 1e-4 of their scale) with JAX's
+    activation normals injected; the mean forward equals 'bbb''s."""
+    from vihmc_torch.vi.train import make_loss_fn
+
+    rng = np.random.default_rng(13)
+    key = jax.random.key(14)
+    e = 3
+    if model == "mlp":
+        jcfg, vp = _mlp_vp(15)
+        tcfg = MLPConfig(**TINY_MLP_KW)
+        x = rng.normal(size=(9, 1)).astype(np.float32)
+        y = rng.normal(size=(9, 1)).astype(np.float32)
+        jbatch = {"x": jnp.asarray(x), "y": jnp.asarray(y)}
+        tbatch = {"x": torch.as_tensor(x), "y": torch.as_tensor(y)}
+        japply, tapply = j_mlp_vi_apply(jcfg, "lrt"), mlp_vi_apply(tcfg, "lrt")
+        eps = _jax_lrt_eps(key, e, [(9, o) for _, o in jcfg.layer_dims])
+        elbo_kw, train_size = dict(reduction="sum", fixed_noise_var=0.05 ** 2), 9
+        t_bbb = mlp_vi_apply(tcfg)
+    else:
+        jcfg, vp = _deeponet_vp(15)
+        tcfg = DeepONetConfig(**SMALL_DEEPONET_KW)
+        bx = rng.normal(size=(4, 17)).astype(np.float32)
+        tx = rng.random(size=(4, 8, 2)).astype(np.float32)
+        y = rng.normal(size=(4, 8)).astype(np.float32)
+        jbatch = {"branch": jnp.asarray(bx), "trunk": jnp.asarray(tx), "y": jnp.asarray(y)}
+        tbatch = {"branch": torch.as_tensor(bx), "trunk": torch.as_tensor(tx),
+                  "y": torch.as_tensor(y)}
+        japply, tapply = j_deeponet_vi_apply(jcfg, "lrt"), deeponet_vi_apply(tcfg, "lrt")
+        eps = _jax_lrt_eps(key, e, {"branch": [(4, o) for _, o in jcfg.branch_dims],
+                                    "trunk": [(4, 8, o) for _, o in jcfg.trunk_dims]},
+                           bias=True)
+        elbo_kw, train_size = dict(reduction="mean_x_n", fixed_noise_var=1.0), 4 * 121
+        t_bbb = deeponet_vi_apply(tcfg)
+    vi_kw = dict(num_ens=e, prior_sigma=0.5)
+    jvi = jtrain.VIConfig(elbo=jelbo.ELBOConfig(**elbo_kw), **vi_kw)
+    tvi = VIConfig(elbo=telbo.ELBOConfig(**elbo_kw), **vi_kw)
+    jloss_fn = jtrain.make_loss_fn(japply, jvi, train_size)
+    jl, jg = jax.jit(jax.value_and_grad(
+        lambda v: jloss_fn(v, jnp.zeros(()), jbatch, key, 0.7)))(vp)
+    tvp = {k: v.requires_grad_(True) for k, v in vp_from_jax(_np_tree(vp)).items()}
+    tl = make_loss_fn(tapply, tvi, train_size)(tvp, tbatch, eps, 0.7)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    g_mu, g_rho = torch.autograd.grad(tl, [tvp["mu"], tvp["rho"]])
+    for name, g in (("mu", g_mu), ("rho", g_rho)):
+        want = flat_from_tree(_np_tree(jg[name]))
+        np.testing.assert_allclose(g.numpy(), want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+    with torch.no_grad():
+        np.testing.assert_array_equal(tapply(tvp, tbatch, None, False).numpy(),
+                                      t_bbb(tvp, tbatch, None, False).numpy())
+        drawn = tapply(tvp, tbatch, None, True, 2, torch.Generator().manual_seed(1))
+    assert drawn.shape[0] == 2 and torch.isfinite(drawn).all()
+
+
+def test_python_loop_train_matches_jax():
+    """Three epochs of the Python-loop trainer with a string beta schedule
+    ('Blundell' over two minibatches per epoch), the same batches, JAX's
+    ensemble normals injected (rebuilt from its key chain, train.py:301-306)
+    and the port started from JAX's initial state (core.convert): every
+    metrics row (rtol 1e-5), then the final variational parameters (rtol
+    1e-6, atol 1e-4 of ``lr_start``, as the three-step Adam test), Adam's
+    moments (rtol 1e-4 of their scale), the step count, the plateau state
+    and the epoch."""
+    from vihmc_torch.core.convert import vi_train_state_from_jax
+    from vihmc_torch.vi.train import train
+
+    rng = np.random.default_rng(16)
+    jcfg, vp = _mlp_vp(17)
+    tcfg = MLPConfig(**TINY_MLP_KW)
+    xs = [rng.normal(size=(6, 1)).astype(np.float32) for _ in range(3)]
+    ys = [rng.normal(size=(6, 1)).astype(np.float32) for _ in range(3)]
+    jb = [{"x": jnp.asarray(x), "y": jnp.asarray(y)} for x, y in zip(xs, ys)]
+    tb = [{"x": torch.as_tensor(x), "y": torch.as_tensor(y)} for x, y in zip(xs, ys)]
+    vi_kw = dict(epochs=3, lr_start=1e-2, min_lr=1e-3, patience=0, num_ens=2,
+                 beta_type="Blundell", prior_sigma=0.5)
+    elbo_kw = dict(reduction="sum", fixed_noise_var=0.1)
+    jvi = jtrain.VIConfig(elbo=jelbo.ELBOConfig(**elbo_kw), **vi_kw)
+    tvi = VIConfig(elbo=telbo.ELBOConfig(**elbo_kw), **vi_kw)
+    key = jax.random.key(18)
+    jstate0 = jtrain.init_train_state(vp, jvi)
+    jfinal, _, jrows = jtrain.train(j_mlp_vi_apply(jcfg), jstate0, jvi,
+                                    lambda k, e: jb[:2], jb[2], jb[0], 12, key)
+    eps = {}
+    k = key
+    for epoch in range(3):
+        k, ek, vk, _ = jax.random.split(k, 4)
+        for i in range(2):
+            ek, sk = jax.random.split(ek)
+            eps[epoch, "train", i] = torch.as_tensor(_jax_mlp_eps_jit(sk, jcfg, 2))
+        eps[epoch, "valid", 0] = torch.as_tensor(_jax_mlp_eps_jit(vk, jcfg, 2))
+    adam0 = jstate0.opt_state[0]
+    tstate0 = vi_train_state_from_jax(
+        _np_tree(vp), adam0.count, _np_tree(adam0.mu[0]), _np_tree(adam0.nu[0]),
+        jstate0.plateau.best, jstate0.plateau.num_bad, jstate0.plateau.scale, jstate0.epoch)
+    tfinal, _, trows = train(mlp_vi_apply(tcfg), tstate0, tvi, lambda g, e: tb[:2], tb[2],
+                             tb[0], 12, eps_fn=lambda e, kind, i: eps[e, kind, i])
+    assert trows.shape == (3, 4)
+    np.testing.assert_allclose(trows, np.asarray(jrows), rtol=1e-5)
+    adam = jfinal.opt_state[0]
+    assert tfinal.opt_state.count == int(adam.count) == 6
+    for name in ("mu", "rho"):
+        np.testing.assert_allclose(tfinal.vp[name].numpy(),
+                                   flat_from_tree(_np_tree(jfinal.vp[name])),
+                                   rtol=1e-6, atol=1e-4 * jvi.lr_start)
+        for t_mom, j_mom in ((tfinal.opt_state.mu, adam.mu), (tfinal.opt_state.nu, adam.nu)):
+            want = flat_from_tree(_np_tree(j_mom[0][name]))
+            np.testing.assert_allclose(t_mom[name].numpy(), want, rtol=1e-4,
+                                       atol=1e-4 * np.abs(want).max())
+    assert np.float32(tfinal.plateau.scale) == np.float32(jfinal.plateau.scale)
+    assert tfinal.plateau.num_bad == int(jfinal.plateau.num_bad)
+    assert tfinal.epoch == int(jfinal.epoch) == 3
+
+
+def test_accuracy_matches_jax():
+    """accuracy: argmax over the last axis against integer targets, equal."""
+    from vihmc_torch.vi import accuracy
+
+    rng = np.random.default_rng(19)
+    out, tgt = rng.normal(size=(50, 4)), rng.integers(0, 4, size=50)
+    assert accuracy(out, tgt) == jelbo.accuracy(out, tgt)

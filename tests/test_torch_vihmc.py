@@ -432,15 +432,6 @@ def test_vihmc_config_matches_jax():
         assert (t.L, t.burn_) == (j.L, j.burn_)
 
 
-@pytest.mark.parametrize("field,value", [("sample_data", True), ("save_vi_trace", True)])
-def test_run_operator_raises_on_unported_settings(field, value):
-    """Settings the port does not run yet raise NotImplementedError before
-    any data is touched."""
-    cfg = dataclasses.replace(VIHMCRunConfig(frozen_policy="draw"), **{field: value})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tv.run_operator(cfg, DeepONetConfig(), {}, device="cpu")
-
-
 @pytest.fixture(scope="module")
 def tiny_burgers_run():
     """The tiny Burgers data of tests/test_pipelines.py:35-39 and JAX's
@@ -802,3 +793,187 @@ def test_stage3_variants_config_and_entry_point():
         assert seen["variant"] == "gauss" and seen["adapt"] and seen["da_axis"]
         assert seen["target_accept"] == 0.7 and seen["laplace_mass"]
         assert seen["init_optimize"] == 5 and seen["max_step"] == 0.2
+
+
+def _subsample_run_kw(tiny_burgers_run, policy, **extra):
+    data, arts, cfg_kw, _ = tiny_burgers_run
+    kw = dict(cfg_kw, frozen_policy=policy, sample_data=True, p=20, num_chains=3)
+    kw.update(extra)
+    return data, arts, kw
+
+
+def _jax_subsample_keys(key, aux_dim, n_points, p, refresh):
+    """One JAX transition's draws under query subsampling: momentum normals
+    and the two uniforms (kernel.py:494) for d coordinates, and from
+    ``key_aux`` the refresh hook's ``k1, k2 = split`` (vi_hmc.py:395-402):
+    the frozen vector's normals (REFRESH) and ``choice(k2, n, p, False)``."""
+    key_mom, key_u, key_aux, key_jit = jax.random.split(key, 4)
+    k1, k2 = jax.random.split(key_aux)
+    z = np.asarray(jax.random.normal(k1, (aux_dim,), jnp.float32)) if refresh else None
+    tidx = np.asarray(jax.random.choice(k2, n_points, shape=(p,), replace=False))
+    return key_mom, key_u, key_jit, z, tidx
+
+
+@pytest.mark.parametrize("policy", ["draw", "refresh"])
+def test_subsampled_transition_with_injected_jax_draws(tiny_burgers_run, policy, monkeypatch):
+    """Query subsampling (sample_data, p = 20 of 45 grid points): both
+    pipelines stopped at their sampler call with JAX's first frozen vector
+    and index set handed to the port; then two transitions of 3 chains with
+    JAX's momenta, uniforms, refresh normals and index sets injected. The
+    aux is ``{'frozen', 'tidx'}`` on both sides with JAX's index sets
+    (exactly) and frozen vectors (rtol 1e-7); accept decisions equal, steps
+    (rtol 1e-6), accept probabilities (atol 1e-4), positions (rtol 1e-4,
+    atol 5e-5) and log-densities (rtol 1e-5). No fused density and no Gram
+    field under subsampling, as in JAX."""
+    data, arts, kw = _subsample_run_kw(tiny_burgers_run, policy)
+    seen = {}
+
+    def capture(side):
+        def fake(*args, **kwargs):
+            seen[side] = (args, kwargs)
+            raise _Captured
+
+        return fake
+
+    from vihmc_tpu.models import DeepONetConfig as JCfg
+
+    jdata = tuple({k: jnp.asarray(v) for k, v in s.items()} for s in data)
+    monkeypatch.setattr(jv, "sample_chains", capture("jax"))
+    with pytest.raises(_Captured):
+        jv.run_operator(JC.VIHMCRunConfig(**kw), JCfg(**TINY_DEEPONET_KW), arts,
+                        key=jax.random.key(2), data=jdata, use_fused=True)
+    (jlp, jinits, _, jcfg), jkw = seen["jax"]
+    jaux = jkw["aux"]
+    assert sorted(jaux) == ["frozen", "tidx"] and jkw["grad_fn"] is not None
+    monkeypatch.setattr(tv, "sample_chains_resumable", capture("torch"))
+    monkeypatch.setattr(tmerge, "fused_merge_nll", capture("fused"))
+    with pytest.raises(_Captured):
+        tv.run_operator(VIHMCRunConfig(**kw), DeepONetConfig(**TINY_DEEPONET_KW), arts,
+                        data=data, use_fused=True, frozen=np.asarray(jaux["frozen"]),
+                        tidx0=np.asarray(jaux["tidx"]), device="cpu")
+    assert "fused" not in seen
+    (tlp, tinits, tcfg, _, tim, taux), tkw = seen["torch"]
+    assert sorted(taux) == ["frozen", "tidx"]
+    np.testing.assert_array_equal(taux["tidx"].numpy(), np.asarray(jaux["tidx"]))
+    assert_shared_fields_equal(tcfg, jcfg)
+    jkernel = j_make_kernel(jlp, jcfg, inv_mass=jkw["inv_mass"], aux_refresh=jkw["aux_refresh"],
+                            grad_fn=jkw["grad_fn"])
+    jstate = jax.vmap(lambda q: j_init_state(jlp, q, jcfg, aux=jaux, inv_mass=jkw["inv_mass"],
+                                             grad_fn=jkw["grad_fn"]))(jnp.asarray(jinits))
+    tstate = init_state(tlp, torch.as_tensor(np.asarray(jinits)), tcfg, taux, tkw["grad_fn"])
+    np.testing.assert_allclose(tstate.log_prob.numpy(), np.asarray(jstate.log_prob), rtol=1e-5)
+    tkernel = make_kernel(tcfg, tim, tkw["grad_fn"], None, tlp, aux_refresh=tkw["aux_refresh"])
+    step = jax.vmap(jkernel, in_axes=(0, 0, None))
+    big_d, d, c = len(arts["mu"]), len(arts["indices"]), 3
+    for it in range(2):
+        keys = jax.random.split(jax.random.key(400 + it), c)
+        draws = [_jax_subsample_keys(k, big_d, 45, 20, policy == "refresh") for k in keys]
+        noise = TransitionNoise(
+            z1=torch.as_tensor(np.stack([np.asarray(jax.random.normal(x[0], (d,), jnp.float32))
+                                         for x in draws])), z2=None,
+            u_jitter=torch.tensor([float(jax.random.uniform(x[2], ())) for x in draws]),
+            u_accept=torch.tensor([float(jax.random.uniform(x[1])) for x in draws]),
+            z_aux=(None if policy == "draw"
+                   else torch.as_tensor(np.stack([x[3] for x in draws])),
+                   torch.as_tensor(np.stack([x[4] for x in draws]))))
+        jstate, jinfo = step(jstate, keys, it)
+        tstate, tinfo = tkernel(tstate, noise)
+        np.testing.assert_array_equal(tstate.aux["tidx"].numpy(), np.asarray(jstate.aux["tidx"]))
+        frozen = torch.broadcast_to(tstate.aux["frozen"], (c, big_d)).numpy()
+        np.testing.assert_allclose(frozen, np.asarray(jstate.aux["frozen"]), rtol=1e-7)
+        np.testing.assert_array_equal(tinfo["accepted"].numpy(), np.asarray(jinfo["accepted"]))
+        np.testing.assert_allclose(tinfo["step_size"].numpy(), np.asarray(jinfo["step_size"]),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(tinfo["accept_prob"].numpy(),
+                                   np.asarray(jinfo["accept_prob"]), rtol=1e-3, atol=1e-4)
+        np.testing.assert_allclose(tstate.position.numpy(), np.asarray(jstate.position),
+                                   rtol=1e-4, atol=5e-5)
+        np.testing.assert_allclose(tinfo["log_prob"].numpy(), np.asarray(jinfo["log_prob"]),
+                                   rtol=1e-5)
+
+
+def test_save_vi_trace_under_subsampled_refresh_matches_jax(tiny_burgers_run, monkeypatch,
+                                                            tmp_path):
+    """REFRESH with query subsampling and save_vi_trace, 4 draws of 2 chains,
+    end to end in both pipelines; the port's sampler is fed JAX's refresh
+    normals and index sets (rebuilt from its keys: fold_in per chain,
+    split per draw, parallel.py:148 and kernel.py:494). The trace is
+    ``{'frozen' (C, S, D), 'tidx' (C, S, p)}`` on both sides with JAX's
+    values (frozen ``mu + sigma z`` rtol 1e-7 and one unit in the last place
+    of its largest value, as XLA fuses it into one FMA; tidx exactly); each
+    stored ``vi_params`` is
+    its trace's frozen part; each draw's index set has p distinct points."""
+    data, arts, kw = _subsample_run_kw(tiny_burgers_run, "refresh", save_vi_trace=True,
+                                       num_samples=4, num_chains=2)
+    from vihmc_tpu.models import DeepONetConfig as JCfg
+
+    jdata = tuple({k: jnp.asarray(v) for k, v in s.items()} for s in data)
+    jstore = JStore(str(tmp_path), uid="j")
+    key = jax.random.key(3)
+    jout = jv.run_operator(JC.VIHMCRunConfig(**kw), JCfg(**TINY_DEEPONET_KW), arts, key=key,
+                           data=jdata, store=jstore)
+    jtrace = jout["result"].aux_trace
+    big_d = len(arts["mu"])
+    k_sample = jax.random.split(jax.random.split(key)[1], 4)[2]
+    zs, tidx = [], []
+    for s in range(4):
+        per = [_jax_subsample_keys(jax.random.split(jax.random.fold_in(k_sample, c), 4)[s],
+                                   big_d, 45, 20, True) for c in range(2)]
+        zs.append(torch.as_tensor(np.stack([x[3] for x in per])))
+        tidx.append(torch.as_tensor(np.stack([x[4] for x in per])))
+    draws = iter(zip(zs, tidx))
+    real = tv.sample_chains_resumable
+
+    def injected(*args, **kwargs):
+        kwargs["aux_draw"] = lambda gen: next(draws)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tv, "sample_chains_resumable", injected)
+    store = RunStore(str(tmp_path), uid="t")
+    out = tv.run_operator(VIHMCRunConfig(**kw), DeepONetConfig(**TINY_DEEPONET_KW), arts,
+                          data=data, store=store,
+                          frozen=np.asarray(jout["result"].final_state.aux["frozen"][0]),
+                          device="cpu")
+    trace = out["result"].aux_trace
+    assert sorted(trace) == sorted(jtrace) == ["frozen", "tidx"]
+    assert trace["frozen"].shape == np.asarray(jtrace["frozen"]).shape == (2, 4, big_d)
+    want = np.asarray(jtrace["frozen"])
+    np.testing.assert_allclose(trace["frozen"], want, rtol=1e-7,
+                               atol=float(np.spacing(np.abs(want).max())))
+    np.testing.assert_array_equal(trace["tidx"], np.asarray(jtrace["tidx"]))
+    assert all(len(set(row)) == 20 for row in trace["tidx"].reshape(-1, 20).tolist())
+    np.testing.assert_array_equal(store.load_array("vi_params"), trace["frozen"])
+    np.testing.assert_array_equal(jstore.load_array("vi_params"), np.asarray(jtrace["frozen"]))
+    assert np.isfinite(out["result"].samples).all()
+    assert sorted(out["metrics"]) == sorted(jout["metrics"])
+
+
+def test_save_vi_trace_refuses_segments_and_other_algorithms(tiny_burgers_run):
+    """JAX's ValueErrors: save_vi_trace with resumable segments, or with an
+    algorithm other than HMC."""
+    data, arts, cfg_kw, _ = tiny_burgers_run
+    cfg = VIHMCRunConfig(**dict(cfg_kw, save_vi_trace=True))
+    with pytest.raises(ValueError, match="segments"):
+        tv.run_operator(cfg, DeepONetConfig(**TINY_DEEPONET_KW), arts, data=data,
+                        segment_size=6, device="cpu")
+    with pytest.raises(ValueError, match="algorithm='hmc'"):
+        tv.run_operator(dataclasses.replace(cfg, algorithm="nuts"),
+                        DeepONetConfig(**TINY_DEEPONET_KW), arts, data=data, device="cpu")
+
+
+def test_on_device_diagnostics_match_jax():
+    """The torch effective_sample_size, potential_scale_reduction and
+    summarize against JAX's on the same (C, S, D) samples: rtol 1e-5."""
+    from vihmc_tpu.chains import diagnostics as jd
+    from vihmc_torch.chains import diagnostics as td
+
+    rng = np.random.default_rng(31)
+    x = np.cumsum(rng.normal(size=(3, 64, 5)), axis=1).astype(np.float32) * 0.1
+    x += rng.normal(size=(3, 64, 5)).astype(np.float32)
+    got = td.summarize(torch.as_tensor(x))
+    want = jax.jit(jd.summarize)(jnp.asarray(x))
+    for k in ("mean", "std", "r_hat", "ess"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(td.effective_sample_size(torch.as_tensor(x[:1])).numpy(),
+                               np.asarray(jd.effective_sample_size(jnp.asarray(x[:1]))),
+                               rtol=1e-5)

@@ -1,16 +1,61 @@
-"""Host-side MCMC diagnostics (numpy): pooled, bulk and tail ESS, R-hat.
+"""MCMC diagnostics: pooled, bulk and tail ESS, R-hat.
 
-Exact copies of the numpy functions of ``vihmc_tpu/chains/diagnostics.py``
-(``effective_sample_size_np`` :74, ``_rank_normalize_np``, ``ess_bulk_np``
-:141, ``ess_tail_np`` :151, ``rhat_rank_np`` :166,
-``potential_scale_reduction_np`` :179 and ``summarize_np`` :207), so the
-port reads its chains with the same estimators as the JAX package. They
-import neither JAX nor torch.
+The host-side functions are exact copies of the numpy functions of
+``vihmc_tpu/chains/diagnostics.py`` (``effective_sample_size_np`` :74,
+``_rank_normalize_np``, ``ess_bulk_np`` :141, ``ess_tail_np`` :151,
+``rhat_rank_np`` :166, ``potential_scale_reduction_np`` :179 and
+``summarize_np`` :207), so the port reads its chains with the same
+estimators as the JAX package. ``potential_scale_reduction``,
+``effective_sample_size`` and ``summarize`` (:16-73, :197-205) are their
+on-device counterparts: torch on ``(C, S, D)`` tensors, on the tensors' own
+device, with the FFT autocovariance of every dimension at once.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
+
+
+def potential_scale_reduction(samples: torch.Tensor) -> torch.Tensor:
+    """Split-R-hat of ``(C, S, D)`` samples -> ``(D,)`` (2C half-chains)."""
+    c, s, d = samples.shape
+    half = s // 2
+    x = torch.cat([samples[:, :half], samples[:, half:2 * half]], dim=0)
+    chain_means = x.mean(dim=1)
+    b = half * chain_means.var(dim=0, unbiased=True)
+    w = x.var(dim=1, unbiased=True).mean(dim=0)
+    var_plus = (half - 1) / half * w + b / half
+    return torch.sqrt(var_plus / w)
+
+
+def effective_sample_size(samples: torch.Tensor) -> torch.Tensor:
+    """Pooled cross-chain ESS with monotone initial-positive-sequence
+    truncation (JAX's ``effective_sample_size``): ``(C, S, D)`` -> ``(D,)``."""
+    c, s, d = samples.shape
+    x = samples - samples.mean(dim=1, keepdim=True)
+    f = torch.fft.rfft(x, 2 * s, dim=1)
+    acov = torch.fft.irfft(f * torch.conj(f), 2 * s, dim=1)[:, :s].real / s   # (C, S, D)
+    w = samples.var(dim=1, unbiased=True).mean(dim=0)                         # (D,)
+    b_over_n = (samples.mean(dim=1).var(dim=0, unbiased=True) if c > 1
+                else torch.zeros_like(w))
+    var_plus = w * (s - 1) / s + b_over_n
+    rho = 1.0 - (w - acov.mean(dim=0)) / var_plus                             # (S, D)
+    n_pairs = s // 2
+    pair = rho[:2 * n_pairs].reshape(n_pairs, 2, d).sum(dim=1)
+    pair_min = torch.cummin(pair, dim=0).values
+    tau = -1.0 + 2.0 * torch.where(pair_min > 0, pair_min, torch.zeros_like(pair_min)).sum(0)
+    tau = torch.clamp(tau, min=1.0 / math.log10(c * s + 10.0))
+    return c * s / tau
+
+
+def summarize(samples: torch.Tensor) -> dict:
+    """``mean``, ``std``, split ``r_hat`` and ``ess`` of ``(C, S, D)`` samples."""
+    return {"mean": samples.mean(dim=(0, 1)), "std": samples.std(dim=(0, 1), unbiased=False),
+            "r_hat": potential_scale_reduction(samples),
+            "ess": effective_sample_size(samples)}
 
 
 def effective_sample_size_np(samples, return_tau: bool = False):

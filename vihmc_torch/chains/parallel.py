@@ -73,13 +73,15 @@ def sample_chains_nuts(log_prob_fn: Callable, init_positions: torch.Tensor,
                        aux_refresh: Optional[Callable] = None,
                        grad_fn: Optional[Callable] = None, seed: int = 0, thin: int = 1,
                        segment_size: Optional[int] = None,
-                       progress: Optional[Callable] = None) -> SampleResult:
+                       progress: Optional[Callable] = None,
+                       aux_draw: Optional[Callable] = None) -> SampleResult:
     """Multi-chain NUTS (:func:`~vihmc_torch.hmc.nuts.nuts_sample`, batched)."""
     _diagonal_only(inv_mass)
     return nuts_sample(log_prob_fn, init_positions, config,
                        inv_mass=as_inv_mass(inv_mass, init_positions.device), aux=aux,
                        aux_refresh=aux_refresh, grad_fn=grad_fn, seed=seed, thin=thin,
-                       segment_size=segment_size, progress=progress)
+                       segment_size=segment_size, progress=progress,
+                       aux_draw=aux_draw)
 
 
 def sample_chains_chees(log_prob_fn: Callable, init_positions: torch.Tensor,
@@ -87,11 +89,13 @@ def sample_chains_chees(log_prob_fn: Callable, init_positions: torch.Tensor,
                         aux_refresh: Optional[Callable] = None,
                         grad_fn: Optional[Callable] = None, seed: int = 0, thin: int = 1,
                         segment_size: Optional[int] = None,
-                        progress: Optional[Callable] = None) -> SampleResult:
+                        progress: Optional[Callable] = None,
+                        aux_draw: Optional[Callable] = None) -> SampleResult:
     """Multi-chain ChEES-HMC: the chains are coupled through the shared step
     and trajectory length. ``aux`` is shared (JAX tiles it over the chains,
     which evaluates the same density)."""
     _diagonal_only(inv_mass)
     return chees_sample(log_prob_fn, init_positions, config, inv_mass=inv_mass, aux=aux,
                         aux_refresh=aux_refresh, grad_fn=grad_fn, seed=seed, thin=thin,
-                        segment_size=segment_size, progress=progress)
+                        segment_size=segment_size, progress=progress,
+                        aux_draw=aux_draw)

@@ -3,8 +3,9 @@
 The tests use these to put both sides on identical inputs: a flat parameter
 vector, a parameter or variational tree, a low-rank metric, a sampler state
 (HMC and NUTS: ``HMCState`` with its Welford moments, carried metric and
-momentum; ChEES: ``ChEESState``), so a test can start the port from the
-state JAX is in.
+momentum; ChEES: ``ChEESState``), a VI trainer's state (``VITrainState``
+with its Adam moments and plateau state), so a test can start the port from
+the state JAX is in.
 They take numpy arrays (what ``np.asarray`` of a JAX array gives) and never
 import JAX.
 """
@@ -19,6 +20,7 @@ from vihmc_torch.hmc.chees import ChEESState
 from vihmc_torch.hmc.kernel import HMCState, WelfordState
 from vihmc_torch.hmc.metric import LowRankMetric
 from vihmc_torch.models.deeponet import DeepONetConfig, unravel_deeponet
+from vihmc_torch.vi.train import AdamState, PlateauState, VITrainState
 
 
 def _t(x, device="cpu", dtype=torch.float32):
@@ -132,3 +134,21 @@ def chees_state_from_jax(positions, log_probs, grads, log_step, log_step_avg, h_
                       grad=_t(grads, device), da=da, log_T=_t(log_T, device),
                       adam_m=_t(adam_m, device), adam_v=_t(adam_v, device),
                       adam_t=_t(adam_t, device), aux=aux_t, iteration=iteration)
+
+
+def vi_train_state_from_jax(vp, adam_count, adam_mu, adam_nu, plateau_best, plateau_num_bad,
+                            plateau_scale, epoch, noise_param=0.0,
+                            device="cpu") -> VITrainState:
+    """A :class:`~vihmc_torch.vi.train.VITrainState` from a JAX one's arrays:
+    ``vp``, ``adam_mu`` and ``adam_nu`` are ``{'mu': tree, 'rho': tree}`` (the
+    optax ``ScaleByAdamState``'s ``mu[0]`` and ``nu[0]``: JAX's params are the
+    tuple ``(vp,)``), ``adam_count`` its count, the plateau's three fields
+    and the epoch."""
+    return VITrainState(
+        vp=vp_from_jax(vp, device), noise_param=_t(noise_param, device),
+        opt_state=AdamState(int(np.asarray(adam_count)), vp_from_jax(adam_mu, device),
+                            vp_from_jax(adam_nu, device)),
+        plateau=PlateauState(best=np.float32(plateau_best),
+                             num_bad=int(np.asarray(plateau_num_bad)),
+                             scale=np.float32(plateau_scale)),
+        epoch=int(np.asarray(epoch)))

@@ -1,12 +1,18 @@
 """Burgers operator-learning data, solved on the device with ``torch.fft``.
 
 Counterpart of ``vihmc_tpu/data/burgers.py``: the integrating-factor RK4
-pseudo-spectral solver of periodic viscous Burgers (``solve_burgers``) and the
-dataset assembly of ``generate_burgers_dataset``. The GRF initial conditions
-are NOT drawn here: the JAX package draws them from ``jax.random``, which
-PyTorch cannot replay, so ``scripts/export_port_inputs.py`` exported them once
-to ``assets/burgers_r2_port_inputs.npz`` (``u0``), next to the frozen VI draw
-of the operator row and the first rows of the JAX solution.
+pseudo-spectral solver of periodic viscous Burgers (``solve_burgers``), the
+dataset assembly, ``generate_burgers_dataset`` (the periodic GRF initial
+conditions, 12 modes with decay 2, drawn from a ``torch.Generator`` or
+given as coefficients) and ``load_burgers_mat``, the reference's
+``DeepOnet_data.mat`` loader.
+
+The pipelines' data are not drawn here: the JAX package draws its GRF from
+``jax.random``, which PyTorch cannot replay, so ``scripts/export_port_inputs.py``
+exported JAX's initial conditions once to ``assets/burgers_r2_port_inputs.npz``
+(``u0``), next to the frozen VI draw of the operator row and the first rows
+of the JAX solution, and :func:`get_burgers` solves those (or reads a
+``.mat`` when given one), where JAX's generates a new GRF from its key.
 """
 
 from __future__ import annotations
@@ -83,6 +89,48 @@ def burgers_dataset(u0: torch.Tensor, nx: int = 101, nt: int = 101,
             "solution": sol_full.reshape(u0.shape[0], nt * nx)}
 
 
+def grf_initial_conditions(a: torch.Tensor, b: torch.Tensor, n_grid: int,
+                           decay: float = 2.0, amplitude: float = 1.0) -> torch.Tensor:
+    """Periodic GRF samples ``sum_k s_k (a_k sin 2 pi k x + b_k cos 2 pi k x)``
+    on ``n_grid`` points of [0, 1) from standard normal coefficients ``a``,
+    ``b`` (N, modes), ``s_k = amplitude / k^decay`` (JAX's
+    ``_grf_initial_conditions``, burgers.py:36-47)."""
+    dev = a.device
+    x = torch.arange(n_grid, device=dev, dtype=torch.float32) / n_grid
+    k = torch.arange(1, a.shape[-1] + 1, device=dev, dtype=torch.float32)
+    scale = amplitude / k ** decay
+    phases = 2 * math.pi * k[None, :, None] * x[None, None, :]
+    return torch.sum((a * scale)[..., None] * torch.sin(phases)
+                     + (b * scale)[..., None] * torch.cos(phases), dim=1)
+
+
+def generate_burgers_dataset(generator: Optional[torch.Generator], n_functions: int,
+                             nx: int = 101, nt: int = 101, nu: float = 0.05,
+                             n_modes: int = 12, coefficients=None, device="cpu") -> dict:
+    """A reference-shaped dataset from new GRF initial conditions: branch_in
+    (N, nx), trunk_in (nt*nx, 2) with columns (t, x), solution (N, nt*nx)
+    (burgers.py:88-111). The coefficients ``(a, b)`` (N, n_modes) each are
+    standard normals from ``generator`` (``a`` first), or ``coefficients``
+    (JAX's, for a test)."""
+    if coefficients is None:
+        a = torch.randn((n_functions, n_modes), generator=generator, device=device)
+        b = torch.randn((n_functions, n_modes), generator=generator, device=device)
+    else:
+        a, b = (torch.as_tensor(np.array(c), dtype=torch.float32, device=device)
+                for c in coefficients)
+    return burgers_dataset(grf_initial_conditions(a, b, nx - 1), nx=nx, nt=nt, nu=nu)
+
+
+def load_burgers_mat(path: str, device="cpu") -> dict:
+    """The reference's ``DeepOnet_data.mat`` (keys ``branch_in``,
+    ``trunk_in``, ``solution``) as float32 tensors on ``device``."""
+    import scipy.io
+
+    mat = scipy.io.loadmat(path)
+    return {k: torch.as_tensor(np.asarray(mat[k], dtype=np.float32), device=device)
+            for k in ("branch_in", "trunk_in", "solution")}
+
+
 def load_port_inputs(path: str = PORT_INPUTS) -> dict:
     """The exported JAX draws (numpy): ``u0``, ``frozen_draw``, ``solution_rows``."""
     if not os.path.exists(path):
@@ -113,30 +161,40 @@ def get_burgers_train(device="cuda", n_rows=None, path: str = PORT_INPUTS) -> di
 
 
 def get_burgers(device="cuda", n_train=None, n_valid=None, path: str = PORT_INPUTS,
-                valid_from=None):
-    """``(train, valid)`` splits solved on ``device`` from the exported ``u0``:
-    rows ``[0:n_train]`` and ``[n_train:n_train + n_valid]``, the reference
-    loader's slicing (``get_burgers`` of the JAX package), or validation rows
-    from ``valid_from`` on. Defaults: the export's ``n_train`` (1000) and
-    ``n_valid`` (200)."""
+                valid_from=None, mat_path: Optional[str] = None):
+    """``(train, valid)`` splits: rows ``[0:n_train]`` and ``[n_train:n_train +
+    n_valid]`` (the reference loader's slicing, ``get_burgers`` of the JAX
+    package), or validation rows from ``valid_from`` on.
+
+    With ``mat_path`` the rows are the ``.mat``'s (defaults 1000 and 1000,
+    clipped to its rows as numpy slicing clips, as in JAX); else they are
+    solved on ``device`` from the exported ``u0`` (defaults: the export's
+    ``n_train`` 1000 and ``n_valid`` 200)."""
     dev = resolve_device(device)
-    z = load_port_inputs(path)
-    n_train = int(z["n_train"]) if n_train is None else int(n_train)
-    n_valid = int(z["n_valid"]) if n_valid is None else int(n_valid)
-    lo = n_train if valid_from is None else int(valid_from)
-    if max(n_train, lo + n_valid) > z["u0"].shape[0]:
-        raise ValueError(f"rows up to {max(n_train, lo + n_valid)} asked, "
-                         f"{z['u0'].shape[0]} exported")
-    u0 = torch.as_tensor(np.concatenate([z["u0"][:n_train], z["u0"][lo:lo + n_valid]]),
-                         device=dev)
-    data = burgers_dataset(u0, nx=int(z["nx"]), nt=int(z["nt"]))
+    if mat_path is not None:
+        data = load_burgers_mat(mat_path, dev)
+        n_train = 1000 if n_train is None else int(n_train)
+        n_valid = 1000 if n_valid is None else int(n_valid)
+        lo = n_train if valid_from is None else int(valid_from)
+    else:
+        z = load_port_inputs(path)
+        n_train = int(z["n_train"]) if n_train is None else int(n_train)
+        n_valid = int(z["n_valid"]) if n_valid is None else int(n_valid)
+        lo = n_train if valid_from is None else int(valid_from)
+        if max(n_train, lo + n_valid) > z["u0"].shape[0]:
+            raise ValueError(f"rows up to {max(n_train, lo + n_valid)} asked, "
+                             f"{z['u0'].shape[0]} exported")
+        u0 = torch.as_tensor(np.concatenate([z["u0"][:n_train], z["u0"][lo:lo + n_valid]]),
+                             device=dev)
+        data = burgers_dataset(u0, nx=int(z["nx"]), nt=int(z["nt"]))
+        lo = n_train
 
-    def rows(lo, hi):
-        return {"branch_in": data["branch_in"][lo:hi].contiguous(),
+    def rows(a, b):
+        return {"branch_in": data["branch_in"][a:b].contiguous(),
                 "trunk_in": data["trunk_in"],
-                "solution": data["solution"][lo:hi].contiguous()}
+                "solution": data["solution"][a:b].contiguous()}
 
-    return rows(0, n_train), rows(n_train, n_train + n_valid)
+    return rows(0, n_train), rows(lo, lo + n_valid)
 
 
 def get_burgers_baseline(device="cuda", n_train: int = 1000, n_valid: int = 200,

@@ -193,13 +193,14 @@ def chees_sample(log_prob_fn: Callable, init_positions: torch.Tensor, config: Ch
                  inv_mass=1.0, aux=None, aux_refresh: Optional[Callable] = None,
                  grad_fn: Optional[Callable] = None, seed: int = 0, thin: int = 1,
                  segment_size: Optional[int] = None,
-                 progress: Optional[Callable] = None) -> SampleResult:
+                 progress: Optional[Callable] = None,
+                 aux_draw: Optional[Callable] = None) -> SampleResult:
     """``config.num_samples`` ChEES draws of the coupled chains
     ``init_positions`` (C, d); arrays ``(C, S, ...)`` as in JAX, except
     ``step_sizes`` ``(S,)`` (shared). ``aux`` may be shared (D,) or per chain;
-    ``aux_refresh(z) -> (C, D)`` redraws every chain's from ``(C, D)``
-    standard normals. ``aux_trace`` holds the per-draw ``n_steps`` and
-    ``traj_length`` ``(S,)``. Segments, streams and thinning as in
+    ``aux_refresh(z) -> (C, D)`` redraws every chain's from
+    ``aux_draw(generator)`` (default ``(C, D)`` standard normals).
+    ``aux_trace`` holds the per-draw ``n_steps`` and ``traj_length`` ``(S,)``. Segments, streams and thinning as in
     :func:`~vihmc_torch.hmc.nuts.nuts_sample`."""
     from vihmc_torch.chains.resume import resolve_aux_draw, run_segments
 
@@ -210,7 +211,7 @@ def chees_sample(log_prob_fn: Callable, init_positions: torch.Tensor, config: Ch
     inv_mass = torch.as_tensor(inv_mass, dtype=torch.float32, device=dev)
     kernel = make_chees_kernel(log_prob_fn, config, inv_mass, aux_refresh, grad_fn)
     state = init_chees_state(log_prob_fn, init_positions, config, aux, grad_fn)
-    aux_draw = resolve_aux_draw(aux_refresh, None, aux, n_chains, dev)
+    aux_draw = resolve_aux_draw(aux_refresh, aux_draw, aux, n_chains, dev)
 
     def step(st, gen):
         return kernel(st, draw_chees_noise(gen, n_chains, dim, dev, aux_draw))

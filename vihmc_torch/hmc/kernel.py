@@ -2,8 +2,9 @@
 
 Counterpart of ``vihmc_tpu/hmc/kernel.py``. :class:`HMCConfig` has every
 field of the JAX config that has an effect there (``store_burn`` has none),
-with its default and meaning; ``store_aux_trace``, the one whose path is not
-ported, raises ``NotImplementedError`` when set. The paths:
+with its default and meaning (``store_aux_trace``: the sampler keeps each
+draw's aux as ``SampleResult.aux_trace``,
+:func:`~vihmc_torch.chains.resume.sample_chains_resumable`). The paths:
 
 * the trajectory: gradient-only leapfrog on ``grad_fn`` (a Gram field, a
   Gaussian field or a clipped autodiff field), or, with no ``grad_fn``,
@@ -108,20 +109,11 @@ class HMCConfig:
     metric_axis: Optional[str] = None   # None: per chain; 'chains': pooled Welford moments
     init_step_search: bool = False      # Algorithm-4 step search at init ('hmc_nuts')
     momentum_persistence: float = 0.0   # Horowitz partial momentum refresh alpha
-    store_aux_trace: bool = False       # not ported
-
-
-#: fields whose non-default values select paths the port does not run
-_UNPORTED = ("store_aux_trace",)
+    store_aux_trace: bool = False       # keep every draw's aux (the frozen VI draw)
 
 
 def check_config(config: HMCConfig):
-    """Raise on settings the port does not run (``NotImplementedError``) or
-    that JAX rejects (``ValueError``)."""
-    default = HMCConfig()
-    bad = [f for f in _UNPORTED if getattr(config, f) != getattr(default, f)]
-    if bad:
-        raise NotImplementedError(f"HMCConfig fields not ported yet: {', '.join(bad)}")
+    """Raise ``ValueError`` on settings that JAX rejects."""
     if config.sampler not in ("hmc", "hmc_nuts"):
         raise ValueError(f"sampler {config.sampler!r}: 'hmc' or 'hmc_nuts'")
     if config.integrator not in ("leapfrog", "splitting"):
@@ -567,7 +559,8 @@ class SampleResult:
     step_sizes: np.ndarray     # (C, S)
     divergent: np.ndarray      # (C, S) bool
     final_state: Any
-    aux_trace: Any = None      # sampler extras (NUTS tree_leaves, ChEES n_steps)
+    aux_trace: Any = None      # per-draw aux (store_aux_trace) or sampler extras
+                               # (NUTS tree_leaves, ChEES n_steps)
 
     @property
     def acceptance_rate(self) -> float:

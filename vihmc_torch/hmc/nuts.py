@@ -328,7 +328,8 @@ def nuts_sample(log_prob_fn: Callable, init_position: torch.Tensor, config: NUTS
                 inv_mass=1.0, aux=None, aux_refresh: Optional[Callable] = None,
                 grad_fn: Optional[Callable] = None, seed: int = 0, thin: int = 1,
                 segment_size: Optional[int] = None,
-                progress: Optional[Callable] = None) -> SampleResult:
+                progress: Optional[Callable] = None,
+                aux_draw: Optional[Callable] = None) -> SampleResult:
     """``config.num_samples`` NUTS draws of every chain of ``init_position``
     ((C, d); a (d,) position runs one chain and returns ``(S, ...)``).
 
@@ -336,8 +337,8 @@ def nuts_sample(log_prob_fn: Callable, init_position: torch.Tensor, config: NUTS
     from the generator streams of ``seed``, every ``thin``-th position kept
     on the device (:func:`~vihmc_torch.chains.resume.run_segments`).
     ``aux_refresh(z) -> aux`` redraws each chain's aux before each draw from
-    ``(C, D)`` standard normals. ``aux_trace`` holds ``{'tree_leaves': (C,
-    S)}``."""
+    ``aux_draw(generator)`` (default ``(C, D)`` standard normals).
+    ``aux_trace`` holds ``{'tree_leaves': (C, S)}``."""
     from vihmc_torch.chains.resume import INFO_KEYS, resolve_aux_draw, run_segments
 
     single = init_position.ndim == 1
@@ -348,7 +349,7 @@ def nuts_sample(log_prob_fn: Callable, init_position: torch.Tensor, config: NUTS
     grad_fn = normalize_log_prob(grad_fn)
     kernel = make_nuts_kernel(log_prob_fn, config, inv_mass, aux_refresh, grad_fn)
     state = init_nuts_state(log_prob_fn, q0, config, aux, inv_mass, grad_fn)
-    aux_draw = resolve_aux_draw(aux_refresh, None, aux, n_chains, dev)
+    aux_draw = resolve_aux_draw(aux_refresh, aux_draw, aux, n_chains, dev)
 
     def step(st, gen):
         return kernel(st, draw_nuts_noise(gen, n_chains, dim, config.max_depth, dev,

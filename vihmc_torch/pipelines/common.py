@@ -22,9 +22,9 @@ from vihmc_torch.core.ravel import scatter_subspace
 from vihmc_torch.dists.likelihoods import GNLL_EPS, get_likelihood, nll_log_likelihood
 from vihmc_torch.models.bayesian import (bayesian_deeponet_apply, bayesian_mlp_apply,
                                          check_mode)
-from vihmc_torch.models.deeponet import (DeepONetConfig, deeponet_apply,
+from vihmc_torch.models.deeponet import (DeepONetConfig, bc_embedding, deeponet_apply,
                                          deeponet_features, unravel_deeponet)
-from vihmc_torch.models.mlp import MLPConfig, mlp_apply
+from vihmc_torch.models.mlp import MLPConfig, mlp_apply, mlp_stack
 from vihmc_torch.ops.deeponet_merge import (fused_merge_nll, fused_paired_delta,
                                             merge_nll_reference, y_sums)
 
@@ -57,6 +57,26 @@ def make_flat_deeponet(cfg: DeepONetConfig, compute_dtype=None):
         return out.float()
 
     return apply_flat
+
+
+def subsampled_forward(cfg: DeepONetConfig, flat, branch_x, trunk_pts):
+    """``(C, B, p)`` predictions with every chain's own query points
+    ``trunk_pts`` (C, p, 2): the branch on the shared inputs, the trunk on
+    the (C, p) points (one batched matmul per layer)."""
+    params = unravel_deeponet(cfg, flat)
+    trunk_in = bc_embedding(trunk_pts) if cfg.impose_bc else trunk_pts
+    bout = mlp_stack(params["branch"], branch_x, cfg.activation)
+    tout = mlp_stack(params["trunk"], trunk_in, cfg.activation)
+    return torch.matmul(bout, tout.transpose(-1, -2)) + params["b"][:, None, None]
+
+
+def query_index_sets(generator: torch.Generator, n_sets: int, n_points: int, p: int,
+                     device) -> torch.Tensor:
+    """``(n_sets, p)`` int64: ``p`` distinct query-point indices of
+    ``n_points`` per set (JAX's ``random.choice(..., replace=False)``), one
+    ``randperm`` per set."""
+    return torch.stack([torch.randperm(n_points, generator=generator, device=device)[:p]
+                        for _ in range(n_sets)])
 
 
 def make_log_posterior(forward, y, model_loss, tau_out: float, prior=None,
@@ -113,24 +133,28 @@ def make_deeponet_nll_log_posterior(cfg: DeepONetConfig, branch_x, trunk_x, y,
 
 
 def mlp_vi_apply(cfg: MLPConfig, mode: str = "bbb"):
-    """``apply_fn(vp, batch{'x', 'y'}, eps, sample) -> (E, N, out)`` for the VI
-    trainer (``eps`` (E, D): the weight draws' normals, in place of JAX's key)."""
+    """``apply_fn(vp, batch{'x', 'y'}, eps, sample, num_samples, generator) ->
+    (E, N, out)`` for the VI trainer: ``eps`` the members' normals in place
+    of JAX's key (:func:`~vihmc_torch.models.bayesian.bayesian_mlp_apply`),
+    else ``num_samples`` members drawn from ``generator``."""
     check_mode(mode)
 
-    def apply_fn(vp, batch, eps=None, sample=True):
-        return bayesian_mlp_apply(cfg, vp, batch["x"], eps, sample, mode)
+    def apply_fn(vp, batch, eps=None, sample=True, num_samples=1, generator=None):
+        return bayesian_mlp_apply(cfg, vp, batch["x"], eps, sample, mode, generator,
+                                  num_samples)
 
     return apply_fn
 
 
 def deeponet_vi_apply(cfg: DeepONetConfig, mode: str = "bbb"):
-    """``apply_fn(vp, batch{'branch', 'trunk', 'y'}, eps, sample) -> (E, B, P)``
-    for the VI trainer; ``batch['trunk']`` is a shared grid or per-example points."""
+    """``apply_fn(vp, batch{'branch', 'trunk', 'y'}, eps, sample, num_samples,
+    generator) -> (E, B, P)`` for the VI trainer; ``batch['trunk']`` is a
+    shared grid or per-example points."""
     check_mode(mode)
 
-    def apply_fn(vp, batch, eps=None, sample=True):
+    def apply_fn(vp, batch, eps=None, sample=True, num_samples=1, generator=None):
         return bayesian_deeponet_apply(cfg, vp, batch["branch"], batch["trunk"], eps,
-                                       sample, mode)
+                                       sample, mode, generator, num_samples)
 
     return apply_fn
 

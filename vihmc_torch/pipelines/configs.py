@@ -6,9 +6,9 @@ Counterparts of ``NNHMCRunConfig``, ``NNVIRunConfig``,
 ``vihmc_tpu/pipelines/configs.py`` (:25-53, :56-83, :86-254, :257-331): the
 same fields, the same defaults, and the reference's analytic trajectory-length rule
 ``L = int(pi * post_var / (2 * step_size))``. Every field is kept so that a
-JAX run's config means the same here; :func:`vihmc_torch.pipelines.vi_hmc.
-run_subspace_hmc` raises ``NotImplementedError`` on the values the port does
-not run yet (see its docstring). The field notes are short; the JAX module
+JAX run's config means the same here (``OperatorVIRunConfig(dataset='Cone')``
+is the one value the port does not run yet: ``vi_train.run_operator`` raises
+``NotImplementedError``). The field notes are short; the JAX module
 documents each option's motivation and measurements.
 """
 

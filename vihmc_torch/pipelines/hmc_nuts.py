@@ -55,10 +55,9 @@ from vihmc_torch.dists.likelihoods import get_likelihood
 from vihmc_torch.dists.priors import IsotropicGaussianPrior
 from vihmc_torch.hmc.kernel import HMCConfig
 from vihmc_torch.io.artifacts import RunStore
-from vihmc_torch.models.deeponet import DeepONetConfig, bc_embedding, unravel_deeponet
-from vihmc_torch.models.mlp import mlp_stack
 from vihmc_torch.ops.gram_merge import make_gram_grad_full
-from vihmc_torch.pipelines.common import make_deeponet_nll_log_posterior, make_flat_deeponet
+from vihmc_torch.pipelines.common import (make_deeponet_nll_log_posterior, make_flat_deeponet,
+                                          query_index_sets, subsampled_forward)
 from vihmc_torch.pipelines.configs import OperatorHMCRunConfig
 from vihmc_torch.pipelines.hmc_full import divergence_note, host_metrics, summarize_run
 from vihmc_torch.pipelines.predict import posterior_predictive, predictive_metrics
@@ -95,17 +94,6 @@ def score_on_validation(cfg, apply_flat, prior, valid, samples, burn):
 
     log_probs, preds = posterior_predictive(lp_and_pred, pooled, chunk_size=EVAL_CHUNK)
     return predictive_metrics(preds, y, log_probs), preds, log_probs
-
-
-def subsampled_forward(cfg: DeepONetConfig, flat, branch_x, trunk_pts):
-    """``(C, B, p)`` predictions with every chain's own query points
-    ``trunk_pts`` (C, p, 2): the branch on the shared inputs, the trunk on
-    the (C, p) points."""
-    params = unravel_deeponet(cfg, flat)
-    trunk_in = bc_embedding(trunk_pts) if cfg.impose_bc else trunk_pts
-    bout = mlp_stack(params["branch"], branch_x, cfg.activation)
-    tout = mlp_stack(params["trunk"], trunk_in, cfg.activation)
-    return torch.matmul(bout, tout.transpose(-1, -2)) + params["b"][:, None, None]
 
 
 def run(cfg: OperatorHMCRunConfig = OperatorHMCRunConfig(), data=None, num_chains: int = 1,
@@ -147,8 +135,7 @@ def run(cfg: OperatorHMCRunConfig = OperatorHMCRunConfig(), data=None, num_chain
             return like(pred, y[:, idx].transpose(0, 1), cfg.tau_out) + prior.log_prob(flat)
 
         def aux_draw(gen):
-            return torch.stack([torch.randperm(n_grid, generator=gen, device=dev)[:cfg.p]
-                                for _ in range(num_chains)])
+            return query_index_sets(gen, num_chains, n_grid, cfg.p, dev)
 
         def aux_refresh(z):
             return z

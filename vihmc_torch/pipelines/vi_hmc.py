@@ -33,15 +33,28 @@ Counterpart of ``vihmc_tpu/pipelines/vi_hmc.py`` (``make_spec``,
 * ``gauss_field_auto`` (vi_hmc.py:306-311, :408-431): a short HMC probe with
   the VI-Gaussian field, kept when its mean acceptance reaches
   ``gauss_field_floor``, else the configured field;
+* query subsampling (``sample_data``, vi_hmc.py:614-626): a set of ``p``
+  of the shared grid's points, redrawn for every chain before every draw
+  and fixed within a trajectory, as sampler state: the aux becomes
+  ``{'frozen', 'tidx'}`` (REFRESH redraws both); the Gram field and the
+  fused density are off (vi_hmc.py:641-660), as in JAX;
+* ``save_vi_trace`` (HMC only): every draw's frozen vectors, stored as
+  ``vi_params`` (C, S, D) -- under subsampling the trace's ``frozen`` part;
+* ``checkpoint_dir``: the HMC sampler saves after every segment and resumes
+  from the latest (:mod:`vihmc_torch.chains.resume`); JAX runs NUTS and
+  ChEES in one call and ignores ``segment_size`` and ``checkpoint_dir``
+  there, so the port ignores ``checkpoint_dir`` for them too (it still runs
+  them in segments, for the thinning);
 * posterior-predictive scoring of the pooled samples on the validation split
   against the frozen vectors the samples were drawn with (DRAW: the draw;
   REFRESH: each chain's last one; MEAN: the VI mean) and the numpy
-  diagnostics battery.
+  diagnostics battery; :func:`reevaluate_nn` and :func:`reevaluate_operator`
+  re-score a run store's ``hmc_params`` (vi_hmc.py:733-766).
 
-Not ported yet -- the pipeline raises ``NotImplementedError`` on them:
-query subsampling (``sample_data``) and ``save_vi_trace``. It raises JAX's
-``ValueError`` on the combinations JAX rejects (``lowrank_rank`` or
-``gauss_field_auto`` with NUTS/ChEES, ChEES with ``adapt_mass``).
+It raises JAX's ``ValueError`` on the combinations JAX rejects
+(``lowrank_rank`` or ``gauss_field_auto`` with NUTS/ChEES or subsampling,
+ChEES with ``adapt_mass``, ``save_vi_trace`` with segments or another
+algorithm than HMC).
 
 JAX draws the DRAW/REFRESH initial frozen vector and the Lanczos start
 vectors from threefry keys, which PyTorch cannot replay: the port draws them
@@ -121,7 +134,8 @@ from vihmc_torch.ops.gram_merge import (grid_stride_subset, infer_grid_shape,
                                         make_gram_grad_full)
 from vihmc_torch.pipelines.common import (conditional_warm_start,
                                           make_deeponet_nll_log_posterior,
-                                          make_flat_deeponet, make_flat_mlp)
+                                          make_flat_deeponet, make_flat_mlp,
+                                          query_index_sets, subsampled_forward)
 from vihmc_torch.pipelines.configs import VIHMCRunConfig
 from vihmc_torch.pipelines.postprocess import error_report, error_sigma_correlation
 from vihmc_torch.pipelines.predict import (posterior_predictive,
@@ -132,7 +146,7 @@ EVAL_CHUNK = 32
 #: generator streams of a run's seed (core/device.stream_generator; the
 #: sampler's segments are streams 0, 1, ...)
 _FROZEN_STREAM, _INIT_STREAM, _DATA_STREAM = 700_001, 700_002, 700_003
-_LANCZOS_STREAM, _AUTO_STREAM = 700_004, 700_005
+_LANCZOS_STREAM, _AUTO_STREAM, _SUBSAMPLE_STREAM = 700_004, 700_005, 700_006
 #: the gauss_field_auto probe samples with the streams of seed + this
 _PROBE_SEED_OFFSET = 500_000
 #: the sampling algorithms of stage 3
@@ -160,16 +174,7 @@ def make_subspace_prior(cfg: VIHMCRunConfig, spec: SubspaceSpec):
     return IsotropicGaussianPrior(scale=cfg.prior_var ** 0.5)
 
 
-def _check_ported(cfg: VIHMCRunConfig):
-    """Raise ``NotImplementedError`` on the settings the port does not run yet."""
-    unported = {
-        "sample_data": cfg.sample_data,
-        "save_vi_trace": cfg.save_vi_trace,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)} "
-                                  f"(see vihmc_torch/pipelines/vi_hmc.py)")
+def _check_algorithm(cfg: VIHMCRunConfig):
     if cfg.algorithm not in ALGORITHMS:
         raise ValueError(f"algorithm {cfg.algorithm!r}: one of {ALGORITHMS}")
 
@@ -186,7 +191,7 @@ def build_subspace_posterior(cfg: VIHMCRunConfig, full_forward, y, artifacts,
     ``inv_mass`` is the VI variances (``vi_mass``), the diagonal
     conditional-Laplace variances (``laplace_mass``) or 1.
     """
-    _check_ported(cfg)
+    _check_algorithm(cfg)
     dev = torch.device(device)
     spec = make_spec(artifacts, dev)
     if full_ll is None:
@@ -340,8 +345,9 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
                      eval_forward=None, y_eval=None, store: Optional[RunStore] = None,
                      full_ll=None, full_grad=None, segment_size=None, progress=None,
                      sample_thin: int = 1, evaluate: bool = True, seed: int = 0,
-                     frozen=None, lanczos_v0=None, probe_v0=None, device="cuda"):
-    """Subspace VI-HMC with ``cfg.algorithm`` (see module doc for what is ported).
+                     frozen=None, lanczos_v0=None, probe_v0=None, subsample=None,
+                     checkpoint_dir=None, tidx0=None, device="cuda"):
+    """Subspace VI-HMC with ``cfg.algorithm`` (see the module doc).
 
     ``full_ll``: the likelihood override (fused merge-NLL); ``full_grad``: a
     full-flat-vector likelihood-gradient oracle for the trajectory (the Gram
@@ -351,8 +357,12 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
     ``gauss_field_auto`` probes it first. ``lowrank_rank`` builds the
     low-rank metric by Lanczos at the VI mean from ``lanczos_v0`` (default:
     normals of the run's seed); ``probe_v0`` is the 'auto' probe's start.
+    ``subsample``: ``{'n_points', 'p', 'forward'(flat (C, D), tidx (C, p))
+    -> (C, ...), 'y_fn'(tidx (C, p)) -> (C, ...)}`` turns on per-draw query
+    subsampling (the first set ``tidx0``, else drawn from the run's seed).
     ``segment_size`` draws per segment (all draws in one when None), every
-    ``sample_thin``-th kept. Returns ``result`` (:class:`SampleResult`),
+    ``sample_thin``-th kept; ``checkpoint_dir`` saves and resumes the HMC
+    sampler there. Returns ``result`` (:class:`SampleResult`),
     ``spec``, ``prior``, ``frozen``, the sampler's ``log_prob``, ``grad_fn``
     and ``inv_mass``, ``algorithm``, ``phases_s``, ``auto_probe`` (under
     'auto'), ``gauss_field_used`` and ``gauss_field_probe_acceptance``
@@ -376,8 +386,14 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
     # the diagonal view of the metric: the clip and the warm start stay
     # diagonal when the kinetic metric is low-rank + diagonal
     inv_mass_diag = inv_mass
+    if cfg.algorithm != "hmc" and cfg.save_vi_trace:
+        raise ValueError("save_vi_trace is supported for algorithm='hmc' only (the "
+                         "reference's VI-HMC uses plain HMC)")
+    if cfg.save_vi_trace and segment_size is not None:
+        raise ValueError("save_vi_trace is not recorded across resumable segments; drop "
+                         "segment_size")
     if cfg.lowrank_rank:
-        if cfg.algorithm != "hmc":
+        if cfg.algorithm != "hmc" or subsample is not None:
             raise ValueError("lowrank_rank requires algorithm='hmc' and no query subsampling")
         diag = inv_mass * torch.ones(spec.subspace_dim, device=dev)
         inv_mass_diag = diag
@@ -390,6 +406,8 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
 
     grad_fn = None
     if full_grad is not None:
+        if subsample is not None:
+            raise ValueError("full_grad requires no query subsampling")
         if cfg.gauss_field is not None and not cfg.gauss_field_auto:
             raise ValueError("gauss_field and a full_grad oracle are mutually exclusive "
                              "trajectory fields (set gauss_field_auto to probe-and-fall-back)")
@@ -398,12 +416,18 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
         grad_fn = gaussian_field_grad(spec.sub_mu(), spec.sub_sigma(), cfg.gauss_field)
     gauss_fn = None
     if cfg.gauss_field_auto:
-        if cfg.algorithm != "hmc":
+        if cfg.algorithm != "hmc" or subsample is not None:
             raise ValueError("gauss_field_auto requires algorithm='hmc' and no query "
                              "subsampling")
         gauss_fn = gaussian_field_grad(spec.sub_mu(), spec.sub_sigma(),
                                        1.0 if cfg.gauss_field is None else cfg.gauss_field)
+    aux_refresh = make_aux_refresh(spec, FrozenPolicy(cfg.frozen_policy))
+    aux_draw = None
+    if subsample is not None:
+        log_prob, aux0, aux_refresh, aux_draw = _subsampled_posterior(
+            cfg, subsample, spec, prior, aux0, aux_refresh, tidx0, seed, dev)
     if cfg.clip_grad is not None:
+        # after the subsample rebinding, so the clip wraps the sampled target
         if grad_fn is not None:
             grad_fn = clipped_grad_fn(grad_fn, cfg.clip_grad, inv_mass=inv_mass_diag)
         else:
@@ -412,7 +436,6 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
         if gauss_fn is not None:
             gauss_fn = clipped_grad_fn(gauss_fn, cfg.clip_grad, inv_mass=inv_mass_diag)
 
-    aux_refresh = make_aux_refresh(spec, FrozenPolicy(cfg.frozen_policy))
     gen_init = stream_generator(dev, seed, _INIT_STREAM)
     inits = chain_inits(cfg, spec, gen_init)
     if cfg.init_optimize:
@@ -457,7 +480,8 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
                                 target_accept=min(cfg.target_accept, 0.651))
         res = sample_chains_chees(log_prob, inits, chees_cfg, inv_mass=inv_mass, aux=aux0,
                                   aux_refresh=aux_refresh, grad_fn=grad_fn, seed=seed,
-                                  thin=sample_thin, segment_size=seg, progress=progress)
+                                  thin=sample_thin, segment_size=seg, progress=progress,
+                                  aux_draw=aux_draw)
     elif cfg.algorithm == "nuts":
         nuts_cfg = NUTSConfig(num_samples=cfg.num_samples, max_depth=cfg.nuts_max_depth,
                               step_size=cfg.step_size, burn=cfg.burn_, adapt_step_size=True,
@@ -465,7 +489,8 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
                               mass_schedule=cfg.mass_schedule)
         res = sample_chains_nuts(log_prob, inits, nuts_cfg, inv_mass=inv_mass, aux=aux0,
                                  aux_refresh=aux_refresh, grad_fn=grad_fn, seed=seed,
-                                 thin=sample_thin, segment_size=seg, progress=progress)
+                                 thin=sample_thin, segment_size=seg, progress=progress,
+                                 aux_draw=aux_draw)
     else:
         hmc_cfg = HMCConfig(num_samples=cfg.num_samples, num_leapfrog=cfg.L,
                             step_size=cfg.step_size, burn=cfg.burn_,
@@ -474,10 +499,12 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
                             mass_schedule=cfg.mass_schedule, jitter_l=cfg.jitter_l,
                             jitter_eps=cfg.jitter_eps, jitter_low_frac=cfg.jitter_low_frac,
                             max_step=cfg.max_step, da_axis=cfg.da_axis,
-                            adapt_forever=cfg.adapt_forever)
+                            adapt_forever=cfg.adapt_forever,
+                            store_aux_trace=cfg.save_vi_trace)
         res = sample_chains_resumable(log_prob, inits, hmc_cfg, seg, inv_mass, aux0,
                                       grad_fn=grad_fn, thin=sample_thin, seed=seed,
-                                      progress=progress, aux_refresh=aux_refresh)
+                                      progress=progress, aux_refresh=aux_refresh,
+                                      aux_draw=aux_draw, checkpoint_dir=checkpoint_dir)
     sync(dev)
     phases["sampling_s"] = time.perf_counter() - t0
 
@@ -497,6 +524,8 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
         # score against the frozen vectors the samples were drawn with: DRAW
         # the fixed draw, REFRESH each chain's last draw (C, D), MEAN the VI mean
         base = {"draw": aux0, "refresh": res.final_state.aux, "mean": None}[cfg.frozen_policy]
+        if isinstance(base, dict):  # subsampled: {'frozen', 'tidx'}
+            base = base["frozen"]
         evald = evaluate_samples(eval_cfg, spec, prior, eval_forward, y_eval,
                                  res.samples, frozen_base=base)
         evald["metrics"]["acceptance_rate"] = res.acceptance_rate
@@ -508,15 +537,59 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
     if store is not None:
         store.save_config(cfg)
         store.save_array("hmc_params", res.samples)
+        if cfg.save_vi_trace and res.aux_trace is not None:
+            trace = res.aux_trace
+            # the frozen VI draw in effect at each draw, per chain (the
+            # reference's vi_params); under subsampling the 'frozen' part
+            store.save_array("vi_params", trace["frozen"] if isinstance(trace, dict)
+                             else trace)
         if "metrics" in out:
             store.save_array("sample_mse", out["metrics"]["sample_mse"])
     return out
 
 
+def _subsampled_posterior(cfg: VIHMCRunConfig, subsample: dict, spec: SubspaceSpec, prior,
+                          frozen0, frozen_refresh, tidx0, seed: int, dev):
+    """The query-subsampled target (vi_hmc.py:382-404): ``(log_prob, aux0,
+    aux_refresh, aux_draw)`` with the aux ``{'frozen', 'tidx'}``; every
+    draw redraws each chain's index set (and under REFRESH its frozen
+    vector, from the normals drawn first)."""
+    like = get_likelihood(cfg.loss)
+    forward, y_fn = subsample["forward"], subsample["y_fn"]
+    n_points, p = int(subsample["n_points"]), int(subsample["p"])
+    idx = spec.idx
+    n_chains, big_d = cfg.num_chains, spec.mu.shape[0]
+
+    def log_prob(q_sub, aux):
+        tidx = aux["tidx"]
+        tidx = tidx.expand(q_sub.shape[0], -1) if tidx.ndim == 1 else tidx
+        with true_f32():
+            pred = forward(scatter_subspace(aux["frozen"], q_sub, idx), tidx)
+        y = y_fn(tidx)
+        return like(pred.reshape(y.shape), y, cfg.tau_out) + prior.log_prob(q_sub)
+
+    def aux_draw(gen):
+        z = (torch.randn((n_chains, big_d), generator=gen, device=dev)
+             if frozen_refresh is not None else None)
+        return z, query_index_sets(gen, n_chains, n_points, p, dev)
+
+    def aux_refresh(draw):
+        z, tidx = draw
+        return {"frozen": frozen_refresh(z) if frozen_refresh is not None else frozen0,
+                "tidx": tidx}
+
+    if tidx0 is None:
+        tidx0 = query_index_sets(stream_generator(dev, seed, _SUBSAMPLE_STREAM), 1,
+                                 n_points, p, dev)[0]
+    tidx0 = torch.as_tensor(np.asarray(tidx0.cpu() if isinstance(tidx0, torch.Tensor)
+                                       else tidx0), dtype=torch.int64, device=dev)
+    return log_prob, {"frozen": frozen0, "tidx": tidx0}, aux_refresh, aux_draw
+
+
 def run_nn(cfg: VIHMCRunConfig, mlp_cfg: MLPConfig, artifacts, data=None,
            store: Optional[RunStore] = None, segment_size=None, progress=None,
            sample_thin: int = 1, evaluate: bool = True, seed: int = 0, frozen=None,
-           lanczos_v0=None, probe_v0=None, device="cuda"):
+           lanczos_v0=None, probe_v0=None, checkpoint_dir=None, device="cuda"):
     """NN regression VI-HMC (the reference's ``main_VI_HMC.py``): autograd
     trajectories through the MLP likelihood on the synthetic data.
 
@@ -529,12 +602,8 @@ def run_nn(cfg: VIHMCRunConfig, mlp_cfg: MLPConfig, artifacts, data=None,
     if cfg.coarse_stride or cfg.fn_stride or cfg.grad_dtype == "bfloat16":
         raise ValueError("coarse_stride/fn_stride/grad_dtype apply to the "
                          "operator workload's Gram gradient only")
-    _check_ported(cfg)
-    if data is None:
-        data = regression_data(noise_std=cfg.tau_out ** (0.5 if cfg.loss == "NLL" else -0.5),
-                               generator=stream_generator(dev, seed, _DATA_STREAM), device=dev)
-    else:
-        data = split_to(data, dev)
+    _check_algorithm(cfg)
+    data = _nn_data(cfg, data, seed, dev)
     apply_flat = make_flat_mlp(mlp_cfg)
     out = run_subspace_hmc(
         cfg, full_forward=lambda flat: apply_flat(flat, data["x_train"]),
@@ -542,22 +611,35 @@ def run_nn(cfg: VIHMCRunConfig, mlp_cfg: MLPConfig, artifacts, data=None,
         eval_forward=lambda flat: apply_flat(flat, data["x_val"]), y_eval=data["y_val"],
         store=store, segment_size=segment_size, progress=progress, sample_thin=sample_thin,
         evaluate=evaluate, seed=seed, frozen=frozen, lanczos_v0=lanczos_v0,
-        probe_v0=probe_v0, device=dev)
+        probe_v0=probe_v0, checkpoint_dir=checkpoint_dir, device=dev)
     out["data"] = data
     out["apply_flat"] = apply_flat
     return out
+
+
+def _nn_data(cfg: VIHMCRunConfig, data, seed: int, dev) -> dict:
+    """``data`` on ``dev``, or the synthetic regression data of ``seed``."""
+    if data is not None:
+        return split_to(data, dev)
+    return regression_data(noise_std=cfg.tau_out ** (0.5 if cfg.loss == "NLL" else -0.5),
+                           generator=stream_generator(dev, seed, _DATA_STREAM), device=dev)
 
 
 def run_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artifacts,
                  data=None, store: Optional[RunStore] = None, use_fused: bool = False,
                  use_gram: Optional[bool] = None, segment_size=None, progress=None,
                  sample_thin: int = 1, evaluate: bool = True, seed: int = 0,
-                 frozen=None, lanczos_v0=None, probe_v0=None, device="cuda"):
+                 frozen=None, lanczos_v0=None, probe_v0=None, checkpoint_dir=None,
+                 mat_path=None, tidx0=None, device="cuda"):
     """Operator VI-HMC on Burgers (the reference's ``main_VI_HMC_burgers.py``).
 
     ``data``: ``(train, valid)`` dicts of ``branch_in`` (N, nx), ``trunk_in``
     (P, 2), ``solution`` (N, P) -- tensors or arrays -- or None for
-    :func:`~vihmc_torch.data.burgers.get_burgers` on ``device``.
+    :func:`~vihmc_torch.data.burgers.get_burgers` on ``device`` (of the
+    ``.mat`` at ``mat_path`` when given). With ``cfg.sample_data`` and
+    ``cfg.p`` below the grid's points, each chain draws ``p`` of them before
+    every draw (the first set ``tidx0``, else from the run's seed), and the
+    composed density replaces the fused one.
     ``use_fused``: the fused merge-NLL density (one ``merge_sums`` launch per
     evaluation for all chains; NLL only). ``use_gram``: the Gram trajectory
     gradient, on the stride subsets of ``coarse_stride``/``fn_stride`` when
@@ -567,29 +649,34 @@ def run_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artifacts,
     device is the card unless the caller asks for the CPU.
     """
     dev = resolve_device(device)
-    _check_ported(cfg)
+    _check_algorithm(cfg)
     gauss_only = cfg.gauss_field is not None and not cfg.gauss_field_auto
     if gauss_only and (cfg.coarse_stride or cfg.fn_stride):
         raise ValueError("gauss_field replaces the Gram trajectory oracle; drop "
                          "coarse_stride/fn_stride (or set gauss_field_auto to "
                          "probe-and-fall-back)")
     t0 = time.perf_counter()
-    if data is None:
-        train, valid = get_burgers(dev)
-    else:
-        train, valid = (split_to(s, dev) for s in data)
+    train, valid = _operator_data(data, mat_path, dev)
     sync(dev)
     t_data = time.perf_counter() - t0
     apply_flat = make_flat_deeponet(deeponet_cfg)
     bx, tx, y = train["branch_in"], train["trunk_in"], train["solution"]
 
+    subsample = None
+    # a shared (P, 2) grid only (the reference: sample_data "Always false for cone")
+    if cfg.sample_data and tx.ndim == 2 and cfg.p < tx.shape[0]:
+        subsample = {"n_points": tx.shape[0], "p": cfg.p,
+                     "forward": lambda flat, tidx: subsampled_forward(deeponet_cfg, flat, bx,
+                                                                      tx[tidx]),
+                     "y_fn": lambda tidx: y[:, tidx].transpose(0, 1)}
     full_ll = None
-    if use_fused and cfg.loss == "NLL":
+    if use_fused and cfg.loss == "NLL" and subsample is None:
         full_ll = make_deeponet_nll_log_posterior(deeponet_cfg, bx, tx, y, cfg.tau_out)
     # 'auto' resolves to HMC unless the probe picks NUTS, and the Gram field
     # is the gauss_field_auto probe's fallback: both are Gram-eligible
     gram_eligible = (cfg.algorithm in ("hmc", "auto") and cfg.loss == "NLL"
-                     and not deeponet_cfg.noise_neurons and tx.ndim == 2 and not gauss_only)
+                     and subsample is None and not deeponet_cfg.noise_neurons
+                     and tx.ndim == 2 and not gauss_only)
     full_grad = None
     if (use_gram and not gauss_only) or (use_gram is None and gram_eligible):
         subset = fn_subset = None
@@ -614,11 +701,60 @@ def run_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artifacts,
         y_eval=valid["solution"], store=store, full_ll=full_ll, full_grad=full_grad,
         segment_size=segment_size, progress=progress, sample_thin=sample_thin,
         evaluate=evaluate, seed=seed, frozen=frozen, lanczos_v0=lanczos_v0,
-        probe_v0=probe_v0, device=dev)
+        probe_v0=probe_v0, subsample=subsample, checkpoint_dir=checkpoint_dir, tidx0=tidx0,
+        device=dev)
     out["phases_s"] = {"data_s": t_data, **out["phases_s"]}
     out["data"] = (train, valid)
     out["apply_flat"] = apply_flat
     return out
+
+
+def _operator_data(data, mat_path, dev):
+    if data is None:
+        return get_burgers(dev, mat_path=mat_path)
+    return tuple(split_to(s, dev) for s in data)
+
+
+# ---------------------------------------------------------------------------
+# Re-evaluation: reload saved samples and re-score them without sampling
+# ---------------------------------------------------------------------------
+
+def _rescore(cfg, artifacts, store: RunStore, eval_forward, y_eval, frozen_base,
+             keep_predictions, dev):
+    spec = make_spec(artifacts, dev)
+    prior = make_subspace_prior(cfg, spec)
+    return evaluate_samples(cfg, spec, prior, eval_forward, y_eval,
+                            store.load_array("hmc_params"), keep_predictions=keep_predictions,
+                            frozen_base=frozen_base)
+
+
+def reevaluate_nn(cfg: VIHMCRunConfig, mlp_cfg: MLPConfig, artifacts, store: RunStore,
+                  data=None, seed: int = 0, frozen_base=None, keep_predictions: int = 64,
+                  device="cuda"):
+    """Reload ``hmc_params`` from ``store`` and re-score them on the
+    validation data (the reference's ``validate``, main_VI_HMC.py:384-447):
+    ``data`` as :func:`run_nn` takes it (by default the same synthetic data
+    as a :func:`run_nn` of ``seed``). ``frozen_base`` (D,) or (C, D) is the
+    base the samples scatter into (default: the VI mean, as in JAX)."""
+    dev = resolve_device(device)
+    data = _nn_data(cfg, data, seed, dev)
+    apply_flat = make_flat_mlp(mlp_cfg)
+    return _rescore(cfg, artifacts, store, lambda flat: apply_flat(flat, data["x_val"]),
+                    data["y_val"], frozen_base, keep_predictions, dev)
+
+
+def reevaluate_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artifacts,
+                        store: RunStore, data=None, mat_path=None, frozen_base=None,
+                        keep_predictions: int = 64, device="cuda"):
+    """Operator twin (the reference's ``eval_VI_HMC``,
+    main_VI_HMC_burgers.py:304-349): ``data`` or ``mat_path`` as
+    :func:`run_operator` takes them."""
+    dev = resolve_device(device)
+    _, valid = _operator_data(data, mat_path, dev)
+    apply_flat = make_flat_deeponet(deeponet_cfg)
+    return _rescore(cfg, artifacts, store,
+                    lambda flat: apply_flat(flat, valid["branch_in"], valid["trunk_in"]),
+                    valid["solution"], frozen_base, keep_predictions, dev)
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,22 @@
 """VI training pipelines (NN regression and the Burgers DeepONet), and the
 stage-1/2 entry point.
 
-Counterpart of ``vihmc_tpu/pipelines/vi_train.py`` (:35-289) on its
-float-beta paths: ``run_nn`` trains full-batch (``train_fullbatch_scan``),
-``run_operator`` minibatches the functions (``_run_operator_scan``): every
-epoch reshuffles, drops the trailing partial batch and draws ``cfg.p`` trunk
-points per example when ``p`` is below the grid; evaluation uses the first
-``min(batch_size, n)`` functions on the full grid. The epoch loop is
-:func:`vihmc_torch.vi.train.run_epochs`. Every random draw (the data noise,
-the initial ``mu``/``rho``, the shuffles, the subsamples, the ensemble
-normals) comes from one ``torch.Generator`` seeded with ``seed``; the
-initial variational parameters can be injected (``init_vp``). The Cone
-dataset is not ported and raises ``NotImplementedError``.
+Counterpart of ``vihmc_tpu/pipelines/vi_train.py`` (:35-289). With a
+constant float ``beta_type`` (the shipped configs) ``run_nn`` trains
+full-batch (``train_fullbatch_scan``) and ``run_operator`` minibatches the
+functions (``_run_operator_scan``): every epoch reshuffles, drops the
+trailing partial batch and draws ``cfg.p`` trunk points per example when
+``p`` is below the grid; the epoch loop is
+:func:`vihmc_torch.vi.train.run_epochs`. A string ``beta_type`` schedule
+runs JAX's Python loop, :func:`vihmc_torch.vi.train.train`, whose operator
+batches keep the trailing partial batch (JAX's ``make_batches``).
+Evaluation uses the first ``min(batch_size, n)`` functions on the full
+grid. Every random draw (the data noise, the initial ``mu``/``rho``, the
+shuffles, the subsamples, the ensemble normals) comes from one
+``torch.Generator`` seeded with ``seed``; the initial variational parameters
+can be injected (``init_vp``), and ``mat_path`` reads the Burgers data from
+the reference's ``.mat``. The Cone dataset is not ported and raises
+``NotImplementedError`` (ROADMAP Queue 1).
 
 The entry point runs stage 1 and stage 2 of the operator pipeline on the
 card at the configuration of ``scripts/run_operator_stage12.py`` that made
@@ -50,11 +55,19 @@ from vihmc_torch.pipelines.configs import (NNVIRunConfig, OperatorVIRunConfig,
                                            SensitivityRunConfig)
 from vihmc_torch.sensitivity import flatten_mean_std
 from vihmc_torch.vi.elbo import ELBOConfig
-from vihmc_torch.vi.train import VIConfig, VITrainer, check_vi_config, run_epochs
+from vihmc_torch.vi.train import (VIConfig, VITrainer, check_vi_config, init_train_state,
+                                  run_epochs, train)
 
 #: generator streams of a run's seed (core/device.stream_generator)
 _DATA_STREAM, _INIT_STREAM, _TRAIN_STREAM = 900_001, 900_002, 900_003
 REPO = os.path.dirname(ASSETS)
+
+
+def nn_data(cfg: NNVIRunConfig, seed: int, device) -> dict:
+    """The synthetic regression data of :func:`run_nn` with ``seed``."""
+    return regression_data(cfg.n_train, cfg.n_val, noise_std=cfg.noise,
+                           generator=stream_generator(device, seed, _DATA_STREAM),
+                           device=device)
 
 
 def _init_vp(num_params, cfg, init_vp, dev, seed):
@@ -78,7 +91,20 @@ def _finish(cfg, trainer, final, best, metrics, data, store):
         store.save_config(cfg)
         _save_vi_posterior(store, best)
     return {"state": final, "best_state": best, "metrics": metrics, "data": data,
-            "model": trainer.model, "trainer": trainer}
+            "model": None if trainer is None else trainer.model, "trainer": trainer}
+
+
+def _train_loop(cfg, apply_fn, vp, batches, valid_batch, train_eval_batch, train_size, gen,
+                store):
+    """A string ``beta_type``: the functional trainer (``model`` and
+    ``trainer`` are None in the result; the states are ``VITrainState``)."""
+    def callback(epoch, row, st):
+        if store is not None:
+            store.append_metrics_row(row)
+
+    with true_f32():
+        return train(apply_fn, init_train_state(vp, cfg.vi), cfg.vi, batches, valid_batch,
+                     train_eval_batch, train_size, generator=gen, callback=callback)
 
 
 def run_nn(cfg: NNVIRunConfig = NNVIRunConfig(), seed: int = 0, data=None,
@@ -88,17 +114,18 @@ def run_nn(cfg: NNVIRunConfig = NNVIRunConfig(), seed: int = 0, data=None,
     (epochs, 4), ``data``, the ``model`` and its ``trainer``."""
     dev = resolve_device(device)
     check_vi_config(cfg.vi)
-    if data is None:
-        data = regression_data(cfg.n_train, cfg.n_val, noise_std=cfg.noise,
-                               generator=stream_generator(dev, seed, _DATA_STREAM), device=dev)
-    else:
-        data = split_to(data, dev)
+    data = nn_data(cfg, seed, dev) if data is None else split_to(data, dev)
     vp = _init_vp(cfg.model.num_params, cfg, init_vp, dev, seed)
-    model = BayesianFlat(mlp_vi_apply(cfg.model, cfg.mode), vp["mu"], vp["rho"])
-    trainer = VITrainer(model, cfg.vi, train_size=data["x_train"].shape[0],
-                        generator=stream_generator(dev, seed, _TRAIN_STREAM))
     train_batch = {"x": data["x_train"], "y": data["y_train"]}
     valid_batch = {"x": data["x_val"], "y": data["y_val"]}
+    gen = stream_generator(dev, seed, _TRAIN_STREAM)
+    if not isinstance(cfg.vi.beta_type, float):
+        final, best, metrics = _train_loop(
+            cfg, mlp_vi_apply(cfg.model, cfg.mode), vp, lambda g, epoch: [train_batch],
+            valid_batch, train_batch, data["x_train"].shape[0], gen, store)
+        return _finish(cfg, None, final, best, metrics, data, store)
+    model = BayesianFlat(mlp_vi_apply(cfg.model, cfg.mode), vp["mu"], vp["rho"])
+    trainer = VITrainer(model, cfg.vi, train_size=data["x_train"].shape[0], generator=gen)
     callback = None if store is None else (lambda e, row, t: store.append_metrics_row(row))
     with true_f32():
         final, best, metrics = run_epochs(trainer, lambda epoch: [train_batch], valid_batch,
@@ -108,22 +135,25 @@ def run_nn(cfg: NNVIRunConfig = NNVIRunConfig(), seed: int = 0, data=None,
 
 def run_operator(cfg: OperatorVIRunConfig = OperatorVIRunConfig(), seed: int = 0,
                  data=None, store: Optional[RunStore] = None, init_vp=None,
-                 device="cuda", epochs: Optional[int] = None, callback=None) -> dict:
+                 device="cuda", epochs: Optional[int] = None, callback=None,
+                 mat_path: Optional[str] = None) -> dict:
     """Operator VI training on Burgers (minibatched; see module doc).
 
     ``data``: ``(train, valid)`` dicts of ``branch_in``, ``trunk_in`` (a
     shared (P, 2) grid), ``solution``, or None for
     :func:`~vihmc_torch.data.burgers.get_burgers` (``cfg.n_train`` and
-    ``cfg.n_valid`` rows of the exported initial conditions). ``epochs``
-    overrides ``cfg.vi.epochs``; ``callback(epoch, row, trainer)`` runs after
-    each epoch.
+    ``cfg.n_valid`` rows of the exported initial conditions, or of the
+    ``.mat`` at ``mat_path``). ``epochs`` overrides ``cfg.vi.epochs`` (float
+    ``beta_type``); ``callback(epoch, row, trainer)`` runs after each epoch.
     """
     dev = resolve_device(device)
     if cfg.dataset != "Burgers":
-        raise NotImplementedError(f"dataset {cfg.dataset!r} is not ported (Burgers only)")
+        # the reference's error surface (Operator_network/VI/utils.py:57)
+        raise NotImplementedError(f"dataset {cfg.dataset!r} is not ported (Burgers only; "
+                                  f"the Cone dataset is ROADMAP Queue 1 item 1)")
     check_vi_config(cfg.vi)
     if data is None:
-        train, valid = get_burgers(dev, cfg.n_train, cfg.n_valid)
+        train, valid = get_burgers(dev, cfg.n_train, cfg.n_valid, mat_path=mat_path)
     else:
         train, valid = (split_to(s, dev) for s in data)
     if train["trunk_in"].ndim != 2:
@@ -133,28 +163,40 @@ def run_operator(cfg: OperatorVIRunConfig = OperatorVIRunConfig(), seed: int = 0
     n_batches = n_train // bs
     subsampling = cfg.p < n_grid
     vp = _init_vp(cfg.model.num_params, cfg, init_vp, dev, seed)
-    model = BayesianFlat(deeponet_vi_apply(cfg.model, cfg.mode), vp["mu"], vp["rho"])
     gen = stream_generator(dev, seed, _TRAIN_STREAM)
+    nb = min(bs, valid["branch_in"].shape[0])
+    valid_batch = {"branch": valid["branch_in"][:nb], "trunk": valid["trunk_in"],
+                   "y": valid["solution"][:nb]}
+    train_eval_batch = {"branch": train["branch_in"][:nb], "trunk": train["trunk_in"],
+                        "y": train["solution"][:nb]}
+
+    def batch_of(idx, g):
+        sol = train["solution"][idx]
+        if subsampling:
+            trunk, y = subsample_trunk({"trunk_in": train["trunk_in"], "solution": sol},
+                                       cfg.p, generator=g)
+        else:
+            trunk, y = train["trunk_in"], sol
+        return {"branch": train["branch_in"][idx], "trunk": trunk, "y": y}
+
+    if not isinstance(cfg.vi.beta_type, float):
+        def all_batches(g, epoch):  # JAX's make_batches: the partial batch kept
+            order = torch.randperm(n_train, generator=g, device=dev)
+            return [batch_of(order[i:i + cfg.batch_size], g)
+                    for i in range(0, n_train, cfg.batch_size)]
+
+        final, best, metrics = _train_loop(
+            cfg, deeponet_vi_apply(cfg.model, cfg.mode), vp, all_batches, valid_batch,
+            train_eval_batch, n_train * n_grid, gen, store)
+        return _finish(cfg, None, final, best, metrics, (train, valid), store)
+    model = BayesianFlat(deeponet_vi_apply(cfg.model, cfg.mode), vp["mu"], vp["rho"])
     # the reference's train_size: N_train x trunk points
     trainer = VITrainer(model, cfg.vi, train_size=n_train * n_grid, generator=gen)
 
     def batches(epoch):
         order = torch.randperm(n_train, generator=gen, device=dev)[:n_batches * bs]
         for idx in order.view(n_batches, bs):
-            branch = train["branch_in"][idx]
-            sol = train["solution"][idx]
-            if subsampling:
-                trunk, y = subsample_trunk({"trunk_in": train["trunk_in"], "solution": sol},
-                                           cfg.p, generator=gen)
-            else:
-                trunk, y = train["trunk_in"], sol
-            yield {"branch": branch, "trunk": trunk, "y": y}
-
-    nb = min(bs, valid["branch_in"].shape[0])
-    valid_batch = {"branch": valid["branch_in"][:nb], "trunk": valid["trunk_in"],
-                   "y": valid["solution"][:nb]}
-    train_eval_batch = {"branch": train["branch_in"][:nb], "trunk": train["trunk_in"],
-                        "y": train["solution"][:nb]}
+            yield batch_of(idx, gen)
 
     def on_epoch(epoch, row, t):
         if store is not None:

@@ -6,7 +6,8 @@ operator variant: the mean times the training-set size, so a minibatch loss
 is an unbiased estimate of the full-data NLL). The noise variance is
 ``fixed_noise_var``; a learned log-variance (``learn_noise``) and the
 heteroscedastic head (``noise_type=1``) are not ported yet and raise
-``NotImplementedError``. :func:`get_beta` is a verbatim copy.
+``NotImplementedError``. :func:`get_beta` and :func:`accuracy` are
+verbatim copies.
 """
 
 from __future__ import annotations
@@ -48,6 +49,15 @@ def elbo_loss(cfg: ELBOConfig, prediction: torch.Tensor, target: torch.Tensor, k
     else:
         data_term = nll.mean(-1) * train_size
     return data_term + beta * kl
+
+
+def accuracy(outputs, targets) -> float:
+    """Classification accuracy (the reference's ``acc``): argmax over the
+    last axis against integer targets; numpy, as JAX's."""
+    import numpy as np
+
+    pred = np.asarray(outputs).argmax(axis=-1)
+    return float(np.mean(pred == np.asarray(targets).reshape(pred.shape)))
 
 
 def get_beta(batch_idx: int, m: int, beta_type: Union[float, str],
