@@ -97,9 +97,30 @@ Phases, each printed with its wall time:
     every window's last draw and nowhere else -- and the NN row with
     momentum persistence 0.5.
 
-Before each driven path (3, 6, 7, 8, 9, 10, 11, 12-21) every kernel count is
-set to 0, and it is read just after (stages 1 and 2, ``hmc_split``,
-``hmc_full`` and the NN paths of 18 and 21 run no kernel of the port). Every depth cut is printed. The second-to-last line is a JSON object describing every
+22. the command line on the card; 23. checkpointed resume at full width; 24.
+    query subsampling at full width;
+25. the Cone flow at full width on the per-example query path: stage 1 at
+    ``DeepONetConfig()`` on 1000 generated training and 1000 validation
+    examples (batch 128, a few epochs), stage 2 on the validation examples
+    (the 90 % cut), stage 3 with 16 chains under DRAW on the per-example
+    composed density, a few draws: no kernel launch (the merge kernels need a
+    shared grid, in JAX too); then ``canonicalize_deeponet`` of the chains'
+    last draws, and of the same draws moved to a random element of their
+    symmetry orbit (one per chain), leaves every draw's validation
+    predictions unchanged and maps both to one canonical form; the
+    weight-space R-hat is printed before and after;
+26. the learned noise at full width on Burgers: stage 1 with ``learn_noise``
+    (``noise_type=0``, a scalar log-variance, which must move), then with
+    the heteroscedastic head (``noise_neurons=10``, ``noise_type=1``: the
+    head's mean log-variance on the validation batch must move), p = 512, a
+    few epochs each, finite losses, no kernel launch.
+
+Phase 3 also prints the operator row's ``mfu`` block and phase 18 the NN
+row's, with its CPU baseline (``vs_baseline``): both blocks present with 0 <
+``mfu`` <= 1. Before each driven path (3, 6, 7, 8, 9, 10, 11, 12-26) every
+kernel count is set to 0, and it is read just after (stages 1 and 2,
+``hmc_split``, ``hmc_full``, the NN paths of 18 and 21 and phases 25-26 run
+no kernel of the port). Every depth cut is printed. The second-to-last line is a JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result. It needs a CUDA
 device and the rest of the repository; it imports nothing of JAX.
@@ -122,6 +143,8 @@ import numpy as np
 import torch
 
 from vihmc_torch import bench_nn
+from vihmc_torch.chains.diagnostics import potential_scale_reduction_np
+from vihmc_torch.models.symmetry import canonicalize_deeponet, random_orbit_element
 from vihmc_torch.bench_operator import (build_operator_problem, operator_fns,
                                         run_operator_row)
 from vihmc_torch.core.precision import true_f32
@@ -155,7 +178,8 @@ from vihmc_torch.pipelines import cli, hmc_full, hmc_nuts, hmc_split, sensitivit
 from vihmc_torch.pipelines.common import (make_deeponet_nll_log_posterior,
                                           make_flat_deeponet)
 from vihmc_torch.pipelines.configs import (NNHMCRunConfig, NNVIRunConfig,
-                                           OperatorHMCRunConfig, SensitivityRunConfig,
+                                           OperatorHMCRunConfig, OperatorVIRunConfig,
+                                           SensitivityRunConfig,
                                            SplitHMCRunConfig, VIHMCRunConfig)
 from vihmc_torch.pipelines.vi_hmc import (build_subspace_posterior, run_stage3,
                                           stage3_config)
@@ -197,6 +221,11 @@ PERSIST_DRAWS = 24                       # NN row with --persist 0.5 (2880)
 CLI_DRAWS, CLI_EPOCHS = 40, 200          # phase 22: NN vi-hmc draws (100), vi-nn epochs (10,000)
 RESUME_DRAWS, RESUME_SEGMENT = 30, 10    # phase 23 (450 draws in segments of 90)
 SUB_DRAWS, SUB_P = 8, 1000               # phase 24: draws (450), query points kept
+CONE_EPOCHS, CONE_DRAWS, CONE_KEEP = 3, 16, 4   # phase 25: VI epochs (1000), stage-3
+#                                               # draws (450), last draws canonicalized
+NOISE_EPOCHS, NOISE_HEAD = 2, 10         # phase 26: VI epochs (1000), head width (our choice)
+NN_BASELINE_SECONDS = 20.0               # phase 18: CPU baseline cap (bench: 120 s)
+CANON_PRED_RTOL = 1e-4                   # canonical draw's predictions: of max |prediction|
 DISPATCH_OPS = 2000                      # one-element adds timed for the host's dispatch cost
 
 KERNELS = {
@@ -865,10 +894,11 @@ def nn_row_phase(dev):
               keys=(2,))
     print(f"  depth cut: one key (row: 5 keys after the warm run), draws {kw['draws']}, "
           f"burn {kw['draws'] // 5}, segments of {kw['segment']} (row: 2880, 576, 480); "
-          f"chains {kw['chains']}, L {kw['L']}, thin {kw['thin']}")
+          f"chains {kw['chains']}, L {kw['L']}, thin {kw['thin']}; CPU baseline capped at "
+          f"{NN_BASELINE_SECONDS:g} s (row: 120 s)")
     reset_counts()
     t0 = time.perf_counter()
-    st = bench_nn.bench_nn(device=dev, **kw)
+    st = bench_nn.bench_nn(device=dev, baseline_seconds=NN_BASELINE_SECONDS, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     expect_no_launches("NN row")
@@ -883,6 +913,13 @@ def nn_row_phase(dev):
     check(math.isfinite(st["acceptance"]) and st["acceptance"] > 0.0,
           f"NN row: acceptance {st['acceptance']}")
     check(math.isfinite(st["ess_per_s"]) and st["ess_per_s"] > 0.0, "NN row: fs-ESS/s")
+    check_mfu("NN row", st)
+    print("  NN row CPU baseline (one chain, the same posterior and L, torch on the CPU): "
+          + json.dumps({k_: st.get(k_) for k_ in (
+              "torch_cpu_samples_per_s", "vs_baseline", "torch_cpu_ess_per_s",
+              "vs_baseline_ess_like_for_like")}))
+    check(st.get("vs_baseline") is not None and st["vs_baseline"] > 0.0,
+          "NN row: no vs_baseline")
     # one transition of the row at 1024 chains: device time against wall
     log_prob, aux0, refresh, spec, *_ = bench_nn.build_nn_problem(dev)
     d = spec.subspace_dim
@@ -1022,7 +1059,7 @@ def adaptive_metric_phase(dev):
     pk = dict(chains=1024, L=96, draws=PERSIST_DRAWS, thin=1, segment=PERSIST_DRAWS, keys=(3,), persist=0.5)
     print(f"  NN row with --persist 0.5: draws {pk['draws']} (row 2880), one key")
     reset_counts()
-    st = bench_nn.bench_nn(device=dev, **pk)
+    st = bench_nn.bench_nn(device=dev, skip_baseline=True, **pk)
     expect_no_launches("NN row, persist 0.5")
     print(f"  NN row, persist 0.5: acceptance {st['acceptance']:.4f}, {st['draws_per_s']:.3f}"
           f" draws/s, fs-ESS/s {st['ess_per_s']:.3f}")
@@ -1236,6 +1273,170 @@ def subsample_phase(dev, data, arts, tmp, stride_draw_s):
     torch.cuda.empty_cache()
 
 
+def check_mfu(label: str, stats: dict):
+    """A row's ``mfu`` block: present, with 0 < mfu <= 1 against the card's peak."""
+    m = stats.get("mfu")
+    check(m is not None, f"{label}: no mfu block")
+    print(f"  {label} mfu: model_flops_total {m['model_flops_total']:.6g}, "
+          f"flops_per_draw_per_chain {m['flops_per_draw_per_chain']}, achieved_tflops "
+          f"{m['achieved_tflops']}, peak {m['peak_tflops_bf16']} TFLOP/s bf16 "
+          f"({m['device_kind']}), mfu {m['mfu']}")
+    check(m["mfu"] is not None and 0.0 < m["mfu"] <= 1.0, f"{label}: mfu {m['mfu']}")
+
+
+def cone_phase(dev):
+    """Phase 25: the Cone flow at full width (DeepONetConfig(), 1000 + 1000
+    generated examples, one query point each), depth cut."""
+    cfg = OperatorVIRunConfig(dataset="Cone", n_train=1000, n_valid=1000, batch_size=128,
+                              vi=dataclasses.replace(OperatorVIRunConfig().vi,
+                                                     epochs=CONE_EPOCHS))
+    print(f"  depth cut: VI epochs {CONE_EPOCHS} (config {OperatorVIRunConfig().vi.epochs}), "
+          f"stage-3 draws {CONE_DRAWS} (450); widths as configured: {cfg.model.num_params} "
+          f"parameters, in_branch {cfg.model.in_branch}, batch {cfg.batch_size}")
+    walls = []
+    t_last = [0.0]
+
+    def on_epoch(epoch, row, trainer):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        walls.append(now - t_last[0])
+        t_last[0] = now
+
+    reset_counts()
+    t_last[0] = time.perf_counter()
+    vi_out = vi_train.run_operator(cfg, seed=0, device=dev, callback=on_epoch)
+    expect_no_launches("Cone stage 1")
+    train, valid = vi_out["data"]
+    m = vi_out["metrics"]
+    print(f"  Cone data: branch {tuple(train['branch_in'].shape)}, trunk "
+          f"{tuple(train['trunk_in'].shape)}, y {tuple(train['solution'].shape)}; valid "
+          f"{tuple(valid['solution'].shape)}")
+    print(f"  Cone stage 1: s per epoch {[round(w, 3) for w in walls]}; valid MSE "
+          f"{m[0, 3]:.5f} -> {m[-1, 3]:.5f}")
+    check(train["trunk_in"].shape == (1000, 1, 2) and bool(np.isfinite(m).all()),
+          "Cone stage 1: layout or metrics")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    sens = sensitivity.run_operator(vi_out["best_state"].vp, cfg.model, valid,
+                                    SensitivityRunConfig(importance_threshold=0.90,
+                                                         batch_chunk=100))
+    torch.cuda.synchronize()
+    sens_s = time.perf_counter() - t0
+    expect_no_launches("Cone stage 2")
+    print(f"  Cone stage 2: {sens_s:.2f} s for 1000 per-example Jacobians (chunks of 100); "
+          f"subspace {sens['num_sensitive']} of {cfg.model.num_params}")
+    check(bool(np.isfinite(sens["scores"]).all()) and sens["num_sensitive"] > 0,
+          "Cone stage 2: scores")
+
+    hcfg = VIHMCRunConfig(num_samples=CONE_DRAWS, num_chains=16, frozen_policy="draw",
+                          step_size=0.01, num_leapfrog=8, tau_out=1.0, vi_mass=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = vi_hmc.run_operator(hcfg, cfg.model, {k: sens[k] for k in ("mu", "sigma", "indices")},
+                              data=vi_out["data"], device=dev)
+    torch.cuda.synchronize()
+    s3_s = time.perf_counter() - t0
+    expect_no_launches("Cone stage 3")
+    res = out["result"]
+    samp_s = out["phases_s"]["sampling_s"]
+    print(f"  Cone stage 3: 16 chains x {CONE_DRAWS} draws, L {hcfg.L}, DRAW, composed "
+          f"per-example density: {1e3 * samp_s / CONE_DRAWS:.2f} ms per draw "
+          f"(sampling {samp_s:.2f} s, run {s3_s:.2f} s), acceptance {res.acceptance_rate:.4f}, "
+          f"expected MSE of the mean {float(out['metrics']['expected_mse_of_mean']):.5f}")
+    check(bool(np.isfinite(res.samples).all())
+          and res.samples.shape == (16, CONE_DRAWS, sens["num_sensitive"]),
+          "Cone stage 3: samples")
+
+    # canonicalization of each chain's last draws against the VI mean, and of
+    # the same draws moved to another element of their orbit, one per chain
+    t0 = time.perf_counter()
+    idx = np.asarray(sens["indices"])
+    sub = res.samples[:, -CONE_KEEP:, :]
+    full = np.repeat(out["frozen"].cpu().numpy().astype(np.float64)[None], 16 * CONE_KEEP, 0)
+    full[:, idx] = sub.reshape(-1, sub.shape[-1])
+    scrambled = np.stack([random_orbit_element(i // CONE_KEEP, v, cfg.model)
+                          for i, v in enumerate(full)])
+    canon = canonicalize_deeponet(full, sens["mu"], cfg.model, permute=True)
+    canon_s = canonicalize_deeponet(scrambled, sens["mu"], cfg.model, permute=True)
+    canon_s_err = float(np.abs(canon_s - canon).max())
+    apply_flat = make_flat_deeponet(cfg.model)
+    with torch.no_grad(), true_f32():
+        preds = [apply_flat(torch.as_tensor(v, dtype=torch.float32, device=dev),
+                            valid["branch_in"], valid["trunk_in"])
+                 for v in (full, scrambled, canon, canon_s)]
+    errs = [(p_ - preds[0]).abs().max().item() for p_ in preds[1:]]
+    scale = preds[0].abs().max().item()
+
+    def rhat(v):
+        return float(np.nanmax(potential_scale_reduction_np(v[:, idx].reshape(16, CONE_KEEP,
+                                                                                -1))))
+
+    print(f"  canonicalize_deeponet (signs and permutations, reference the VI mean) of "
+          f"{16 * CONE_KEEP} draws (the last {CONE_KEEP} per chain) and of the same draws "
+          f"moved to a random orbit element per chain, in {time.perf_counter() - t0:.2f} s: "
+          f"validation predictions max abs change {errs[0]:.3g} (orbit element), "
+          f"{errs[1]:.3g} (canonical), {errs[2]:.3g} (canonical of the orbit elements), "
+          f"max |prediction| {scale:.3g}, tolerance {CANON_PRED_RTOL} of it; canonical of the "
+          f"orbit elements vs canonical: max abs {canon_s_err:.3g}; "
+          f"{float(np.mean(canon != full)):.4f} of the draws' coordinates moved")
+    print(f"  max R-hat over the subspace coordinates, 16 chains x {CONE_KEEP} draws: the "
+          f"draws {rhat(full):.4f}, their orbit elements {rhat(scrambled):.4f} before and "
+          f"{rhat(canon_s):.4f} after canonicalization (the draws canonical {rhat(canon):.4f})")
+    check(max(errs) <= CANON_PRED_RTOL * scale,
+          f"canonicalization changed predictions by {max(errs)}")
+    check(canon_s_err <= 1e-9, f"canonical forms of one orbit differ by {canon_s_err}")
+    return {"stage3_ms_per_draw": 1e3 * samp_s / CONE_DRAWS}
+
+
+def noise_phase(dev, data):
+    """Phase 26: stage 1 on Burgers with the learned noise, at full width."""
+    base = OperatorVIRunConfig()
+    print(f"  depth cut: {NOISE_EPOCHS} epochs each (config {base.vi.epochs}); p 512, batch "
+          f"{base.batch_size}, num_ens {base.vi.num_ens}; head width {NOISE_HEAD} (our choice)")
+    for model, noise_type in ((DeepONetConfig(), 0),
+                              (DeepONetConfig(noise_neurons=NOISE_HEAD), 1)):
+        elbo = dataclasses.replace(base.vi.elbo, learn_noise=True, noise_type=noise_type)
+        cfg = OperatorVIRunConfig(model=model, n_train=data[0]["branch_in"].shape[0],
+                                  n_valid=data[1]["branch_in"].shape[0], p=512,
+                                  vi=dataclasses.replace(base.vi, epochs=NOISE_EPOCHS,
+                                                         elbo=elbo))
+        walls, heads = [], []
+        t_last = [0.0]
+        apply_flat = make_flat_deeponet(model)
+        vb = data[1]
+
+        def on_epoch(epoch, row, trainer):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            walls.append(now - t_last[0])
+            if noise_type:
+                # the head's mean log-variance on 128 validation functions
+                with torch.no_grad(), true_f32():
+                    heads.append(apply_flat(trainer.model.mu[None], vb["branch_in"][:128],
+                                            vb["trunk_in"])[1].mean().item())
+            t_last[0] = time.perf_counter()
+
+        reset_counts()
+        t_last[0] = time.perf_counter()
+        out = vi_train.run_operator(cfg, seed=0, data=data, device=dev, callback=on_epoch)
+        expect_no_launches(f"learned noise, noise_type {noise_type}")
+        m = out["metrics"]
+        label = (f"noise_type {noise_type}" + (f", noise_neurons {NOISE_HEAD}"
+                                               if noise_type else ""))
+        print(f"  {label}: s per epoch {[round(w, 3) for w in walls]}; train loss "
+              f"{[float(f'{v:.6g}') for v in m[:, 0]]}; exp(noise_param) "
+              f"{[float(f'{v:.6g}') for v in m[:, 4]]}")
+        check(m.shape[1] == 5 and bool(np.isfinite(m).all()), f"{label}: metrics {m.shape}")
+        if noise_type == 0:
+            check(float(out["state"].noise_param) != 0.0, "noise_param did not move")
+            continue
+        print(f"  {label}: the head's mean log-variance on 128 validation functions after "
+              f"each epoch {[float(f'{v:.6g}') for v in heads]}; scalar noise_param "
+              f"{float(out['state'].noise_param)} (the head gives the variance)")
+        check(len(heads) > 1 and heads[0] != heads[-1], "the noise head did not move")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke run on one GPU")
     ap.add_argument("--draws", type=int, default=240, help="operator-row draws")
@@ -1364,8 +1565,10 @@ def main(argv=None) -> int:
                              problem=problem)
     row_counts = read_counts()
     print(f"  launches in the operator row: {row_counts} for {args.draws} draws")
-    check(row_counts["paired_sums"] == args.draws,
-          f"paired_sums launched {row_counts['paired_sums']} times for {args.draws} draws")
+    # one launch per draw, and one in the transition the mfu block counts
+    check(row_counts["paired_sums"] == args.draws + 1,
+          f"paired_sums launched {row_counts['paired_sums']} times for {args.draws} draws "
+          f"+ the FLOP count's transition")
     check(row_counts["merge_sums"] == 0 and row_counts["leapfrog_update"] == 0,
           f"unexpected launches in the row: {row_counts}")
     acc = stats["acceptance"]
@@ -1383,6 +1586,7 @@ def main(argv=None) -> int:
     print("  phases (s): " + ", ".join(f"{k_} {v:.2f}" for k_, v in stats["phases_s"].items()))
     print(f"  segment walls (s): {[round(w, 2) for w in stats['segment_walls_s']]}")
     print(f"  lowrank metric: {stats['lowrank_metric']}")
+    check_mfu("operator row", stats)
     print("  diagnostics (reduced depth): " + json.dumps(
         {k_: stats.get(k_) for k_ in ("ess_median", "ess_bulk_median", "ess_min",
                                       "rhat_max")}))
@@ -1705,6 +1909,18 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         subsample_phase(dev, data, arts, tmp, stride_draw_s)
         phase("24 query subsampling", t0)
+
+    # ---- phase 25: the Cone flow at full width (per-example query points) ----
+    t0 = time.perf_counter()
+    cone_phase(dev)
+    torch.cuda.empty_cache()
+    phase("25 Cone flow", t0)
+
+    # ---- phase 26: the learned noise and the heteroscedastic head ----
+    t0 = time.perf_counter()
+    noise_phase(dev, data)
+    torch.cuda.empty_cache()
+    phase("26 learned noise", t0)
 
     launches = {"paired_sums": row_counts["paired_sums"],
                 "merge_sums": s3_counts["merge_sums"],

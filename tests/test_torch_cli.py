@@ -172,10 +172,22 @@ def test_cli_vi_hmc_round4_recipe_flags(tmp_path):
 
 
 def test_cli_operator_cone_is_refused(tmp_path):
-    """vi-operator --dataset Cone raises NotImplementedError naming the
-    ROADMAP item that ports it."""
-    with pytest.raises(NotImplementedError, match="Cone.*ROADMAP Queue 1"):
-        cli.main(["vi-operator", "--dataset", "Cone", "--out", str(tmp_path)] + CPU)
+    """vi-operator --dataset Cone runs (it raised NotImplementedError until
+    the Cone dataset was ported): one epoch on 16 generated examples at the
+    reference DeepONet, with the sensitivity stage on the 8 validation
+    examples' own query points; a dataset outside JAX's choices is refused
+    by the parser, as JAX's."""
+    out = str(tmp_path)
+    assert cli.main(["vi-operator", "--dataset", "Cone", "--epochs", "1", "--n-train", "16",
+                     "--n-valid", "8", "--with-sensitivity", "--out", out, "--uid", "cone"]
+                    + CPU) == 0
+    rows = np.loadtxt(tmp_path / "cone" / "output.txt", ndmin=2)
+    assert rows.shape == (1, 4) and np.isfinite(rows).all()
+    scores = np.load(tmp_path / "cone" / "sensitivity_scores.npy")
+    assert scores.shape == (172_401,) and np.isfinite(scores).all()
+    for parser in (cli.build_parser(), jcli.build_parser()):
+        with pytest.raises(SystemExit):
+            parser.parse_args(["vi-operator", "--dataset", "Wedge"])
 
 
 def test_reevaluate_of_a_jax_run_matches_jax(tmp_path):

@@ -570,3 +570,20 @@ def test_cli_vi_hmc_on_cuda(cuda_device, tmp_path):
                      "--out", out, "--uid", "hmc", "--device", "cuda"]) == 0
     assert np.isfinite(np.load(tmp_path / "hmc" / "hmc_params.npy")).all()
     assert np.load(tmp_path / "hmc" / "vi_params.npy").shape == (2, 6, 141)
+
+
+def test_kernel_flops_counted_with_the_launches(cuda_device):
+    """The mfu blocks' FLOP count (``core.profiling.count_flops``) sees the
+    kernels' products, which torch's counter cannot: one ``paired_sums``
+    launch adds its two products (4 C B P K) and one ``merge_sums`` launch
+    its one (2 C B P K), on top of the matmuls torch issues in the call."""
+    from vihmc_torch.core.profiling import count_flops
+    from vihmc_torch.ops.deeponet_merge import merge_sums
+
+    c, b, p, k = 3, 64, 130, 16
+    feats = _features(17, c, b, p, k, cuda_device)
+    x = torch.ones((5, 7), device=cuda_device)
+    flops, _ = count_flops(lambda: (paired_sums(*feats), x @ x.T))
+    assert flops == 4 * c * b * p * k + 2 * 5 * 7 * 5
+    flops, _ = count_flops(lambda: merge_sums(feats[0], feats[1], feats[4]))
+    assert flops == 2 * c * b * p * k

@@ -14,11 +14,9 @@ import pytest
 
 #: names a JAX package exports that the port does not have yet (ROADMAP Queue 1)
 NOT_PORTED = {
-    "core": {"ravel_pytree", "segment_sizes", "segment_slices", "split_like",
-             "fold_in_str", "matmul_precision", "LogProbError", "has_nan_or_inf",
-             "gradient", "jacobian", "hessian"},
-    "models": {"canonicalize_mlp", "canonicalize_deeponet"},
-    "dists": {"normal_logpdf", "diag_normal_logpdf_sum"},
+    "core": set(),
+    "models": set(),
+    "dists": set(),
     "hmc": set(),
     "chains": {"make_chain_mesh", "shard_batch", "shard_query", "initialize_distributed",
                "global_chain_mesh", "chains_per_host"},
@@ -26,9 +24,7 @@ NOT_PORTED = {
     "pipelines": set(),
     "vi": set(),
     "sensitivity": set(),
-    "data": {"load_reference_regression_data", "CONE_STATS", "ConeStats", "cone_to_operator_splits",
-             "generate_cone_dataset", "get_cone", "load_cone", "normalize_cone",
-             "normalize_cone_inputs"},
+    "data": set(),
     "io": set(),
 }
 
@@ -40,18 +36,23 @@ MUST_EXPORT = {
     "chains": {"sample_chains", "sample_chains_nuts", "sample_chains_chees", "ChainSampler",
                "potential_scale_reduction_np", "effective_sample_size",
                "potential_scale_reduction", "summarize"},
-    "dists": {"LIKELIHOODS"},
+    "dists": {"LIKELIHOODS", "normal_logpdf", "diag_normal_logpdf_sum"},
     "ops": {"grid_stride_subset", "infer_grid_shape"},
     "pipelines": {"configs", "make_flat_deeponet", "make_flat_mlp", "make_log_posterior",
                   "mlp_vi_apply", "deeponet_vi_apply", "posterior_predictive",
                   "predictive_metrics"},
-    "core": {"per_segment_vector"},
+    "core": {"per_segment_vector", "ravel_pytree", "segment_sizes", "segment_slices",
+             "split_like", "fold_in_str", "matmul_precision", "LogProbError",
+             "has_nan_or_inf", "gradient", "jacobian", "hessian"},
     "models": {"get_activation", "VariationalParams", "mean_params", "bbb_linear_apply",
-               "lrt_linear_apply", "bbb_conv2d_apply", "lrt_conv2d_apply"},
+               "lrt_linear_apply", "bbb_conv2d_apply", "lrt_conv2d_apply",
+               "canonicalize_mlp", "canonicalize_deeponet"},
     "io": {"save_checkpoint", "load_checkpoint", "latest_step"},
     "vi": {"accuracy", "VITrainState", "init_train_state", "make_train_step",
            "make_eval_fn", "train"},
-    "data": {"generate_burgers_dataset", "load_burgers_mat"},
+    "data": {"generate_burgers_dataset", "load_burgers_mat", "load_reference_regression_data",
+             "CONE_STATS", "ConeStats", "cone_to_operator_splits", "generate_cone_dataset",
+             "get_cone", "load_cone", "normalize_cone", "normalize_cone_inputs"},
 }
 
 

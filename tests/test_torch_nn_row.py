@@ -136,11 +136,14 @@ def test_function_space_diagnostics_and_stack_runs_match_jax(tmp_path):
 
 def test_bench_nn_prints_every_key_of_jax_row(capsys, one_torch_thread):
     """The port's row at 8 chains x 40 draws (L 8, one key) prints one JSON
-    line with every key of JAX's row but the left-out ``mfu`` block, finite
-    headline numbers, and the provenance of the committed asset."""
-    jax_keys = set(bench.bench_nn(True, skip_baseline=True)) - {"mfu"}
+    line with every key of JAX's row, the ``mfu`` block with JAX's field
+    names (no peak and no ``mfu`` on the CPU) and the CPU baseline's
+    ``vs_baseline``, finite headline numbers, and the provenance of the
+    committed asset."""
+    jrow = bench.bench_nn(True, skip_baseline=True)
+    jax_keys = set(jrow)
     bench_nn.main(["--device", "cpu", "--chains", "8", "--draws", "40", "--segment", "40",
-                   "--thin", "8", "--L", "8", "--keys", "2"])
+                   "--thin", "8", "--L", "8", "--keys", "2", "--baseline-seconds", "5"])
     line = capsys.readouterr().out.strip().splitlines()[-1]
     row = json.loads(line)
     assert jax_keys <= set(row), sorted(jax_keys - set(row))
@@ -149,6 +152,9 @@ def test_bench_nn_prints_every_key_of_jax_row(capsys, one_torch_thread):
     for k in ("ess_per_s", "ess_median", "draws_per_s", "acceptance", "adapted_step"):
         assert np.isfinite(row[k]) and row[k] > 0, k
     assert row["posterior_provenance"]["assets"] == "nn_stage12.npz"
+    assert set(row["mfu"]) == set(jrow["mfu"])
+    assert row["mfu"]["mfu"] is None and row["mfu"]["model_flops_total"] > 0
+    assert row["vs_baseline"] > 0 and row["torch_cpu_samples_per_s"] > 0
     # the fixed-step mode, momentum persistence and one sample_chains call
     st = bench_nn.bench_nn(device="cpu", chains=4, draws=10, segment=10, thin=1, L=4,
                            step=0.05, persist=0.5, keys=(3,))
@@ -266,3 +272,100 @@ def test_gauss_field_auto_keeps_or_falls_back(floor, nn_stage3_inputs, one_torch
     g = out["grad_fn"](q, out["frozen"])
     assert (g.abs().max() < 1e-4) == (floor == 0.0)  # the Gaussian score is 0 at its mean
     assert np.isfinite(out["result"].samples).all()
+
+
+def _hand_nn_flops(chains, draws, L, refresh=False, n_points=20,
+                   dims=((1, 10), (10, 10), (10, 1))):
+    """The NN row's matmul FLOPs reckoned by hand: a forward is 2 N d_in d_out
+    per layer; a gradient is the forward, the weight gradients (the same
+    again) and the input gradients of every layer but the first (the data
+    needs none); a transition pays L gradients and two forwards (lp0
+    recomputed, lp1 at the proposal: the unpaired MH test), and under
+    REFRESH one more gradient (the field at q0 under the new frozen
+    vector)."""
+    fwd = sum(2 * n_points * i * o for i, o in dims)
+    grad = 2 * fwd + sum(2 * n_points * i * o for i, o in dims[1:])
+    return chains * draws * ((L + refresh) * grad + 2 * fwd)
+
+
+def test_nn_row_flops_reckoned_by_hand(jax_nn_problem, capsys):
+    """The port's FLOP count of the NN row at the row's shapes (1024 chains,
+    L 96, 2880 draws, the coupled recipe and the clipped autodiff field)
+    equals the hand count exactly, and so do a row with trajectory-length
+    jitter (the masked steps are computed, so all L count) and one under
+    REFRESH. Its ratio to
+    JAX's ``bench._sampling_flops`` (XLA's HLO cost analysis, which also
+    counts the elementwise work) is printed and lies in (0.5, 1]."""
+    from vihmc_torch.bench_mfu import sampling_flops
+    from vihmc_torch.hmc.kernel import clipped_grad_fn
+    from vihmc_tpu.hmc import HMCConfig as JConfig
+
+    chains, L, draws = 1024, 96, 2880
+    log_prob, aux0, refresh, spec, *_ = bench_nn.build_nn_problem("cpu")
+    inv_mass = spec.sub_sigma() ** 2
+    field = clipped_grad_fn(log_prob, 13.0 * spec.subspace_dim ** 0.5, inv_mass=inv_mass,
+                            is_grad=False)
+    inits = spec.sub_mu().expand(chains, -1).clone()
+    got = sampling_flops(log_prob, bench_nn.nn_config(draws, L, 0.1, False), inits,
+                         inv_mass, aux0, draws, grad_fn=field)
+    assert got == _hand_nn_flops(chains, draws, L)
+    got_l = sampling_flops(log_prob, bench_nn.nn_config(40, 8, 0.1, True), inits[:4],
+                           inv_mass, aux0, 40, grad_fn=field)
+    assert got_l == _hand_nn_flops(4, 40, 8)
+    r_lp, r_aux, r_refresh, r_spec, *_ = bench_nn.build_nn_problem("cpu", "refresh")
+    got_r = sampling_flops(r_lp, bench_nn.nn_config(40, 8, 0.1, False), inits[:4], inv_mass,
+                           r_aux, 40, grad_fn=clipped_grad_fn(
+                               r_lp, 13.0 * r_spec.subspace_dim ** 0.5, inv_mass=inv_mass,
+                               is_grad=False), aux_refresh=r_refresh)
+    assert r_refresh is not None and got_r == _hand_nn_flops(4, 40, 8, refresh=True)
+    jp = jax_nn_problem
+    jfield = j_clip(jp["log_prob"], 13.0 * len(jp["idx"]) ** 0.5,
+                    inv_mass=jp["spec"].sub_sigma() ** 2, is_grad=False)
+    jcfg = JConfig(num_samples=draws, num_leapfrog=L, step_size=0.1, burn=draws // 5,
+                   sampler="hmc_nuts", target_accept=0.65, da_axis="chains",
+                   adapt_forever=True, jitter_eps=True, jitter_low_frac=0.5)
+    want = bench._sampling_flops(jp["log_prob"], jcfg, draws, None, jfield, None,
+                                 jnp.tile(jp["spec"].sub_mu()[None], (chains, 1)), jp["aux0"],
+                                 jp["spec"].sub_sigma() ** 2, draws)
+    with capsys.disabled():
+        print(f"\nNN row FLOPs at 1024 chains x 2880 draws, L 96: port {got:.6g}, JAX "
+              f"{want:.6g}, ratio {got / want:.4f}")
+    assert 0.5 < got / want <= 1.0
+
+
+def test_mfu_stats_has_jax_fields():
+    """mfu_stats returns JAX's ``_mfu_stats`` field names with the same
+    arithmetic off the card (no peak, no mfu; ``achieved_tflops`` unrounded,
+    within JAX's 4-place rounding), and the H100's dense bf16 peak (989
+    TFLOP/s) for a device name with "H100"."""
+    from vihmc_torch import bench_mfu
+
+    got = bench_mfu.mfu_stats(3.3e11, 137.0, 1024, 240, "cpu")
+    want = bench._mfu_stats(3.3e11, 137.0, 1024, 240)
+    assert set(got) == set(want)
+    for k in ("model_flops_total", "flops_per_draw_per_chain"):
+        assert got[k] == want[k]
+    assert abs(got["achieved_tflops"] - want["achieved_tflops"]) <= 5e-5
+    assert got["mfu"] is None and got["peak_tflops_bf16"] is None
+    assert dict(bench_mfu.PEAK_FLOPS)["h100"] == 989e12
+
+
+def test_cpu_baseline_matches_jax_and_keeps_its_cap():
+    """The port's CPU torch baseline runs JAX's loop: with the same inputs
+    and torch's seed, the same chain draw for draw (120 draws at L 8) and
+    the same keys; at a cut ``max_seconds`` it stops early."""
+    with np.load(bench_nn.NN_STAGE12_ASSET) as z:
+        mu, sigma, idx = z["mu"], z["sigma"], z["indices"]
+    with np.load(bench_nn.NN_PORT_INPUTS) as z:
+        x, y, frozen = z["x_train"], z["y_train"], z["frozen_draw"]
+    kw = dict(collect=True, jitter_low_frac=0.5, frozen_policy="draw", init=mu[idx],
+              frozen_vec=frozen)
+    got = bench_nn.bench_torch_baseline_nn(x, y, mu, sigma, idx, 8, 0.05, 120,
+                                           max_seconds=60.0, **kw)
+    want = bench.bench_torch_baseline_nn(x, y, mu, sigma, idx, 8, 0.05, 120,
+                                         max_seconds=60.0, **kw)
+    assert set(got) == set(want) and got["draws"] == want["draws"] == 120
+    np.testing.assert_array_equal(got["samples"], want["samples"])
+    cut = bench_nn.bench_torch_baseline_nn(x, y, mu, sigma, idx, 8, 0.05, 10 ** 6,
+                                           max_seconds=0.3, **kw)
+    assert 0 < cut["draws"] < 10 ** 6 and cut["elapsed_s"] < 5.0

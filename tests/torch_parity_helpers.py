@@ -87,3 +87,34 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+def jax_transition_draws(key, d):
+    """One JAX HMC transition's draws with a diagonal metric (kernel.py:494,
+    metric.py:216, kernel.py:552, :649): the momentum normals, the jitter
+    and the accept uniforms."""
+    import jax
+
+    key_mom, key_u, _, key_jit = jax.random.split(key, 4)
+    return (np.asarray(jax.random.normal(key_mom, (d,), jnp.float32)),
+            float(jax.random.uniform(key_jit, ())), float(jax.random.uniform(key_u)))
+
+
+def jax_deeponet_eps(key, cfg, num_ens):
+    """The weight normals JAX's Bayesian DeepONet loss draws from ``key``
+    (train.py:115, bayesian.py:235): per member ``kb, kt, kbias``, each
+    stack's layer keys split into ``kw, kb``; flat order (merge bias, then
+    per layer b, w)."""
+    import jax
+
+    rows = []
+    for ke in jax.random.split(key, num_ens):
+        kb, kt, kbias = jax.random.split(ke, 3)
+        parts = [jax.random.normal(kbias, ())[None]]
+        for kstack, dims in ((kb, cfg.branch_dims), (kt, cfg.trunk_dims)):
+            for kl, (d_in, d_out) in zip(jax.random.split(kstack, len(dims)), dims):
+                kw, kbb = jax.random.split(kl)
+                parts += [jax.random.normal(kbb, (d_out,)),
+                          jax.random.normal(kw, (d_out, d_in)).ravel()]
+        rows.append(jnp.concatenate(parts))
+    return jnp.stack(rows)

@@ -24,14 +24,23 @@ The port's counterpart of ``bench.py``'s second headline row
 * output: a warm run, then one run per key of ``BENCH_KEYS``; the headline is
   function-space ESS/s over the 20 training-point probe outputs
   (``function_space_diagnostics``), with the weight-space ESS, its
-  chain-floor flag and both R-hats beside it; the keys of JAX's row.
+  chain-floor flag and both R-hats beside it; the keys of JAX's row;
+* instruments (bench.py:1307-1340): the ``mfu`` block
+  (:mod:`vihmc_torch.bench_mfu`: the draws' matmul FLOPs counted from one
+  transition at the row's chains, over the median wall, against the card's
+  bf16 peak) and the CPU torch baseline (:func:`bench_torch_baseline_nn`:
+  one chain of the same posterior and trajectory on the CPU, capped at
+  ``baseline_seconds``), with ``torch_cpu_samples_per_s``, ``vs_baseline``,
+  and, when the baseline chain reached 100 draws, ``torch_cpu_ess_per_s``
+  and ``vs_baseline_ess_like_for_like``. Unlike JAX's, the ``mfu`` block is
+  not wrapped in a ``try``: a failure stops the row.
 
-Left out (bench.py instruments, not parts of the sampler): the ``mfu`` block
-and the CPU torch baseline. Run on the card::
+Run on the card::
 
     python -m vihmc_torch.bench_nn [--frozen-policy draw|refresh|mean]
         [--step S] [--L 96] [--chains 1024] [--rank K] [--draws 2880]
         [--thin 24] [--segment 480] [--persist ALPHA] [--keys 2,3,4,5,6]
+        [--skip-baseline] [--baseline-seconds 120]
 
 It prints one JSON line.
 """
@@ -41,6 +50,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
+import sys
 import time
 from typing import Optional
 
@@ -49,6 +60,7 @@ import torch
 
 from vihmc_torch.chains.diagnostics import effective_sample_size_np, rhat_rank_np
 from vihmc_torch.chains.parallel import sample_chains
+from vihmc_torch.bench_mfu import mfu_stats, sampling_flops
 from vihmc_torch.chains.resume import sample_chains_resumable
 from vihmc_torch.core.device import resolve_device, stream_generator, sync
 from vihmc_torch.core.precision import true_f32
@@ -127,13 +139,14 @@ def nn_config(draws: int, L: int, step: float, fixed_step: bool,
 def bench_nn(device="cuda", frozen_policy: str = "draw", step: Optional[float] = None,
              L: int = 96, chains: int = 1024, rank: int = 0, draws: int = 2880,
              thin: int = 24, segment: int = 480, persist: float = 0.0,
-             keys=BENCH_KEYS) -> dict:
+             keys=BENCH_KEYS, skip_baseline: bool = False,
+             baseline_seconds: float = 120.0) -> dict:
     """Run the NN row and return its statistics (JAX's keys plus
     ``draws_per_s``, ``phases_s`` and ``device``; module doc)."""
     dev = resolve_device(device)
     phases = {}
     t0 = time.perf_counter()
-    log_prob, aux0, refresh, spec, apply_flat, x, _, provenance = build_nn_problem(
+    log_prob, aux0, refresh, spec, apply_flat, x, y, provenance = build_nn_problem(
         dev, frozen_policy)
     d = spec.subspace_dim
     inv_mass = spec.sub_sigma() ** 2
@@ -248,7 +261,163 @@ def bench_nn(device="cuda", frozen_policy: str = "draw", step: Optional[float] =
     })
     if lowrank_extras is not None:
         stats["lowrank_metric"] = lowrank_extras
+    total_flops = sampling_flops(log_prob, cfg, inits, metric, aux0, draws, grad_fn=grad_fn,
+                                 aux_refresh=refresh)
+    stats["mfu"] = mfu_stats(total_flops, med_wall, chains, draws, dev)
+    if not skip_baseline:
+        with np.load(NN_STAGE12_ASSET) as z:
+            mu, sigma = z["mu"], z["sigma"]
+        tb = bench_torch_baseline_nn(
+            x.cpu().numpy(), y.cpu().numpy(), mu, sigma, idx.cpu().numpy(), L, adapted_step,
+            draws, ref_forward=lambda f: apply_flat(f.to(x.device)[None], x)[0].cpu(),
+            max_seconds=baseline_seconds, collect=True, jitter_low_frac=JITTER_LOW,
+            frozen_policy=frozen_policy, init=inits[0].cpu().numpy(),
+            frozen_vec=aux0.cpu().numpy())
+        if tb is not None:
+            stats["torch_cpu_samples_per_s"] = tb["samples_per_s"]
+            stats["vs_baseline"] = stats["samples_per_s"] / tb["samples_per_s"]
+            sam = tb.get("samples")
+            if sam is not None and sam.shape[0] >= 100:
+                # the baseline chain's draws through the same probe map
+                t_probes = function_space_diagnostics(
+                    sam[None, sam.shape[0] // 5:, :], predict_probe, chunk=8192,
+                    device=dev)["probes"]
+                t_ess = float(np.median(effective_sample_size_np(t_probes)))
+                stats["torch_cpu_ess_per_s"] = t_ess / tb["elapsed_s"]
+                stats["vs_baseline_ess_like_for_like"] = round(
+                    stats["ess_per_s"] / stats["torch_cpu_ess_per_s"], 2)
     return stats
+
+
+# ---------------------------------------------------------------------------
+# The CPU torch baseline (bench.py:1346-1510): one chain, a plain loop
+# ---------------------------------------------------------------------------
+
+def torch_hmc_timing(log_prob, draw_frozen, q0, inv_mass, step, L, n_samples,
+                     max_seconds, collect: bool = False, jitter_low_frac=None,
+                     clip_norm=None) -> dict:
+    """Time a one-chain HMC loop on the CPU (bench.py's ``_torch_hmc_timing``):
+    the frozen vector from ``draw_frozen()`` before each draw, momentum
+    ``N(0, 1 / inv_mass)``, ``L`` leapfrog steps (with ``jitter_low_frac`` a
+    length uniform over [frac L, L], the masked steps skipped), the MH test.
+    Stops after ``n_samples`` draws or ``max_seconds``. Returns
+    ``elapsed_s``, ``samples_per_s`` (1 / the median draw time), ``draws``
+    and, with ``collect``, the chain's ``samples`` (n, d)."""
+    def grad_lp(q, frozen):
+        q = q.detach().requires_grad_(True)
+        lp = log_prob(q, frozen)
+        (g,) = torch.autograd.grad(lp, q)
+        g = torch.nan_to_num(g)
+        if clip_norm is not None:
+            norm = torch.sqrt((inv_mass * g * g).sum())
+            g = g * torch.clamp(clip_norm / (norm + 1e-30), max=1.0)
+        return lp.detach(), g
+
+    q = q0.clone()
+    n_done = 0
+    draw_times = []
+    chain = [] if collect else None
+    t0 = time.perf_counter()
+    while n_done < n_samples and time.perf_counter() - t0 < max_seconds:
+        td = time.perf_counter()
+        l_eff = L
+        if jitter_low_frac:
+            lo = max(1, int(jitter_low_frac * L))
+            l_eff = int(torch.randint(lo, L + 1, ()).item())
+        frozen = draw_frozen()
+        lp0, g = grad_lp(q, frozen)
+        p = torch.randn_like(q) / inv_mass.sqrt()
+        q_new, p_new, g_new = q.clone(), p.clone(), g.clone()
+        lp1 = lp0
+        for _ in range(l_eff):
+            p_new = p_new + 0.5 * step * g_new
+            q_new = q_new + step * inv_mass * p_new
+            lp1, g_new = grad_lp(q_new, frozen)
+            p_new = p_new + 0.5 * step * g_new
+        delta = (lp1 - 0.5 * (inv_mass * p_new * p_new).sum()) - \
+            (lp0 - 0.5 * (inv_mass * p * p).sum())
+        if torch.isfinite(delta) and torch.log(torch.rand(())) < delta:
+            q = q_new
+        n_done += 1
+        if collect:
+            chain.append(q.detach().to(torch.float32).clone())
+        draw_times.append(time.perf_counter() - td)
+    per_draw = statistics.median(draw_times) if draw_times else float("inf")
+    out = {"elapsed_s": time.perf_counter() - t0, "samples_per_s": 1.0 / per_draw,
+           "draws": n_done}
+    if collect and chain:
+        out["samples"] = torch.stack(chain).numpy()
+    return out
+
+
+def bench_torch_baseline_nn(x, y, mu, sigma, idx, L, step, n_samples, ref_forward=None,
+                            max_seconds: float = 120.0, collect: bool = False,
+                            jitter_low_frac=None, frozen_policy: str = "refresh",
+                            init=None, frozen_vec=None) -> Optional[dict]:
+    """The NN row's posterior and trajectory cost in a one-chain torch loop on
+    the CPU, the reference's substrate (bench.py's ``bench_torch_baseline_nn``):
+    the 141-parameter tanh MLP unpacked by hand from the flat vector, the NLL
+    at tau 5e-2^2, the VI-posterior prior on the subspace ``idx``, the frozen
+    coordinates per ``frozen_policy`` (DRAW: ``frozen_vec``, the row's own),
+    ``L`` steps of ``step`` from ``init``; with ``collect`` the trajectory
+    field is clipped as the row's. ``ref_forward(flat) -> (N, 1)`` checks the
+    hand unpack against the port's forward first (None if they differ)."""
+    torch.manual_seed(0)
+    dims = MLPConfig().layer_dims
+    x_t, y_t, mu_t, sigma_t = (torch.tensor(np.asarray(a, np.float32))
+                               for a in (x, y, mu, sigma))
+    idx_t = torch.tensor(np.asarray(idx), dtype=torch.long)
+
+    def forward(flat):
+        # ravel_pytree order: per layer the bias, then the row-major (out, in) weight
+        i, h = 0, x_t
+        for li, (d_in, d_out) in enumerate(dims):
+            b = flat[i:i + d_out]
+            i += d_out
+            w = flat[i:i + d_in * d_out].view(d_out, d_in)
+            i += d_in * d_out
+            h = torch.nn.functional.linear(h, w, b)
+            if li < len(dims) - 1:
+                h = torch.tanh(h)
+        return h
+
+    if ref_forward is not None:
+        want = np.asarray(ref_forward(mu_t))
+        # an ordering fault gives O(1) differences
+        if not np.allclose(want, forward(mu_t).detach().numpy(), rtol=1e-2, atol=1e-2):
+            print("# torch NN baseline forward mismatch; skipping baseline", file=sys.stderr)
+            return None
+
+    nll = torch.nn.GaussianNLLLoss(reduction="sum")
+
+    def log_prob(q_sub, frozen):
+        if not torch.isfinite(q_sub).all():
+            # a non-finite state is rejected (the reference raises LogProbError)
+            return (torch.nan_to_num(q_sub) * 0.0).sum() + float("-inf")
+        full = frozen.clone()
+        full[idx_t] = q_sub
+        pred = forward(full)
+        ll = -nll(pred, y_t, TAU_OUT * torch.ones_like(pred))
+        pr = torch.distributions.Normal(mu_t[idx_t], sigma_t[idx_t]).log_prob(q_sub).sum()
+        return ll + pr
+
+    clip = CLIP_SCALE * len(idx) ** 0.5 if collect else None
+    if frozen_policy == "refresh":
+        def draw_frozen():
+            return mu_t + sigma_t * torch.randn_like(mu_t)
+    elif frozen_policy == "draw":
+        frozen0 = (torch.tensor(np.asarray(frozen_vec, np.float32)) if frozen_vec is not None
+                   else mu_t + sigma_t * torch.randn_like(mu_t))
+
+        def draw_frozen():
+            return frozen0
+    else:
+        def draw_frozen():
+            return mu_t
+    q0 = mu_t[idx_t] if init is None else torch.tensor(np.asarray(init, np.float32))
+    return torch_hmc_timing(log_prob, draw_frozen, q0, sigma_t[idx_t] ** 2, step, L,
+                            n_samples, max_seconds, collect=collect,
+                            jitter_low_frac=jitter_low_frac, clip_norm=clip)
 
 
 def main(argv=None):
@@ -267,11 +436,17 @@ def main(argv=None):
                     help="momentum persistence (Horowitz partial refresh)")
     ap.add_argument("--keys", default=",".join(map(str, BENCH_KEYS)),
                     help="comma-separated run keys (seeds) after the warm run")
+    ap.add_argument("--skip-baseline", action="store_true",
+                    help="leave out the CPU torch baseline")
+    ap.add_argument("--baseline-seconds", type=float, default=120.0,
+                    help="the CPU baseline's time cap")
     args = ap.parse_args(argv)
     stats = bench_nn(device=args.device, frozen_policy=args.frozen_policy, step=args.step,
                      L=args.L, chains=args.chains, rank=args.rank, draws=args.draws,
                      thin=args.thin, segment=args.segment, persist=args.persist,
-                     keys=tuple(int(k) for k in args.keys.split(",")))
+                     keys=tuple(int(k) for k in args.keys.split(",")),
+                     skip_baseline=args.skip_baseline,
+                     baseline_seconds=args.baseline_seconds)
     print(json.dumps(stats))
 
 

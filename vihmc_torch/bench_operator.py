@@ -17,7 +17,11 @@ The port's counterpart of the zero-argument ``python bench.py`` operator row
   preconditioned norm 600, the fused paired f32 MH delta (one CUDA kernel
   launch per draw for all chains), segments of ``segment`` draws thinned
   ``thin`` x on the device;
-* output: pooled and bulk ESS, R-hat, acceptance, wall.
+* output: pooled and bulk ESS, R-hat, acceptance, wall, and the ``mfu``
+  block (bench.py:873-876; :mod:`vihmc_torch.bench_mfu`): the draws' matmul
+  FLOPs counted from one more transition of all chains (so ``paired_sums``
+  launches ``draws + 1`` times in a row), over the sampling wall, against
+  the card's bf16 peak. Unlike JAX's, it is not wrapped in a ``try``.
 
 Run on the card::
 
@@ -39,6 +43,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from vihmc_torch.bench_mfu import mfu_stats, sampling_flops
 from vihmc_torch.chains.diagnostics import (effective_sample_size_np,
                                             ess_bulk_np, rhat_rank_np)
 from vihmc_torch.chains.resume import sample_chains_resumable
@@ -265,6 +270,9 @@ def run_operator_row(device="cuda", draws: int = 2880, burn: int = 288,
             "tau_floor_frac": float(np.mean(raw_tau < tau_floor)),
         })
     phases["diagnostics_s"] = time.perf_counter() - t0
+    total_flops = sampling_flops(log_prob, config, inits, metric, aux, draws, grad_fn=grad_fn,
+                                 delta_fn=fns.delta_fn)
+    stats["mfu"] = mfu_stats(total_flops, phases["sampling_s"], chains, draws, dev)
 
     step_tr = np.median(res.step_sizes, axis=0)
     n4 = len(step_tr) // 4

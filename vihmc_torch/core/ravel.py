@@ -11,7 +11,8 @@ it against ``ravel_pytree``).
 Every function here on flat vectors takes a leading chain dimension: a
 flat batch is ``(C, D)``. For parameter trees (nested dicts, lists and
 tuples of tensors, as the hamiltorch-style API takes them) there is the same
-walk as ``ravel_pytree``: :func:`tree_leaves`, :func:`ravel_tree` and
+walk as ``ravel_pytree``: :func:`tree_leaves`, :func:`ravel_pytree` (alias
+:func:`ravel_tree`), :func:`segment_sizes`, :func:`segment_slices` and
 :func:`per_segment_vector`.
 """
 
@@ -81,6 +82,28 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def map_leaves(fn, tree):
+    """``tree`` with every leaf replaced by ``fn(leaf)``, leaves visited in
+    ``ravel_pytree`` order."""
+    if isinstance(tree, dict):
+        out = {k: map_leaves(fn, tree[k]) for k in sorted(tree)}
+        return {k: out[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_leaves(fn, v) for v in tree)
+    return fn(tree)
+
+
+def segment_sizes(tree) -> list:
+    """Elements of each leaf of ``tree``, in ``ravel_pytree`` order."""
+    return [int(np.prod(np.shape(leaf))) for leaf in tree_leaves(tree)]
+
+
+def segment_slices(tree) -> list:
+    """``(start, stop)`` of each leaf inside the raveled vector."""
+    bounds = np.cumsum([0] + segment_sizes(tree))
+    return [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
+
+
 def ravel_tree(tree):
     """``(flat (D,), unravel)`` of a tree of tensors: the leaves raveled
     row-major and concatenated in ``ravel_pytree`` order; ``unravel(flat)``
@@ -110,9 +133,13 @@ def per_segment_vector(tree, values) -> torch.Tensor:
     """One scalar per leaf of ``tree``, broadcast into a flat ``(D,)`` f32
     vector laid out as :func:`ravel_tree` lays out the tree (the per-tensor
     prior scales of the reference's ``tau_list``)."""
-    sizes = [int(np.prod(np.shape(leaf))) for leaf in tree_leaves(tree)]
+    sizes = segment_sizes(tree)
     vals = list(values)
     if len(vals) != len(sizes):
         raise ValueError(f"{len(vals)} values for {len(sizes)} leaves")
     parts = [torch.full((n,), float(v), dtype=torch.float32) for n, v in zip(sizes, vals)]
     return torch.cat(parts) if parts else torch.zeros(0)
+
+
+#: JAX's name for :func:`ravel_tree`
+ravel_pytree = ravel_tree

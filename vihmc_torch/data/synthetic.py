@@ -49,3 +49,15 @@ def regression_data(n_train: int = 20, n_val: int = 300, noise_std: float = 0.05
     noise = torch.as_tensor(noise, dtype=torch.float32, device=dev).reshape(x_train.shape)
     return {"x_train": x_train, "y_train": _f(x_train) + noise_std * noise,
             "x_val": x_val, "y_val": _f(x_val)}
+
+
+def load_reference_regression_data(data_dir: str, device="cuda") -> dict:
+    """The reference's saved tensors (``torch.save`` files ``x_train``,
+    ``y_train``, ``x_val``, ``y_val`` in ``data_dir``: 20 training and 300
+    validation points) as :func:`regression_data`'s dict of float32 tensors
+    on ``device``."""
+    import os
+
+    return {name: torch.load(os.path.join(data_dir, name), map_location="cpu")
+            .detach().to(device=resolve_device(device), dtype=torch.float32)
+            for name in ("x_train", "y_train", "x_val", "y_val")}

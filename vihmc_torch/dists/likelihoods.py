@@ -29,6 +29,14 @@ def gaussian_nll(pred: torch.Tensor, target: torch.Tensor, var: float) -> torch.
                   + (pred - target) ** 2 / v)
 
 
+def gaussian_nll_var(pred: torch.Tensor, target: torch.Tensor,
+                     var: torch.Tensor) -> torch.Tensor:
+    """:func:`gaussian_nll` with a variance tensor (broadcast to ``pred``),
+    clamped at the same floor: the learned-noise ELBO's data term."""
+    v = torch.clamp(var, min=GNLL_EPS)
+    return 0.5 * (torch.log(v) + (pred - target) ** 2 / v)
+
+
 def nll_log_likelihood(pred: torch.Tensor, target: torch.Tensor,
                        tau: float) -> torch.Tensor:
     """``-sum gaussian_nll`` over every axis but the leading chain axis: (C,)."""

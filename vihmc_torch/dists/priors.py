@@ -15,6 +15,21 @@ import torch
 _LOG_2PI = math.log(2 * math.pi)
 
 
+def normal_logpdf(x, loc, scale) -> torch.Tensor:
+    """Elementwise Gaussian log-density (``torch.distributions.Normal.log_prob``'s
+    math): ``-z^2 / 2 - log(scale) - log(2 pi) / 2``, ``z = (x - loc) / scale``."""
+    x = torch.as_tensor(x)
+    z = (x - loc) / scale
+    return -0.5 * z * z - torch.log(torch.as_tensor(scale, dtype=x.dtype,
+                                                    device=x.device)) - 0.5 * _LOG_2PI
+
+
+def diag_normal_logpdf_sum(x, loc, scale) -> torch.Tensor:
+    """The sum of :func:`normal_logpdf` over every element (a diagonal
+    Gaussian's log-density)."""
+    return torch.sum(normal_logpdf(x, loc, scale))
+
+
 @dataclasses.dataclass
 class IsotropicGaussianPrior:
     """``N(0, scale^2 I)`` -- the subspace prior when ``load_prior`` is off."""

@@ -10,6 +10,7 @@ from vihmc_torch.models.deeponet import (DeepONetConfig, bc_embedding,
                                          init_deeponet, unravel_deeponet)
 from vihmc_torch.models.mlp import (MLPConfig, get_activation, init_mlp, mlp_apply,
                                    unravel_mlp)
+from vihmc_torch.models.symmetry import canonicalize_deeponet, canonicalize_mlp
 
 __all__ = ["BayesianFlat", "VariationalParams", "bayesian_deeponet_apply",
            "bayesian_mlp_apply", "bbb_conv2d_apply", "bbb_linear_apply", "init_variational",
@@ -17,4 +18,4 @@ __all__ = ["BayesianFlat", "VariationalParams", "bayesian_deeponet_apply",
            "mean_params", "sample_params", "softplus_sigma", "DeepONetConfig",
            "bc_embedding", "deeponet_apply", "deeponet_features", "init_deeponet",
            "unravel_deeponet", "MLPConfig", "get_activation", "init_mlp", "mlp_apply",
-           "unravel_mlp"]
+           "unravel_mlp", "canonicalize_mlp", "canonicalize_deeponet"]

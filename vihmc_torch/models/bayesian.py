@@ -23,8 +23,9 @@ Two sampling modes, as in JAX:
 The normals are explicit arguments or come from a ``torch.Generator``, so a
 test can inject JAX's. The layer-level applies take JAX's layer dicts
 ``{'w': (out, in), 'b': (out,)}`` (conv: ``(O, I, kh, kw)`` and ``NCHW``
-inputs -- JAX's ``_conv2d`` uses those layouts too, which are torch's). The
-heteroscedastic head is not ported (``NotImplementedError``).
+inputs -- JAX's ``_conv2d`` uses those layouts too, which are torch's). With
+the DeepONet's heteroscedastic head (``noise_neurons > 0``) the Bayesian
+forward returns ``(y, noise)`` on both query paths, as the plain forward.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vihmc_torch.models.deeponet import (DeepONetConfig, bc_embedding, deeponet_apply,
-                                         unravel_deeponet)
+                                         merge, unravel_deeponet)
 from vihmc_torch.models.mlp import MLPConfig, get_activation, mlp_apply, unravel_mlp
 
 #: ``{'mu': ..., 'rho': ...}`` (flat ``(D,)`` tensors for the models here)
@@ -237,15 +238,14 @@ def bayesian_mlp_apply(cfg: MLPConfig, vp: dict, x: torch.Tensor, eps=None,
 def bayesian_deeponet_apply(cfg: DeepONetConfig, vp: dict, branch_x: torch.Tensor,
                             trunk_x: torch.Tensor, eps=None, sample: bool = True,
                             mode: str = "bbb", generator: Optional[torch.Generator] = None,
-                            num_samples: int = 1) -> torch.Tensor:
+                            num_samples: int = 1):
     """``(E, B, P)`` DeepONet outputs of ``E`` members, or ``(1, B, P)`` at the
-    mean weights; ``trunk_x`` is a shared grid ``(P, 2)`` or per-example
-    points ``(B, p, 2)``. ``'bbb'``: ``eps`` (E, D) (the merge bias drawn as
-    coordinate 0); ``'lrt'``: ``{'branch': [...], 'trunk': [...], 'b': (E,)}``
-    (per-layer activation normals and the merge bias's weight normal)."""
+    mean weights (``(y, noise)`` with the heteroscedastic head); ``trunk_x``
+    is a shared grid ``(P, 2)`` or per-example points ``(B, p, 2)``.
+    ``'bbb'``: ``eps`` (E, D) (the merge bias drawn as coordinate 0);
+    ``'lrt'``: ``{'branch': [...], 'trunk': [...], 'b': (E,)}`` (per-layer
+    activation normals and the merge bias's weight normal)."""
     check_mode(mode)
-    if cfg.noise_neurons:
-        raise NotImplementedError("the heteroscedastic head is not ported")
     if mode == "bbb" or not sample:
         w = _weights(vp, eps, sample, num_samples, generator)
         return deeponet_apply(cfg, unravel_deeponet(cfg, w), branch_x, trunk_x)
@@ -261,12 +261,7 @@ def bayesian_deeponet_apply(cfg: DeepONetConfig, vp: dict, branch_x: torch.Tenso
                       trunk_in.expand(e, *trunk_in.shape), get("trunk"), cfg.activation,
                       generator)
     eb = _normals(get("b"), (e,), generator, branch_x.device)
-    b = mu_p["b"] + eb * softplus_sigma(rho_p["b"])
-    if trunk_x.ndim == 2:
-        y = torch.matmul(bout, tout.transpose(-1, -2))
-    else:
-        y = torch.einsum("ebk,ebpk->ebp", bout, tout)
-    return y + b[:, None, None]
+    return merge(cfg, bout, tout, mu_p["b"] + eb * softplus_sigma(rho_p["b"]))
 
 
 class BayesianFlat(nn.Module):

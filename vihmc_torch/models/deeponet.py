@@ -10,8 +10,12 @@ bias. Parameters are a ``(C, D)`` flat batch in the JAX package's
 Both query paths are ported: a grid shared by every example (``trunk_x``
 of shape ``(P, 2)``, one matmul per chain) and per-example points
 (``(B, p, 2)``, the VI trainer's and the sensitivity stage's subsampled
-trunks, merged as ``einsum("bk,bpk->bp")`` per chain). The heteroscedastic
-head (``noise_neurons > 0``) is not ported.
+trunks, merged as ``einsum("bk,bpk->bp")`` per chain). With
+``noise_neurons = n > 0`` the last ``n`` latent channels are the
+heteroscedastic head: the forward returns ``(y, noise)``, ``y`` merged over
+the first ``K - n`` channels plus the bias, ``noise`` (a per-point
+log-variance) over the last ``n`` with no bias. The head only splits K, so
+the flat layout is the same.
 """
 
 from __future__ import annotations
@@ -71,8 +75,6 @@ def param_slices(cfg: DeepONetConfig) -> dict:
 
 def unravel_deeponet(cfg: DeepONetConfig, flat: torch.Tensor) -> dict:
     """``{'b': (C,), 'branch': [(w, b), ...], 'trunk': [...]}`` views of ``flat`` (C, D)."""
-    if cfg.noise_neurons:
-        raise NotImplementedError("the heteroscedastic head is not ported")
     sl = param_slices(cfg)
     if flat.shape[-1] != sl["size"]:
         raise ValueError(f"flat width {flat.shape[-1]} != {sl['size']} params")
@@ -123,13 +125,26 @@ def deeponet_features(cfg: DeepONetConfig, params: dict, branch_x: torch.Tensor,
     return bout, tout.reshape(tout.shape[0], *trunk_x.shape[:-1], tout.shape[-1])
 
 
+def merge(cfg: DeepONetConfig, bout: torch.Tensor, tout: torch.Tensor, bias: torch.Tensor):
+    """The dot-product merge of the features of :func:`deeponet_features`
+    (``bout`` (E, B, K), ``tout`` (E, P, K) or (E, B, p, K)) plus ``bias``
+    (E,): ``y``, or ``(y, noise)`` with the heteroscedastic head."""
+    n = cfg.noise_neurons
+    k_main = bout.shape[-1] - n
+
+    def dot(lo, hi):
+        if tout.ndim == 3:
+            return torch.matmul(bout[..., lo:hi], tout[..., lo:hi].transpose(-1, -2))
+        return torch.einsum("cbk,cbpk->cbp", bout[..., lo:hi], tout[..., lo:hi])
+
+    y = dot(0, k_main) + bias[:, None, None]
+    return (y, dot(k_main, None)) if n else y
+
+
 def deeponet_apply(cfg: DeepONetConfig, params: dict, branch_x: torch.Tensor,
-                   trunk_x: torch.Tensor) -> torch.Tensor:
+                   trunk_x: torch.Tensor):
     """``(C, B, P)`` predictions on a shared query grid ``(P, 2)``, or
-    ``(C, B, p)`` on per-example points ``(B, p, 2)``."""
+    ``(C, B, p)`` on per-example points ``(B, p, 2)``; with the
+    heteroscedastic head ``(y, noise)`` of those shapes."""
     bout, tout = deeponet_features(cfg, params, branch_x, trunk_x)
-    if trunk_x.ndim == 2:
-        y = torch.matmul(bout, tout.transpose(-1, -2))
-    else:
-        y = torch.einsum("cbk,cbpk->cbp", bout, tout)
-    return y + params["b"][:, None, None]
+    return merge(cfg, bout, tout, params["b"])

@@ -110,10 +110,12 @@ def merge_sums(bout, tout, y) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"merge_sums kernel launch failed: CUDA error {err}")
     merge_sums.launches += 1
+    merge_sums.flops += 2 * c * b * p * k
     return out
 
 
 merge_sums.launches = 0
+merge_sums.flops = 0   # matmul FLOPs of the launches (core.profiling.count_flops)
 
 
 def merge_nll_reference(bout, tout, bias, y, tau) -> torch.Tensor:
@@ -242,10 +244,12 @@ def paired_sums(bout1, tout1, bout0, tout0, y) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"paired_sums kernel launch failed: CUDA error {err}")
     paired_sums.launches += 1
+    paired_sums.flops += 2 * 2 * c * b * p * k   # the two products m1, m0
     return out
 
 
 paired_sums.launches = 0
+paired_sums.flops = 0   # matmul FLOPs of the launches (core.profiling.count_flops)
 
 
 def y_sums(y: torch.Tensor):

@@ -22,6 +22,8 @@ standalone ``sensitivity`` or a ``reevaluate`` of ``--workload nn`` sees the
 data of the ``vi-nn`` / ``vi-hmc`` run of the same ``--seed`` (JAX's see
 data of another key); without ``--mat`` the Burgers data are the exported
 initial conditions, whose 200 validation rows cap ``--n-valid``;
+``vi-operator --dataset Cone`` generates the Cone data from ``--seed`` (or
+reads ``--mat``, a Cone ``.mat``/``.npz``);
 ``reevaluate`` and ``predict`` score against each chain's last frozen
 vector when the run stored its VI trace (``vi_params``), the base its own
 evaluation used, else against the VI mean as JAX does; ``bench`` runs the
@@ -87,7 +89,8 @@ def build_parser():
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--dataset", choices=["Burgers", "Cone"], default=None)
     p.add_argument("--mat", default=None,
-                   help="path to DeepOnet_data.mat (Burgers; Cone is not ported)")
+                   help="path to DeepOnet_data.mat (Burgers) or a Cone "
+                        ".mat/.npz with Xf/Xp/Y keys")
     p.add_argument("--n-train", type=int, default=None)
     p.add_argument("--n-valid", type=int, default=None)
     p.add_argument("--with-sensitivity", action="store_true")
@@ -331,7 +334,8 @@ def run(argv=None):
                         dataset=args.dataset)
         data = (_burgers(cfg.n_train, cfg.n_valid, args.mat, dev)
                 if cfg.dataset == "Burgers" else None)
-        out = vi_train.run_operator(cfg, seed=seed, data=data, store=store, device=dev)
+        out = vi_train.run_operator(cfg, seed=seed, data=data, store=store, device=dev,
+                                    mat_path=args.mat)
         print("final metrics row:", out["metrics"][-1].tolist())
         if args.with_sensitivity:
             sens = sens_p.run_operator(out["best_state"].vp, cfg.model, out["data"][1],

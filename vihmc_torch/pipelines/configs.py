@@ -6,10 +6,8 @@ Counterparts of ``NNHMCRunConfig``, ``NNVIRunConfig``,
 ``vihmc_tpu/pipelines/configs.py`` (:25-53, :56-83, :86-254, :257-331): the
 same fields, the same defaults, and the reference's analytic trajectory-length rule
 ``L = int(pi * post_var / (2 * step_size))``. Every field is kept so that a
-JAX run's config means the same here (``OperatorVIRunConfig(dataset='Cone')``
-is the one value the port does not run yet: ``vi_train.run_operator`` raises
-``NotImplementedError``). The field notes are short; the JAX module
-documents each option's motivation and measurements.
+JAX run's config means the same here. The field notes are short; the JAX
+module documents each option's motivation and measurements.
 """
 
 from __future__ import annotations
@@ -151,7 +149,7 @@ class OperatorVIRunConfig:
     """Operator VI training (the reference's Operator_network/VI config)."""
 
     model: DeepONetConfig = dataclasses.field(default_factory=DeepONetConfig)
-    dataset: str = "Burgers"         # 'Burgers' | 'Cone' (Cone is not ported)
+    dataset: str = "Burgers"         # 'Burgers' | 'Cone' (per-example query points)
     n_train: int = 1000
     n_valid: int = 1000
     batch_size: int = 128

@@ -4,9 +4,11 @@ Counterpart of ``vihmc_tpu/pipelines/sensitivity.py`` (:30-104), with the
 same artifact names (``means_flattened``, ``stds_flattened``,
 ``gradient_indices``, ``sensitivity_scores`` and the ``config_sens``
 snapshot): the filesystem contract the VI-HMC stage reads. The operator
-stage scores ``p_subsample`` random trunk points per example; the points
-come from a generator seeded with ``seed`` (JAX: a threefry key), or are
-injected as ``trunk_idx`` (B, p).
+stage scores ``p_subsample`` random trunk points per example of a shared
+grid; the points come from a generator seeded with ``seed`` (JAX: a
+threefry key), or are injected as ``trunk_idx`` (B, p). Per-example query
+points (Cone, ``trunk_in`` (B, p, 2)) are scored as they are. A DeepONet
+with the heteroscedastic head is scored on its mean output, as in JAX.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from vihmc_torch.pipelines.common import make_flat_deeponet, make_flat_mlp
 from vihmc_torch.pipelines.configs import SensitivityRunConfig
 from vihmc_torch.sensitivity import (captured_variance_count, flatten_mean_std,
                                      select_sensitive_indices, sensitivity_scores)
+from vihmc_torch.vi.train import split_prediction
 
 #: the trunk subsample's generator stream (core/device.stream_generator)
 _TRUNK_STREAM = 800_001
@@ -81,7 +84,8 @@ def run_operator(vp: dict, deeponet_cfg: DeepONetConfig, split: dict,
                  store: Optional[RunStore] = None, trunk_idx=None) -> dict:
     """Operator sensitivity over ``cfg.p_subsample`` random trunk points per
     example of ``split`` (``branch_in`` (B, nx), ``trunk_in`` (P, 2),
-    ``solution`` (B, P), on one device)."""
+    ``solution`` (B, P), on one device), or over its per-example points
+    (``trunk_in`` (B, p, 2))."""
     flat_mu, flat_sigma = flatten_mean_std(vp)
     return run_operator_flat(flat_mu, flat_sigma, deeponet_cfg, split, cfg, seed=seed,
                              store=store, trunk_idx=trunk_idx)
@@ -91,17 +95,22 @@ def run_operator_flat(flat_mu, flat_sigma, deeponet_cfg: DeepONetConfig, split: 
                       cfg: SensitivityRunConfig = SensitivityRunConfig(), seed: int = 0,
                       store: Optional[RunStore] = None, trunk_idx=None) -> dict:
     """Operator twin of :func:`run_nn_flat`. The trunk subsample is drawn from
-    a generator seeded with ``seed`` unless ``trunk_idx`` (B, p) is given."""
+    a generator seeded with ``seed`` unless ``trunk_idx`` (B, p) is given;
+    per-example points are used as they are."""
     dev = split["branch_in"].device
     flat_mu, flat_sigma = to_f32(flat_mu, dev), to_f32(flat_sigma, dev)
     apply_flat = make_flat_deeponet(deeponet_cfg)
-    p = min(cfg.p_subsample, split["trunk_in"].shape[0])
-    gen = stream_generator(dev, seed, _TRUNK_STREAM)
-    trunk_sub, _ = subsample_trunk(split, p, generator=gen, idx=trunk_idx)   # (B, p, 2)
+    if split["trunk_in"].ndim == 3:
+        trunk_sub = split["trunk_in"]        # per-example points (Cone): no grid to subsample
+    else:
+        p = min(cfg.p_subsample, split["trunk_in"].shape[0])
+        gen = stream_generator(dev, seed, _TRUNK_STREAM)
+        trunk_sub, _ = subsample_trunk(split, p, generator=gen, idx=trunk_idx)   # (B, p, 2)
     inputs = {"branch": split["branch_in"], "trunk": trunk_sub}
 
     def apply_one(flat, x):
-        return apply_flat(flat[None], x["branch"][None, :], x["trunk"][None])[0, 0]
+        out = apply_flat(flat[None], x["branch"][None, :], x["trunk"][None])
+        return split_prediction(out)[0][0, 0]
 
     scores = sensitivity_scores(apply_one, flat_mu, flat_sigma, inputs,
                                 chunk_size=cfg.batch_chunk)

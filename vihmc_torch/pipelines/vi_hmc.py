@@ -38,6 +38,10 @@ Counterpart of ``vihmc_tpu/pipelines/vi_hmc.py`` (``make_spec``,
   and fixed within a trajectory, as sampler state: the aux becomes
   ``{'frozen', 'tidx'}`` (REFRESH redraws both); the Gram field and the
   fused density are off (vi_hmc.py:641-660), as in JAX;
+* per-example query points (the Cone dataset, ``trunk_in`` (B, p, 2)): the
+  composed density on the per-example merge, never subsampled, no Gram
+  field and no fused density (the merge kernels need a shared grid, as in
+  JAX); a DeepONet with the heteroscedastic head is refused;
 * ``save_vi_trace`` (HMC only): every draw's frozen vectors, stored as
   ``vi_params`` (C, S, D) -- under subsampling the trace's ``frozen`` part;
 * ``checkpoint_dir``: the HMC sampler saves after every segment and resumes
@@ -650,6 +654,7 @@ def run_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artifacts,
     """
     dev = resolve_device(device)
     _check_algorithm(cfg)
+    _check_homoscedastic(deeponet_cfg)
     gauss_only = cfg.gauss_field is not None and not cfg.gauss_field_auto
     if gauss_only and (cfg.coarse_stride or cfg.fn_stride):
         raise ValueError("gauss_field replaces the Gram trajectory oracle; drop "
@@ -709,6 +714,15 @@ def run_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artifacts,
     return out
 
 
+def _check_homoscedastic(deeponet_cfg: DeepONetConfig):
+    """Stage 3's likelihood reads one output: a DeepONet with the
+    heteroscedastic head, whose forward returns ``(y, noise)``, is refused
+    (JAX's stage 3 fails on that output too)."""
+    if deeponet_cfg.noise_neurons:
+        raise ValueError("stage 3 samples the homoscedastic likelihood: a DeepONet with "
+                         "the heteroscedastic head (noise_neurons > 0) is refused")
+
+
 def _operator_data(data, mat_path, dev):
     if data is None:
         return get_burgers(dev, mat_path=mat_path)
@@ -750,6 +764,7 @@ def reevaluate_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artif
     main_VI_HMC_burgers.py:304-349): ``data`` or ``mat_path`` as
     :func:`run_operator` takes them."""
     dev = resolve_device(device)
+    _check_homoscedastic(deeponet_cfg)
     _, valid = _operator_data(data, mat_path, dev)
     apply_flat = make_flat_deeponet(deeponet_cfg)
     return _rescore(cfg, artifacts, store,

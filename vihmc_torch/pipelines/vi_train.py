@@ -11,12 +11,16 @@ trailing partial batch and draws ``cfg.p`` trunk points per example when
 runs JAX's Python loop, :func:`vihmc_torch.vi.train.train`, whose operator
 batches keep the trailing partial batch (JAX's ``make_batches``).
 Evaluation uses the first ``min(batch_size, n)`` functions on the full
-grid. Every random draw (the data noise, the initial ``mu``/``rho``, the
-shuffles, the subsamples, the ensemble normals) comes from one
-``torch.Generator`` seeded with ``seed``; the initial variational parameters
-can be injected (``init_vp``), and ``mat_path`` reads the Burgers data from
-the reference's ``.mat``. The Cone dataset is not ported and raises
-``NotImplementedError`` (ROADMAP Queue 1).
+grid. Every random draw (the data, the initial ``mu``/``rho``, the
+shuffles, the subsamples, the ensemble normals) comes from ``torch.Generator``
+streams of ``seed``; the initial variational parameters can be injected
+(``init_vp``). The operator data are Burgers (``mat_path``: the reference's
+``.mat``) or Cone (JAX's dataset switch, vi_train.py:195-230: generated, or
+read from ``mat_path``): Cone has per-example query points, ``trunk_in``
+(N, 1, 2), which the DeepONet merges per example and which are never
+subsampled. With ``learn_noise`` the metric rows of the operator pipeline
+gain the ``exp(noise_param)`` column; the NN pipeline's constant-beta path
+writes none, as JAX's full-batch scan.
 
 The entry point runs stage 1 and stage 2 of the operator pipeline on the
 card at the configuration of ``scripts/run_operator_stage12.py`` that made
@@ -45,6 +49,7 @@ import torch
 from vihmc_torch.core.device import resolve_device, split_to, stream_generator, to_f32
 from vihmc_torch.core.precision import true_f32
 from vihmc_torch.data.burgers import ASSETS, get_burgers, load_port_inputs, subsample_trunk
+from vihmc_torch.data.cone import get_cone
 from vihmc_torch.data.synthetic import regression_data
 from vihmc_torch.io.artifacts import RunStore
 from vihmc_torch.models.bayesian import BayesianFlat, init_variational
@@ -129,7 +134,7 @@ def run_nn(cfg: NNVIRunConfig = NNVIRunConfig(), seed: int = 0, data=None,
     callback = None if store is None else (lambda e, row, t: store.append_metrics_row(row))
     with true_f32():
         final, best, metrics = run_epochs(trainer, lambda epoch: [train_batch], valid_batch,
-                                          train_batch, callback=callback)
+                                          train_batch, callback=callback, noise_column=False)
     return _finish(cfg, trainer, final, best, metrics, data, store)
 
 
@@ -137,38 +142,50 @@ def run_operator(cfg: OperatorVIRunConfig = OperatorVIRunConfig(), seed: int = 0
                  data=None, store: Optional[RunStore] = None, init_vp=None,
                  device="cuda", epochs: Optional[int] = None, callback=None,
                  mat_path: Optional[str] = None) -> dict:
-    """Operator VI training on Burgers (minibatched; see module doc).
+    """Operator VI training on Burgers or Cone (minibatched; see module doc).
 
     ``data``: ``(train, valid)`` dicts of ``branch_in``, ``trunk_in`` (a
-    shared (P, 2) grid), ``solution``, or None for
+    shared (P, 2) grid, or per-example points (N, p, 2)), ``solution``, or
+    None for ``cfg.dataset``'s data: Burgers,
     :func:`~vihmc_torch.data.burgers.get_burgers` (``cfg.n_train`` and
     ``cfg.n_valid`` rows of the exported initial conditions, or of the
-    ``.mat`` at ``mat_path``). ``epochs`` overrides ``cfg.vi.epochs`` (float
-    ``beta_type``); ``callback(epoch, row, trainer)`` runs after each epoch.
+    ``.mat`` at ``mat_path``), or Cone, :func:`~vihmc_torch.data.cone.get_cone`
+    (generated from the seed, or read from ``mat_path``). ``epochs``
+    overrides ``cfg.vi.epochs`` (float ``beta_type``); ``callback(epoch,
+    row, trainer)`` runs after each epoch.
     """
     dev = resolve_device(device)
-    if cfg.dataset != "Burgers":
-        # the reference's error surface (Operator_network/VI/utils.py:57)
-        raise NotImplementedError(f"dataset {cfg.dataset!r} is not ported (Burgers only; "
-                                  f"the Cone dataset is ROADMAP Queue 1 item 1)")
     check_vi_config(cfg.vi)
     if data is None:
-        train, valid = get_burgers(dev, cfg.n_train, cfg.n_valid, mat_path=mat_path)
+        if cfg.dataset == "Cone":
+            train, valid = get_cone(stream_generator(dev, seed, _DATA_STREAM), cfg.n_train,
+                                    cfg.n_valid, mat_path, cfg.model.in_branch, device=dev)
+        elif cfg.dataset == "Burgers":
+            train, valid = get_burgers(dev, cfg.n_train, cfg.n_valid, mat_path=mat_path)
+        else:
+            # the reference's error surface (Operator_network/VI/utils.py:57)
+            raise NotImplementedError(f"Dataset: {cfg.dataset} is NOT implemented. "
+                                      f"Dataset should be Burgers or Cone")
     else:
         train, valid = (split_to(s, dev) for s in data)
-    if train["trunk_in"].ndim != 2:
-        raise NotImplementedError("per-example query datasets (Cone) are not ported")
-    n_train, n_grid = train["branch_in"].shape[0], train["trunk_in"].shape[0]
+    # per-example query points (Cone) or a shared grid; only a shared grid
+    # is subsampled
+    per_example = train["trunk_in"].ndim == 3
+    n_train = train["branch_in"].shape[0]
+    n_grid = train["trunk_in"].shape[-2] if per_example else train["trunk_in"].shape[0]
     bs = min(cfg.batch_size, n_train)
     n_batches = n_train // bs
-    subsampling = cfg.p < n_grid
+    subsampling = not per_example and cfg.p < n_grid
     vp = _init_vp(cfg.model.num_params, cfg, init_vp, dev, seed)
     gen = stream_generator(dev, seed, _TRAIN_STREAM)
     nb = min(bs, valid["branch_in"].shape[0])
-    valid_batch = {"branch": valid["branch_in"][:nb], "trunk": valid["trunk_in"],
-                   "y": valid["solution"][:nb]}
-    train_eval_batch = {"branch": train["branch_in"][:nb], "trunk": train["trunk_in"],
-                        "y": train["solution"][:nb]}
+
+    def first(split):
+        return {"branch": split["branch_in"][:nb],
+                "trunk": split["trunk_in"][:nb] if per_example else split["trunk_in"],
+                "y": split["solution"][:nb]}
+
+    valid_batch, train_eval_batch = first(valid), first(train)
 
     def batch_of(idx, g):
         sol = train["solution"][idx]
@@ -176,7 +193,8 @@ def run_operator(cfg: OperatorVIRunConfig = OperatorVIRunConfig(), seed: int = 0
             trunk, y = subsample_trunk({"trunk_in": train["trunk_in"], "solution": sol},
                                        cfg.p, generator=g)
         else:
-            trunk, y = train["trunk_in"], sol
+            trunk = train["trunk_in"][idx] if per_example else train["trunk_in"]
+            y = sol
         return {"branch": train["branch_in"][idx], "trunk": trunk, "y": y}
 
     if not isinstance(cfg.vi.beta_type, float):

@@ -4,9 +4,9 @@ Counterpart of ``vihmc_tpu/vi/elbo.py`` (:28-88). Two reductions of the
 Gaussian NLL data term: ``'sum'`` (the NN variant) and ``'mean_x_n'`` (the
 operator variant: the mean times the training-set size, so a minibatch loss
 is an unbiased estimate of the full-data NLL). The noise variance is
-``fixed_noise_var``; a learned log-variance (``learn_noise``) and the
-heteroscedastic head (``noise_type=1``) are not ported yet and raise
-``NotImplementedError``. :func:`get_beta` and :func:`accuracy` are
+``fixed_noise_var``, or with ``learn_noise`` ``exp(noise_param)``: a scalar
+learned log-variance (``noise_type=0``) or the DeepONet head's per-point
+log-variance (``noise_type=1``). :func:`get_beta` and :func:`accuracy` are
 verbatim copies.
 """
 
@@ -17,33 +17,41 @@ from typing import Optional, Union
 
 import torch
 
-from vihmc_torch.dists.likelihoods import gaussian_nll
+from vihmc_torch.dists.likelihoods import gaussian_nll, gaussian_nll_var
 
 
 @dataclasses.dataclass(frozen=True)
 class ELBOConfig:
     reduction: str = "sum"        # 'sum' (NN variant) | 'mean_x_n' (operator variant)
-    learn_noise: bool = False     # noise_param is a learned log-variance (not ported)
-    noise_type: int = 0           # 0 = homoscedastic scalar, 1 = heteroscedastic (not ported)
+    learn_noise: bool = False     # noise_param is a learned log-variance
+    noise_type: int = 0           # 0 = homoscedastic scalar, 1 = heteroscedastic head
     fixed_noise_var: float = 1.0  # used when not learning noise
 
 
 def check_elbo(cfg: ELBOConfig):
-    if cfg.learn_noise:
-        raise NotImplementedError("learn_noise (a learned noise log-variance) is not ported")
-    if cfg.noise_type != 0:
-        raise NotImplementedError("noise_type=1 (the heteroscedastic head) is not ported")
     if cfg.reduction not in ("sum", "mean_x_n"):
         raise ValueError(f"unknown reduction {cfg.reduction!r}")
 
 
 def elbo_loss(cfg: ELBOConfig, prediction: torch.Tensor, target: torch.Tensor, kl,
-              beta: float, train_size) -> torch.Tensor:
+              beta: float, train_size, noise_param: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
     """Negative ELBO of each ensemble member: ``(E,)`` for ``prediction``
-    ``(E, *target.shape)`` (any leading shape that reshapes to it)."""
+    ``(E, *target.shape)`` (any leading shape that reshapes to it).
+
+    With ``learn_noise``, ``noise_param`` is the log-variance: a scalar
+    (``noise_type=0``), or the head's output of ``prediction``'s shape
+    (``noise_type=1``); otherwise the variance is ``fixed_noise_var``."""
     check_elbo(cfg)
     pred = prediction.reshape(-1, *target.shape)
-    nll = gaussian_nll(pred, target, cfg.fixed_noise_var).flatten(1)
+    if cfg.learn_noise:
+        if noise_param is None:
+            raise ValueError("learn_noise requires noise_param")
+        var = torch.exp(noise_param)
+        var = var.reshape(pred.shape) if cfg.noise_type == 1 else var
+        nll = gaussian_nll_var(pred, target, var).flatten(1)
+    else:
+        nll = gaussian_nll(pred, target, cfg.fixed_noise_var).flatten(1)
     if cfg.reduction == "sum":
         data_term = nll.sum(-1)
     else:

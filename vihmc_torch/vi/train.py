@@ -7,8 +7,8 @@ training rule:
   ``train_fullbatch_scan`` and ``_run_operator_scan`` (a constant float
   ``beta_type``, the shipped configs);
 * the functional trainer of JAX's Python loop: :class:`VITrainState` (the
-  flat ``vp``, JAX's unused ``noise_param``, the Adam moments, the plateau
-  state, the epoch), :func:`init_train_state`, :func:`make_train_step`,
+  flat ``vp``, the noise log-variance ``noise_param``, the Adam moments, the
+  plateau state, the epoch), :func:`init_train_state`, :func:`make_train_step`,
   :func:`make_eval_fn` and :func:`train`, which takes the KL weight of
   every step from ``get_beta`` (string ``beta_type`` schedules too), writes
   the best state to ``<ckpt_dir>/best`` whenever it improves and the state
@@ -20,7 +20,16 @@ Both:
 
 * the per-step loss is the mean over ``num_ens`` stochastic forwards of the
   negative ELBO; the ensemble is one chain-batched forward of ``(E, D)``
-  weight draws (:class:`~vihmc_torch.models.bayesian.BayesianFlat`);
+  weight draws (:class:`~vihmc_torch.models.bayesian.BayesianFlat`); a
+  model with the heteroscedastic head returns ``(pred, noise)``, and under
+  ``noise_type=1`` the head's output is the ELBO's log-variance;
+* with ``learn_noise`` the scalar log-variance ``noise_param`` (0 at the
+  start) is a trained parameter under the same Adam and plateau scale as
+  ``vp``, the best state keeps its ``noise_param``, the metric rows gain an
+  ``exp(noise_param)`` column and the checkpoints carry it. JAX's full-batch
+  scan (``train_fullbatch_scan``, the NN pipeline's constant-beta path)
+  writes no such column; :func:`run_epochs` leaves it out there too
+  (``noise_column``);
 * the optimizer is Adam with optax's ``adam`` defaults (b1 0.9, b2 0.999,
   eps 1e-8 added to ``sqrt(v_hat)``: ``torch.optim.Adam`` in
   :class:`VITrainer`, optax's update written out in :func:`adam_update`);
@@ -29,11 +38,9 @@ Both:
   patience``, floor ``min_lr / lr_start``, evaluated in float32 like the
   JAX state);
 * each epoch's metric row is ``[train_loss, valid_loss, train_mse,
-  valid_mse]``: ``valid_loss`` is the stochastic ELBO on the validation
-  batch, both MSEs use the mean weights; the plateau rule reads
-  ``valid_loss`` and the best state is the one with the lowest.
-
-A learned noise variance is not ported (``NotImplementedError``).
+  valid_mse]`` (+ ``exp(noise_param)``): ``valid_loss`` is the stochastic
+  ELBO on the validation batch, both MSEs use the mean weights; the plateau
+  rule reads ``valid_loss`` and the best state is the one with the lowest.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from vihmc_torch.io.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from vihmc_torch.models.bayesian import BayesianFlat, kl_divergence
@@ -98,12 +106,18 @@ def plateau_update(st: PlateauState, value, patience, factor, min_scale,
 
 @dataclasses.dataclass
 class VIState:
-    """A snapshot of training: the variational parameters (detached copies),
-    the plateau state and the epoch count."""
+    """A snapshot of training: the variational parameters and the noise
+    log-variance (detached copies), the plateau state and the epoch count."""
 
     vp: dict
     plateau: PlateauState
     epoch: int
+    noise_param: torch.Tensor
+
+
+def split_prediction(out):
+    """A model's output as ``(pred, noise_head)``: the head is None without one."""
+    return out if isinstance(out, tuple) else (out, None)
 
 
 def check_vi_config(cfg: VIConfig):
@@ -117,6 +131,8 @@ class VITrainer:
     targets); ``evaluate`` returns the stochastic loss and the mean-weight
     MSE; ``end_epoch`` applies the plateau rule to a validation loss. The
     ensemble normals come from ``generator`` unless ``eps`` (E, D) is given.
+    ``noise_param`` is the scalar log-variance, trained with ``vp`` under
+    ``learn_noise``.
     """
 
     def __init__(self, model: BayesianFlat, cfg: VIConfig, train_size,
@@ -125,8 +141,12 @@ class VITrainer:
         self.model, self.cfg, self.train_size = model, cfg, train_size
         self.generator = generator
         self.beta = float(cfg.beta_type)
-        self.opt = torch.optim.Adam(model.parameters(), lr=cfg.lr_start, betas=ADAM_BETAS,
-                                    eps=ADAM_EPS)
+        self.noise_param = torch.zeros((), device=model.mu.device)
+        params = list(model.parameters())
+        if cfg.elbo.learn_noise:
+            self.noise_param = nn.Parameter(self.noise_param)
+            params.append(self.noise_param)
+        self.opt = torch.optim.Adam(params, lr=cfg.lr_start, betas=ADAM_BETAS, eps=ADAM_EPS)
         self.plateau = plateau_init()
         self.epoch = 0
 
@@ -134,8 +154,11 @@ class VITrainer:
         """Mean over the ensemble of the negative ELBO (differentiable)."""
         cfg = self.cfg
         kl = self.model.kl(cfg.prior_mu, cfg.prior_sigma, cfg.kl_direction)
-        pred = self.model(batch, eps=eps, num_samples=cfg.num_ens, generator=self.generator)
-        return elbo_loss(cfg.elbo, pred, batch["y"], kl, self.beta, self.train_size).mean()
+        pred, head = split_prediction(
+            self.model(batch, eps=eps, num_samples=cfg.num_ens, generator=self.generator))
+        noise = head if cfg.elbo.noise_type == 1 else self.noise_param
+        return elbo_loss(cfg.elbo, pred, batch["y"], kl, self.beta, self.train_size,
+                         noise).mean()
 
     def step(self, batch, eps=None) -> torch.Tensor:
         """One Adam step at ``lr_start * plateau.scale``; returns the loss."""
@@ -149,7 +172,7 @@ class VITrainer:
 
     def mse(self, batch) -> torch.Tensor:
         with torch.no_grad():
-            pred = self.model(batch, sample=False)
+            pred, _ = split_prediction(self.model(batch, sample=False))
             return torch.mean((pred.reshape(batch["y"].shape) - batch["y"]) ** 2)
 
     def evaluate(self, batch, eps=None):
@@ -165,12 +188,13 @@ class VITrainer:
 
     def snapshot(self) -> VIState:
         return VIState(vp={k: v.detach().clone() for k, v in self.model.vp().items()},
-                       plateau=self.plateau, epoch=self.epoch)
+                       plateau=self.plateau, epoch=self.epoch,
+                       noise_param=self.noise_param.detach().clone())
 
 
 def run_epochs(trainer: VITrainer, batches_fn: Callable[[int], Iterable], valid_batch,
                train_eval_batch, epochs: Optional[int] = None,
-               callback: Optional[Callable] = None):
+               callback: Optional[Callable] = None, noise_column: Optional[bool] = None):
     """The epoch loop of ``train_fullbatch_scan`` and ``_run_operator_scan``.
 
     Each epoch takes a step on every batch of ``batches_fn(epoch)`` (its
@@ -178,9 +202,13 @@ def run_epochs(trainer: VITrainer, batches_fn: Callable[[int], Iterable], valid_
     stochastic ELBO and the mean-weight MSE) and the train-side MSE, applies
     the plateau rule to the validation loss and keeps the state of the
     lowest one. ``callback(epoch, row, trainer)`` runs after each epoch.
-    Returns ``(final VIState, best VIState, metrics (epochs, 4))``.
+    ``noise_column`` (default: ``learn_noise``) appends ``exp(noise_param)``
+    to each row. Returns ``(final VIState, best VIState, metrics (epochs, 4
+    or 5))``.
     """
     epochs = trainer.cfg.epochs if epochs is None else epochs
+    if noise_column is None:
+        noise_column = trainer.cfg.elbo.learn_noise
     rows = []
     best_state, best_valid = trainer.snapshot(), float("inf")
     for epoch in range(epochs):
@@ -190,12 +218,14 @@ def run_epochs(trainer: VITrainer, batches_fn: Callable[[int], Iterable], valid_
         row = torch.stack([torch.stack(losses).mean(), valid_loss, train_mse,
                            valid_mse]).cpu().numpy().astype(np.float64)
         trainer.end_epoch(row[1])
+        if noise_column:
+            row = np.append(row, float(torch.exp(trainer.noise_param.detach())))
         rows.append(row)
         if row[1] < best_valid:
             best_valid, best_state = row[1], trainer.snapshot()
         if callback is not None:
             callback(epoch, row, trainer)
-    return trainer.snapshot(), best_state, np.asarray(rows).reshape(-1, 4)
+    return trainer.snapshot(), best_state, np.asarray(rows).reshape(len(rows), -1)
 
 
 def predictive_samples(model: BayesianFlat, batch, n: int,
@@ -204,7 +234,7 @@ def predictive_samples(model: BayesianFlat, batch, n: int,
     """``n`` stochastic forwards (the reference's ``do_uq``) as one batched
     forward: ``(n, ...)``."""
     with torch.no_grad():
-        return model(batch, eps=eps, num_samples=n, generator=generator)
+        return split_prediction(model(batch, eps=eps, num_samples=n, generator=generator))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +244,7 @@ def predictive_samples(model: BayesianFlat, batch, n: int,
 @dataclasses.dataclass
 class AdamState:
     """optax ``ScaleByAdamState``: the step count and the two moments of
-    ``{'mu', 'rho'}``."""
+    ``{'mu', 'rho'}`` (and ``'noise'``, the log-variance, under ``learn_noise``)."""
 
     count: int
     mu: dict
@@ -230,12 +260,24 @@ class VITrainState:
     epoch: int
 
 
+def _trained(state: VITrainState, cfg: VIConfig) -> dict:
+    """The parameters Adam trains: ``vp``, plus the noise under ``learn_noise``."""
+    params = dict(state.vp)
+    if cfg.elbo.learn_noise:
+        params["noise"] = state.noise_param
+    return params
+
+
 def init_train_state(vp: dict, cfg: VIConfig) -> VITrainState:
-    """The state at ``vp`` with zero Adam moments (train.py:89-94)."""
+    """The state at ``vp`` and ``noise_param`` 0 with zero Adam moments
+    (train.py:89-94)."""
     check_vi_config(cfg)
     vp = {k: vp[k].detach().clone().float() for k in ("mu", "rho")}
+    noise = torch.zeros((), device=vp["mu"].device)
     zeros = {k: torch.zeros_like(v) for k, v in vp.items()}
-    return VITrainState(vp=vp, noise_param=torch.zeros((), device=vp["mu"].device),
+    if cfg.elbo.learn_noise:
+        zeros["noise"] = torch.zeros_like(noise)
+    return VITrainState(vp=vp, noise_param=noise,
                         opt_state=AdamState(0, zeros, {k: v.clone() for k, v in zeros.items()}),
                         plateau=plateau_init(), epoch=0)
 
@@ -256,14 +298,16 @@ def adam_update(params: dict, grads: dict, st: AdamState, lr: float, scale=1.0):
 
 
 def make_loss_fn(apply_fn: Callable, cfg: VIConfig, train_size):
-    """``loss_fn(vp, batch, eps, beta, generator) -> ()``: the ensemble mean
-    of the negative ELBO (``apply_fn(vp, batch, eps, sample, num_samples,
-    generator)``, :func:`~vihmc_torch.pipelines.common.mlp_vi_apply`)."""
+    """``loss_fn(vp, batch, eps, beta, generator, noise_param) -> ()``: the
+    ensemble mean of the negative ELBO (``apply_fn(vp, batch, eps, sample,
+    num_samples, generator)``, :func:`~vihmc_torch.pipelines.common.mlp_vi_apply`;
+    ``noise_param`` the scalar log-variance, the head's under ``noise_type=1``)."""
 
-    def loss_fn(vp, batch, eps, beta, generator=None):
+    def loss_fn(vp, batch, eps, beta, generator=None, noise_param=None):
         kl = kl_divergence(vp, cfg.prior_mu, cfg.prior_sigma, cfg.kl_direction)
-        pred = apply_fn(vp, batch, eps, True, cfg.num_ens, generator)
-        return elbo_loss(cfg.elbo, pred, batch["y"], kl, beta, train_size).mean()
+        pred, head = split_prediction(apply_fn(vp, batch, eps, True, cfg.num_ens, generator))
+        noise = head if cfg.elbo.noise_type == 1 else noise_param
+        return elbo_loss(cfg.elbo, pred, batch["y"], kl, beta, train_size, noise).mean()
 
     return loss_fn
 
@@ -275,19 +319,26 @@ def make_train_step(apply_fn: Callable, cfg: VIConfig, train_size):
     loss_fn = make_loss_fn(apply_fn, cfg, train_size)
 
     def step(state: VITrainState, batch, eps=None, beta=1.0, generator=None):
+        params = _trained(state, cfg)
         with torch.enable_grad():
-            vp = {k: v.detach().requires_grad_(True) for k, v in state.vp.items()}
-            loss = loss_fn(vp, batch, eps, beta, generator)
-            g_mu, g_rho = torch.autograd.grad(loss, [vp["mu"], vp["rho"]])
-        new_vp, opt = adam_update(state.vp, {"mu": g_mu, "rho": g_rho}, state.opt_state,
-                                  cfg.lr_start, state.plateau.scale)
-        return dataclasses.replace(state, vp=new_vp, opt_state=opt), loss.detach()
+            leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            loss = loss_fn({k: leaves[k] for k in ("mu", "rho")}, batch, eps, beta, generator,
+                           leaves.get("noise", state.noise_param))
+            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        grads = {k: torch.zeros_like(v) if g is None else g
+                 for (k, v), g in zip(leaves.items(), grads)}
+        new, opt = adam_update(params, grads, state.opt_state, cfg.lr_start,
+                               state.plateau.scale)
+        new_vp = {k: new[k] for k in ("mu", "rho")}
+        return dataclasses.replace(state, vp=new_vp, noise_param=new.get("noise",
+                                                                          state.noise_param),
+                                   opt_state=opt), loss.detach()
 
     return step
 
 
 def _mean_mse(apply_fn, vp, batch) -> torch.Tensor:
-    pred = apply_fn(vp, batch, None, False)
+    pred, _ = split_prediction(apply_fn(vp, batch, None, False))
     return torch.mean((pred.reshape(batch["y"].shape) - batch["y"]) ** 2)
 
 
@@ -298,7 +349,7 @@ def make_eval_fn(apply_fn: Callable, cfg: VIConfig, train_size):
 
     def evaluate(state: VITrainState, batch, eps=None, beta=1.0, generator=None):
         with torch.no_grad():
-            return (loss_fn(state.vp, batch, eps, beta, generator),
+            return (loss_fn(state.vp, batch, eps, beta, generator, state.noise_param),
                     _mean_mse(apply_fn, state.vp, batch))
 
     return evaluate
@@ -316,7 +367,8 @@ def train(apply_fn: Callable, state: VITrainState, cfg: VIConfig,
           ckpt_dir: Optional[str] = None, restart: bool = False,
           eps_fn: Optional[Callable] = None):
     """The epoch loop of JAX's ``train`` (train.py:252-338). Returns
-    ``(final state, best state, metrics (epochs run, 4))``.
+    ``(final state, best state, metrics (epochs run, 4, or 5 under
+    learn_noise))``.
 
     Each epoch: ``train_batches_fn(generator, epoch)`` gives the batches; a
     step on each with the KL weight ``get_beta(i, m, beta_type, epoch,
@@ -361,6 +413,8 @@ def train(apply_fn: Callable, state: VITrainState, cfg: VIConfig,
             plateau=plateau_update(state.plateau, valid_loss, cfg.patience,
                                    cfg.plateau_factor, cfg.min_lr / cfg.lr_start))
         row = [sum(losses) / m, valid_loss, float(train_mse), float(valid_mse)]
+        if cfg.elbo.learn_noise:
+            row.append(float(torch.exp(state.noise_param)))
         rows.append(row)
         improved = valid_loss < best_valid
         if improved:
@@ -374,4 +428,5 @@ def train(apply_fn: Callable, state: VITrainState, cfg: VIConfig,
             callback(epoch, row, state)
     if ckpt_dir is not None:
         _save(ckpt_dir, cfg.epochs, state, cfg.epochs, generator)
-    return state, best_state, np.asarray(rows, dtype=np.float64).reshape(-1, 4)
+    return state, best_state, np.asarray(rows, dtype=np.float64).reshape(
+        len(rows), 5 if cfg.elbo.learn_noise else 4)
