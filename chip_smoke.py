@@ -113,11 +113,26 @@ Phases, each printed with its wall time:
     (``noise_type=0``, a scalar log-variance, which must move), then with
     the heteroscedastic head (``noise_neurons=10``, ``noise_type=1``: the
     head's mean log-variance on the validation batch must move), p = 512, a
-    few epochs each, finite losses, no kernel launch.
+    few epochs each, finite losses, no kernel launch;
+27. the chain mesh on the card: stage 3 (``run_operator(mesh=,
+    use_fused=True)``, full width, stride, 16 chains, dual averaging
+    coupled over the chains on every draw, a few draws) (a) in a one-rank
+    NCCL world, bit-equal to the
+    same run without a mesh, ``merge_sums`` 1 + 2 x draws; then
+    ``merge_sums`` timed at a rank's C = 8; (b) in two gloo processes sharing
+    the card (``python3 chip_smoke.py --mesh-child R``, 8 chains each): each
+    rank counts its own 1 + 2 x draws launches, the gathered samples and
+    step sizes match (a) within ``MESH_SAMPLE_RTOL`` of their magnitude with
+    the same accept decisions, the wall per draw per rank and its share in collectives
+    printed; both ranks first ask for NCCL on the one card and must be
+    refused; (c) the full-width ``shard_query`` log posterior's value and
+    gradient over the two ranks (5,101 / 5,100 points) against the unsharded
+    ones; (d) ``python -m vihmc_torch.run_multihost`` on two gloo ranks
+    against one rank, at the JAX test's tolerances.
 
 Phase 3 also prints the operator row's ``mfu`` block and phase 18 the NN
 row's, with its CPU baseline (``vs_baseline``): both blocks present with 0 <
-``mfu`` <= 1. Before each driven path (3, 6, 7, 8, 9, 10, 11, 12-26) every
+``mfu`` <= 1. Before each driven path (3, 6, 7, 8, 9, 10, 11, 12-27) every
 kernel count is set to 0, and it is read just after (stages 1 and 2,
 ``hmc_split``, ``hmc_full``, the NN paths of 18 and 21 and phases 25-26 run
 no kernel of the port). Every depth cut is printed. The second-to-last line is a JSON object describing every
@@ -141,8 +156,15 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vihmc_torch import bench_nn
+from vihmc_torch.chains import (gather_chains, global_chain_mesh, initialize_distributed,
+                                make_chain_mesh, shard_query)
+from vihmc_torch.core.mesh import data_parallel_ll
+from vihmc_torch.dists.likelihoods import get_likelihood
+from vihmc_torch.dists.priors import IsotropicGaussianPrior
+from vihmc_torch.hmc.kernel import value_and_grad
 from vihmc_torch.chains.diagnostics import potential_scale_reduction_np
 from vihmc_torch.models.symmetry import canonicalize_deeponet, random_orbit_element
 from vihmc_torch.bench_operator import (build_operator_problem, operator_fns,
@@ -227,6 +249,15 @@ NOISE_EPOCHS, NOISE_HEAD = 2, 10         # phase 26: VI epochs (1000), head widt
 NN_BASELINE_SECONDS = 20.0               # phase 18: CPU baseline cap (bench: 120 s)
 CANON_PRED_RTOL = 1e-4                   # canonical draw's predictions: of max |prediction|
 DISPATCH_OPS = 2000                      # one-element adds timed for the host's dispatch cost
+MESH_DRAWS = 10                          # phase 27: stage-3 draws on the mesh (450)
+MESH_CHILD_TIMEOUT_S = 300               # phase 27: each spawned rank's limit
+# phase 27 (b): the two-rank run's samples within this fraction of their
+# largest magnitude of the one-rank run's (the Gram field's products at 8
+# chains round apart from those at 16; HMC at this step carries the
+# differences through 10 draws without growing them past it)
+MESH_SAMPLE_RTOL = 1e-4
+QUERY_VALUE_RTOL = 1e-5                  # phase 27 (c): the sharded ll (JAX's test tolerance)
+QUERY_GRAD_RTOL = 1e-4                   # ... its gradient, of the gradient's largest entry
 
 KERNELS = {
     "paired_sums": {"route": "cuda", "source": "vihmc_torch/csrc/paired_sums.cu",
@@ -1437,6 +1468,288 @@ def noise_phase(dev, data):
         check(len(heads) > 1 and heads[0] != heads[-1], "the noise head did not move")
 
 
+class CollectiveClock:
+    """Host wall and calls of every ``all_reduce``/``all_gather`` inside the
+    block (the mesh code calls them through ``torch.distributed``)."""
+
+    def __enter__(self):
+        self.seconds, self.calls = 0.0, 0
+        self._real = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+        for n, fn in self._real.items():
+            setattr(dist, n, self._timed(fn))
+        return self
+
+    def _timed(self, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+        return timed
+
+    def __exit__(self, *exc):
+        for n, fn in self._real.items():
+            setattr(dist, n, fn)
+        return False
+
+
+def mesh_config(arts):
+    """Stage 3 of phase 27: stride, 16 chains, dual averaging coupled over
+    the chains on every draw (``adapt_forever``), so a chain all-reduce runs
+    each draw."""
+    grid = load_port_inputs()
+    n_data = int(grid["n_train"]) * int(grid["nx"]) * int(grid["nt"])
+    return stage3_config(len(arts["indices"]), n_data, variant="stride", draws=MESH_DRAWS,
+                         chains=16, L=31, adapt=True, da_axis=True,
+                         adapt_forever=True)
+
+
+def mesh_run(label, dev, data, arts, mesh):
+    """``run_operator(mesh=, use_fused=True)`` with every count at 0 before
+    and read after; ``merge_sums`` must run 1 + 2 x draws times on this rank.
+    Returns ``(out, counts, collective seconds, collective calls)``."""
+    reset_counts()
+    with CollectiveClock() as clock:
+        out = vi_hmc.run_operator(mesh_config(arts), DeepONetConfig(), arts, data=data,
+                                  use_fused=True, mesh=mesh, seed=0, device=dev)
+    counts = read_counts()
+    want = 1 + 2 * MESH_DRAWS
+    print(f"  {label}: launches {counts}; merge_sums expected 1 + 2 x {MESH_DRAWS} = {want}")
+    check(counts["merge_sums"] == want, f"{label}: merge_sums {counts['merge_sums']}")
+    check(counts["paired_sums"] == 0 and counts["leapfrog_update"] == 0, f"{label}: {counts}")
+    res = out["result"]
+    check(bool(np.isfinite(res.samples).all()), f"{label}: non-finite samples")
+    check(res.samples.shape[0] == 16, f"{label}: {res.samples.shape[0]} chains gathered")
+    return out, counts, clock.seconds, clock.calls
+
+
+def query_points(arts, dev):
+    """Two full parameter vectors: the VI mean and one VI draw."""
+    mu = torch.as_tensor(arts["mu"], dtype=torch.float32, device=dev)
+    sigma = torch.as_tensor(arts["sigma"], dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    return torch.stack([mu, mu + sigma * torch.randn(mu.shape, generator=gen, device=dev)])
+
+
+def query_value_grad(mesh, dev, train, arts):
+    """The composed full-width log posterior (NLL over the grid, the prior
+    once) and its gradient, the query axis over ``mesh``'s 'data' shards."""
+    cfg = DeepONetConfig()
+    bx, tx, y = train["branch_in"], train["trunk_in"], train["solution"]
+    if mesh is not None:
+        tx, y = shard_query(mesh, tx, y)
+    apply_flat = make_flat_deeponet(cfg)
+    like = get_likelihood("NLL")
+    prior = IsotropicGaussianPrior(scale=0.1)
+
+    def ll(flat):
+        with true_f32():
+            return like(apply_flat(flat, bx, tx), y, 1.0)
+
+    lp = data_parallel_ll(mesh, ll)
+    v, g = value_and_grad(lambda q, a: lp(q) + prior.log_prob(q),
+                          query_points(arts, dev), None)
+    return v, g, tx.shape[0]
+
+
+def mesh_child(args) -> int:
+    """One rank of phase 27 (b)-(c): a gloo rank sharing the card."""
+    torch.set_num_threads(4)
+    rank = args.mesh_child
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    refusal = ""
+    try:
+        initialize_distributed(f"localhost:{args.mesh_nccl_port}", 2, rank, 60.0,
+                               backend="nccl", device="cuda")
+    except RuntimeError as e:
+        refusal = str(e)
+    check(initialize_distributed(f"localhost:{args.mesh_port}", 2, rank, 120.0,
+                                 backend="gloo", device="cuda"), "gloo world of 2")
+    cuda_build.build_all()
+    data = get_burgers(dev)
+    arts = load_stage12_artifacts()
+    out, counts, coll_s, coll_n = mesh_run(f"rank {rank}", dev, data, arts,
+                                           global_chain_mesh())
+    res = out["result"]
+    v, g, n_points = query_value_grad(make_chain_mesh(1, 2), dev, data[0], arts)
+    np.savez(os.path.join(args.mesh_out, f"rank{rank}.npz"), samples=res.samples,
+             accepted=res.accepted, step_sizes=res.step_sizes,
+             merge_sums=counts["merge_sums"], sampling_s=out["phases_s"]["sampling_s"],
+             gather_s=out["phases_s"]["gather_s"], coll_s=coll_s, coll_n=coll_n,
+             refusal=np.asarray(refusal), value=v.cpu().numpy(), grad=g.cpu().numpy(),
+             n_points=n_points, mse=out["metrics"]["expected_mse_of_mean"])
+    dist.destroy_process_group()
+    return 0
+
+
+def free_ports(n):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sk in socks:
+            sk.bind(("localhost", 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+def wait_children(procs, label):
+    """Wait for every child (each within its limit); any non-zero exit fails."""
+    outs = []
+    for p, log in procs:
+        p.wait(timeout=MESH_CHILD_TIMEOUT_S)
+        log.seek(0)
+        text = log.read()
+        check(p.returncode == 0, f"{label}: a child exited {p.returncode}:\n{text[-4000:]}")
+        outs.append(text)
+    return outs
+
+
+def spawn(cmd, procs):
+    log = tempfile.TemporaryFile("w+")
+    procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log))
+
+
+def mesh_phase(dev, data, arts, tmp):
+    """Phase 27: the chain mesh on the card."""
+    print(f"  depth cut: draws {MESH_DRAWS} (stage-3 config 450); stride, 16 chains, L 31, "
+          f"dual averaging coupled over the chains on every draw (da_axis='chains', "
+          f"adapt_forever)")
+    nccl_port, gloo_port, probe_port, mh_port = free_ports(4)
+    # (a) a one-rank NCCL world: bit-equal to the mesh-less run
+    check(initialize_distributed(f"localhost:{nccl_port}", 1, 0, 120.0, device="cuda"),
+          "one-rank world")
+    check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+    a_out, _, a_coll_s, a_coll_n = mesh_run("(a) one-rank NCCL mesh", dev, data, arts,
+                                            global_chain_mesh())
+    dist.destroy_process_group()
+    p_out, _, _, _ = mesh_run("(a) no mesh", dev, data, arts, None)
+    a_res, p_res = a_out["result"], p_out["result"]
+    same = all(np.array_equal(getattr(a_res, f), getattr(p_res, f))
+               for f in ("samples", "accept_probs", "accepted", "step_sizes"))
+    print(f"  (a) one-rank NCCL mesh bit-equal to the mesh-less run: {same}; acceptance "
+          f"{a_res.acceptance_rate:.4f}; collectives {a_coll_n} calls, {a_coll_s:.3f} s")
+    check(same, "(a) the one-rank mesh run differs from the mesh-less run")
+    a_draw_ms = 1e3 * a_out["phases_s"]["sampling_s"] / MESH_DRAWS
+    print(f"  (a) wall per draw: {a_draw_ms:.2f} ms on the mesh (its first all-reduce sets up "
+          f"the NCCL communicator), {1e3 * p_out['phases_s']['sampling_s'] / MESH_DRAWS:.2f} "
+          f"ms without")
+    # merge_sums at a rank's C = 8 of the two-rank run, on the run's last positions
+    cfg_d = DeepONetConfig()
+    bx, tx, y = data[0]["branch_in"], data[0]["trunk_in"], data[0]["solution"]
+    q8 = torch.as_tensor(a_res.samples[:8, -1], device=dev)
+    with true_f32():
+        bo, to = deeponet_features(cfg_d, unravel_deeponet(
+            cfg_d, scatter_subspace(a_out["frozen"], q8, a_out["spec"].idx)), bx, tx)
+    bo, to = bo.contiguous(), to.contiguous()
+    ms8 = time_device("merge_sums at C=8", lambda: merge_sums(bo, to, y), 20)
+    b8, by8, tc8 = merge_sums_bound_ms(8, bo.shape[1], to.shape[1], bo.shape[2])
+    print(f"  merge_sums at C=8 B={bo.shape[1]} P={to.shape[1]} K={bo.shape[2]} (a rank's "
+          f"chains on two ranks): {ms8:.3f} ms; {bound_line(ms8, b8, tc8)} ({by8})")
+    del bo, to, p_out
+    torch.cuda.empty_cache()
+
+    # (b)-(c) two gloo ranks sharing the card
+    out_dir = os.path.join(tmp, "mesh")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = []
+    try:
+        for r in range(2):
+            spawn([sys.executable, os.path.abspath(__file__), "--mesh-child", str(r),
+                   "--mesh-port", str(gloo_port), "--mesh-nccl-port", str(probe_port),
+                   "--mesh-out", out_dir], procs)
+        wait_children(procs, "(b) gloo ranks")
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    ranks = [np.load(os.path.join(out_dir, f"rank{r}.npz")) for r in range(2)]
+    for r, z in enumerate(ranks):
+        msg = str(z["refusal"])
+        check(msg.startswith("NCCL takes one rank per card"), f"rank {r}: NCCL refusal {msg!r}")
+    print(f"  nccl with two ranks on one card refused: {str(ranks[0]['refusal'])!r}")
+    b = ranks[0]
+    gap = float(np.max(np.abs(b["samples"] - a_res.samples)))
+    scale = float(np.max(np.abs(a_res.samples)))
+    step_gap = float(np.max(np.abs(b["step_sizes"] - a_res.step_sizes)))
+    step_scale = float(np.max(np.abs(a_res.step_sizes)))
+    acc_b, acc_a = float(np.mean(b["accepted"])), a_res.acceptance_rate
+    print(f"  (b) two gloo ranks x 8 chains: merge_sums per rank "
+          f"{[int(z['merge_sums']) for z in ranks]}; gathered samples vs (a): largest gap "
+          f"{gap:.3g} (largest |sample| {scale:.3g}, tolerance {MESH_SAMPLE_RTOL:g} of it); "
+          f"step sizes vs (a): largest gap {step_gap:.3g} (largest {step_scale:.3g}, same "
+          f"tolerance); acceptance {acc_b:.4f} vs {acc_a:.4f}")
+    check(all(np.array_equal(z["samples"], b["samples"]) for z in ranks),
+          "(b) ranks gathered different samples")
+    check(all(np.array_equal(z["step_sizes"], b["step_sizes"]) for z in ranks),
+          "(b) ranks gathered different step sizes")
+    check(gap <= MESH_SAMPLE_RTOL * scale, f"(b) sample gap {gap}")
+    check(step_gap <= MESH_SAMPLE_RTOL * step_scale, f"(b) step-size gap {step_gap}")
+    check(acc_b == acc_a and np.array_equal(b["accepted"], a_res.accepted),
+          "(b) acceptance differs")
+    for r, z in enumerate(ranks):
+        draw_ms = 1e3 * float(z["sampling_s"]) / MESH_DRAWS
+        print(f"  (b) rank {r}: wall per draw {draw_ms:.2f} ms beside (a)'s {a_draw_ms:.2f} ms; "
+              f"collectives {int(z['coll_n'])} calls, {float(z['coll_s']):.3f} s = "
+              f"{100 * float(z['coll_s']) / (float(z['sampling_s']) + float(z['gather_s'])):.1f}"
+              f" % of sampling + gather (host wall in all_reduce/all_gather); gather "
+              f"{float(z['gather_s']):.3f} s")
+
+    # (c) the full-width query-sharded log posterior against the unsharded one
+    v, g, n_points = query_value_grad(None, dev, data[0], arts)
+    v, g = v.cpu().numpy(), g.cpu().numpy()
+    v_err = float(np.max(np.abs(b["value"] - v) / np.abs(v)))
+    g_err = float(np.max(np.abs(b["grad"] - g)) / np.max(np.abs(g)))
+    print(f"  (c) shard_query over two ranks ({int(ranks[0]['n_points'])} / "
+          f"{int(ranks[1]['n_points'])} of {n_points} points): value rel err {v_err:.3g} "
+          f"(tolerance {QUERY_VALUE_RTOL:g}), gradient max err {g_err:.3g} of its largest "
+          f"entry (tolerance {QUERY_GRAD_RTOL:g})")
+    check(v_err <= QUERY_VALUE_RTOL and g_err <= QUERY_GRAD_RTOL, "(c) shard_query")
+    check(sorted([int(z["n_points"]) for z in ranks]) == [5100, 5101], "(c) shard sizes")
+
+    # (d) run_multihost on two ranks against one
+    procs = []
+    mh = [sys.executable, "-m", "vihmc_torch.run_multihost"]
+    two = ["--coordinator", f"localhost:{mh_port}", "--num-processes", "2",
+           "--init-timeout", "120", "--backend", "gloo"]
+    try:
+        spawn(mh + two + ["--process-id", "0"], procs)
+        spawn(mh + two + ["--process-id", "1"], procs)
+        spawn(mh, procs)
+        texts = wait_children(procs, "(d) run_multihost")
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+
+    def result(text):
+        lines = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+        check(len(lines) == 1, f"run_multihost RESULT lines: {lines}")
+        return json.loads(lines[0][len("RESULT "):])
+
+    two_r, one_r = result(texts[0]), result(texts[2])
+    print(f"  (d) run_multihost two ranks: {json.dumps(two_r)}")
+    print(f"  (d) run_multihost one rank:  {json.dumps(one_r)}")
+    check(two_r["distributed"] and two_r["processes"] == 2 and not one_r["distributed"],
+          "(d) process counts")
+    check(abs(two_r["acceptance"] - one_r["acceptance"]) <= 1e-3
+          and abs(two_r["max_rhat"] - one_r["max_rhat"]) <= 1e-2 * one_r["max_rhat"]
+          and abs(two_r["median_ess"] - one_r["median_ess"]) <= 5e-2 * one_r["median_ess"],
+          "(d) the two-rank diagnostics differ from the one-rank run's")
+    return {"merge_sums_c8_ms": ms8, "merge_sums_c8_bound_ms": b8,
+            "mesh_launches_per_rank": [int(z["merge_sums"]) for z in ranks]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke run on one GPU")
     ap.add_argument("--draws", type=int, default=240, help="operator-row draws")
@@ -1459,11 +1772,17 @@ def main(argv=None) -> int:
     ap.add_argument("--nuts-chains", type=int, default=4, help="hmc_nuts chains (config: 1)")
     ap.add_argument("--split-draws", type=int, default=6, help="hmc_split draws (config: 1001)")
     ap.add_argument("--full-draws", type=int, default=8, help="hmc_full draws (config: 1000)")
+    ap.add_argument("--mesh-child", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-nccl-port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if args.mesh_child is not None:
+        return mesh_child(args)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -1922,12 +2241,22 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase("26 learned noise", t0)
 
+    # ---- phase 27: the chain mesh on the card ----
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = mesh_phase(dev, data, arts, tmp)
+    torch.cuda.empty_cache()
+    phase("27 mesh on the card", t0)
+
     launches = {"paired_sums": row_counts["paired_sums"],
                 "merge_sums": s3_counts["merge_sums"],
                 "leapfrog_update": s3_counts["leapfrog_update"]}
     print("  launches per kernel on its main path: paired_sums in the operator row, "
           "merge_sums in stage 3; leapfrog_update is on no path (no sampler calls it, "
           "as in the JAX package): " + json.dumps(launches))
+    print(f"  merge_sums on the two-rank mesh path (phase 27): "
+          f"{mesh['mesh_launches_per_rank']} launches per rank, "
+          f"{mesh['merge_sums_c8_ms']:.3f} ms at C=8 (bound {mesh['merge_sums_c8_bound_ms']:.3f} ms)")
     print(json.dumps({"kernels": [dict(name=n, **KERNELS[n], launches=launches[n],
                                        **kernel_rows[n], library_ms=None)
                                   for n in KERNELS]}))

@@ -18,8 +18,7 @@ NOT_PORTED = {
     "models": set(),
     "dists": set(),
     "hmc": set(),
-    "chains": {"make_chain_mesh", "shard_batch", "shard_query", "initialize_distributed",
-               "global_chain_mesh", "chains_per_host"},
+    "chains": set(),
     "ops": set(),
     "pipelines": set(),
     "vi": set(),
@@ -35,7 +34,9 @@ MUST_EXPORT = {
             "sample_model", "predict_model"},
     "chains": {"sample_chains", "sample_chains_nuts", "sample_chains_chees", "ChainSampler",
                "potential_scale_reduction_np", "effective_sample_size",
-               "potential_scale_reduction", "summarize"},
+               "potential_scale_reduction", "summarize", "make_chain_mesh", "shard_batch",
+               "shard_query", "initialize_distributed", "global_chain_mesh",
+               "chains_per_host"},
     "dists": {"LIKELIHOODS", "normal_logpdf", "diag_normal_logpdf_sum"},
     "ops": {"grid_stride_subset", "infer_grid_shape"},
     "pipelines": {"configs", "make_flat_deeponet", "make_flat_mlp", "make_log_posterior",

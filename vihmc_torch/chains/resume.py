@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from vihmc_torch.core.device import stream_generator
+from vihmc_torch.core.mesh import chain_axis
 from vihmc_torch.io.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from vihmc_torch.hmc.kernel import (HMCConfig, SampleResult, draw_noise, init_state,
                                     jitter_l_range, make_kernel)
@@ -155,7 +156,8 @@ def sample_chains_resumable(log_prob_fn: Callable, init_positions: torch.Tensor,
                             aux_draw: Optional[Callable] = None,
                             shard_log_prob_fn: Optional[Callable] = None,
                             shard_data=None,
-                            checkpoint_dir: Optional[str] = None) -> SampleResult:
+                            checkpoint_dir: Optional[str] = None,
+                            mesh=None) -> SampleResult:
     """Run ``config.num_samples`` draws of all chains (see module doc).
 
     ``grad_fn`` None: the trajectory differentiates ``log_prob_fn`` by
@@ -171,19 +173,29 @@ def sample_chains_resumable(log_prob_fn: Callable, init_positions: torch.Tensor,
     ``checkpoint_dir``: save after every segment and resume from the latest
     complete one. ``progress(segment, n_segments, state)`` is called after
     each segment, once its samples are on the host (and saved).
+
+    ``mesh`` (a ``DeviceMesh``, :func:`~vihmc_torch.chains.make_chain_mesh`):
+    this rank runs its rows of the ``(C, d)`` chains ``init_positions`` and the result holds
+    those rows (:func:`~vihmc_torch.chains.parallel.gather_chains` collects
+    them); every random block is drawn for all C chains and sliced, so the
+    chains do not depend on the layout. A mesh takes no ``checkpoint_dir``
+    (the JAX package has no resumable mesh path either).
     """
     n_chains, dim = init_positions.shape
     dev = init_positions.device
+    if mesh is not None and checkpoint_dir is not None:
+        raise ValueError("checkpoint_dir (resumable sampling) does not compose with a mesh")
+    axis = chain_axis(mesh, n_chains)
     kernel = make_kernel(config, inv_mass, grad_fn, delta_fn, log_prob_fn, aux_refresh,
-                         shard_log_prob_fn, shard_data)
+                         shard_log_prob_fn, shard_data, chains=axis)
     step_noise = None
     if config.init_step_search:
-        step_noise = torch.randn((n_chains, dim),
-                                 generator=stream_generator(dev, seed, STEP_SEARCH_STREAM),
-                                 device=dev)
+        step_noise = axis.local(torch.randn(
+            (n_chains, dim), generator=stream_generator(dev, seed, STEP_SEARCH_STREAM),
+            device=dev))
     # the initial state is computed on a resume too (as in JAX), then replaced
-    state = init_state(log_prob_fn, init_positions, config, aux, grad_fn, inv_mass=inv_mass,
-                       step_noise=step_noise)
+    state = init_state(log_prob_fn, axis.local(init_positions), config, aux, grad_fn,
+                       inv_mass=inv_mass, step_noise=step_noise)
     start, loaded, on_segment = 0, [], None
     if checkpoint_dir is not None:
         done = latest_step(checkpoint_dir)
@@ -201,8 +213,8 @@ def sample_chains_resumable(log_prob_fn: Callable, init_positions: torch.Tensor,
     n_steps_range = jitter_l_range(config)
 
     def step(st, gen):
-        return kernel(st, draw_noise(gen, inv_mass, n_chains, dim, dev, aux_draw,
-                                     n_steps_range))
+        return kernel(st, axis.local(draw_noise(gen, inv_mass, n_chains, dim, dev, aux_draw,
+                                                n_steps_range)))
 
     state, samples, out = run_segments(step, state, config.num_samples, segment_size, thin,
                                        seed, dev, progress=progress, start_segment=start,

@@ -23,6 +23,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from vihmc_torch.core.mesh import ChainAxis, chain_axis
 from vihmc_torch.hmc.adaptation import DualAveragingState, da_init, da_update
 from vihmc_torch.hmc.kernel import (DIVERGENCE_THRESHOLD, SampleResult,
                                     normalize_log_prob, value_and_grad)
@@ -99,14 +100,18 @@ def init_chees_state(log_prob_fn: Callable, positions: torch.Tensor, config: ChE
 
 def make_chees_kernel(log_prob_fn: Callable, config: ChEESConfig, inv_mass=1.0,
                       aux_refresh: Optional[Callable] = None,
-                      grad_fn: Optional[Callable] = None):
+                      grad_fn: Optional[Callable] = None,
+                      chains: Optional[ChainAxis] = None):
     """``kernel(state, noise) -> (state, info)`` (chees.py:121-247).
+    ``chains``: the axis the cross-chain means and sums reduce over, across
+    its shards on a mesh (default: the state's chains).
     ``inv_mass``: scalar or (d,) diagonal. ``info``: ``log_prob``,
     ``accept_prob``, ``accepted``, ``divergent`` and ``step_size`` (C,), and
     the shared ``n_steps`` (an int) and ``traj_length``."""
 
     def kernel(state: ChEESState, noise: ChEESNoise):
         q0, it = state.position, state.iteration
+        axis = ChainAxis(q0.shape[0]) if chains is None else chains
         in_burn = it < config.burn
         if aux_refresh is not None:
             aux = aux_refresh(noise.z_aux)
@@ -156,18 +161,18 @@ def make_chees_kernel(log_prob_fn: Callable, config: ChEESConfig, inv_mass=1.0,
         da = state.da
         log_t, adam_m, adam_v, adam_t = state.log_T, state.adam_m, state.adam_v, state.adam_t
         if in_burn:
-            da = da_update(state.da, accept_prob.mean(), config.target_accept)
+            da = da_update(state.da, axis.mean(accept_prob), config.target_accept)
             # the ChEES gradient across chains; a divergent chain's proposal
             # is replaced by its start and its velocity by 0 (its weight is 0)
             fin = finite[:, None]
             q1_safe = torch.where(fin, q1, q0)
             v1 = im * torch.where(fin, p1, torch.zeros_like(p1))
-            d_old = ((q0 - q0.mean(0)) ** 2).sum(-1)
-            centred = q1_safe - q1_safe.mean(0)
+            d_old = ((q0 - axis.mean(q0)) ** 2).sum(-1)
+            centred = q1_safe - axis.mean(q1_safe)
             d_new = (centred ** 2).sum(-1)
             dir_dot = (centred * v1).sum(-1)
-            w = accept_prob / torch.clamp(accept_prob.sum(), min=1e-12)
-            grad_t = (w * (d_new - d_old) * dir_dot).sum() * u * big_t
+            w = accept_prob / torch.clamp(axis.sum(accept_prob), min=1e-12)
+            grad_t = axis.sum(w * (d_new - d_old) * dir_dot) * u * big_t
             grad_t = torch.where(torch.isfinite(grad_t), grad_t, torch.zeros_like(grad_t))
             b1, b2 = config.adam_b1, config.adam_b2
             adam_t = state.adam_t + 1.0
@@ -194,27 +199,30 @@ def chees_sample(log_prob_fn: Callable, init_positions: torch.Tensor, config: Ch
                  grad_fn: Optional[Callable] = None, seed: int = 0, thin: int = 1,
                  segment_size: Optional[int] = None,
                  progress: Optional[Callable] = None,
-                 aux_draw: Optional[Callable] = None) -> SampleResult:
+                 aux_draw: Optional[Callable] = None, mesh=None) -> SampleResult:
     """``config.num_samples`` ChEES draws of the coupled chains
     ``init_positions`` (C, d); arrays ``(C, S, ...)`` as in JAX, except
     ``step_sizes`` ``(S,)`` (shared). ``aux`` may be shared (D,) or per chain;
     ``aux_refresh(z) -> (C, D)`` redraws every chain's from
     ``aux_draw(generator)`` (default ``(C, D)`` standard normals).
     ``aux_trace`` holds the per-draw ``n_steps`` and ``traj_length`` ``(S,)``. Segments, streams and thinning as in
-    :func:`~vihmc_torch.hmc.nuts.nuts_sample`."""
+    :func:`~vihmc_torch.hmc.nuts.nuts_sample`, and so is a chain ``mesh``:
+    the cross-chain means and sums then all-reduce over its ``'chains'``
+    shards, so every shard keeps the same step and trajectory length."""
     from vihmc_torch.chains.resume import resolve_aux_draw, run_segments
 
     n_chains, dim = init_positions.shape
     dev = init_positions.device
+    axis = chain_axis(mesh, n_chains)
     log_prob_fn = normalize_log_prob(log_prob_fn)
     grad_fn = normalize_log_prob(grad_fn)
     inv_mass = torch.as_tensor(inv_mass, dtype=torch.float32, device=dev)
-    kernel = make_chees_kernel(log_prob_fn, config, inv_mass, aux_refresh, grad_fn)
-    state = init_chees_state(log_prob_fn, init_positions, config, aux, grad_fn)
+    kernel = make_chees_kernel(log_prob_fn, config, inv_mass, aux_refresh, grad_fn, axis)
+    state = init_chees_state(log_prob_fn, axis.local(init_positions), config, aux, grad_fn)
     aux_draw = resolve_aux_draw(aux_refresh, aux_draw, aux, n_chains, dev)
 
     def step(st, gen):
-        return kernel(st, draw_chees_noise(gen, n_chains, dim, dev, aux_draw))
+        return kernel(st, axis.local(draw_chees_noise(gen, n_chains, dim, dev, aux_draw)))
 
     state, samples, out = run_segments(
         step, state, config.num_samples, segment_size or config.num_samples, thin, seed,

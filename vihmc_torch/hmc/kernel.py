@@ -60,7 +60,11 @@ iteration, the Welford state, the carried metric and the momentum all carry
 across segments. It takes its random numbers as tensors
 (:class:`TransitionNoise`): the caller draws them from its
 ``torch.Generator`` (:func:`draw_noise`), and a test can inject the JAX
-sampler's own draws. :func:`sample` runs ``num_samples`` draws in one call
+sampler's own draws. On a chain mesh the state and the noise hold one
+rank's rows and the two chain couplings (the chain-mean accept statistic,
+the pooled moments) reduce over every shard through the kernel's
+:class:`~vihmc_torch.core.mesh.ChainAxis` (GSPMD's collectives in JAX,
+kernel.py:269-272, :686). :func:`sample` runs ``num_samples`` draws in one call
 and returns a :class:`SampleResult` (kernel.py:721-768).
 """
 
@@ -73,6 +77,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from vihmc_torch.core.mesh import ChainAxis
 from vihmc_torch.hmc.adaptation import (DualAveragingState, da_init, da_restart,
                                         da_update, find_reasonable_step_size)
 from vihmc_torch.hmc.integrators import leapfrog, leapfrog_grad_only, split_leapfrog
@@ -197,18 +202,21 @@ def mass_window_schedule(burn: int):
     return start, tuple(ends)
 
 
-def pooled_variance(welford: WelfordState, axis: Optional[str]):
+def pooled_variance(welford: WelfordState, axis: Optional[str],
+                    chains: Optional[ChainAxis] = None):
     """``(variance, effective_count)``: each chain's own (``axis`` None,
     ``(C, d)``), or pooled over the chains (``'chains'``, ``(d,)``: the
     within-chain sums of squares plus the between-chain dispersion of the
-    means, C times the count)."""
+    means, C times the count). ``chains``: the chain axis the moments pool
+    over, all-reduced across its shards (default: this process's chains)."""
     if axis is None:
         return welford.variance, welford.count
+    chains = ChainAxis(welford.mean.shape[0]) if chains is None else chains
     n = welford.count
-    c = float(welford.mean.shape[0])
-    mean_p = welford.mean.mean(0)
-    m2_p = welford.m2.mean(0)
-    between = ((welford.mean - mean_p) ** 2).mean(0)
+    c = float(chains.count)
+    mean_p = chains.mean(welford.mean)
+    m2_p = chains.mean(welford.m2)
+    between = chains.mean((welford.mean - mean_p) ** 2)
     n_tot = c * n
     ss = c * (m2_p + n * between)
     return ss / torch.clamp(n_tot - 1.0, min=1.0), n_tot
@@ -216,7 +224,8 @@ def pooled_variance(welford: WelfordState, axis: Optional[str]):
 
 def windowed_metric_update(welford: WelfordState, position: torch.Tensor, iteration: int,
                            win_start: int, win_ends, base_inv_mass,
-                           carried_inv_mass: torch.Tensor, metric_axis=None):
+                           carried_inv_mass: torch.Tensor, metric_axis=None,
+                           chains: Optional[ChainAxis] = None):
     """One windowed-warmup step (kernel.py:278-302): accumulate ``position``
     inside the window region; at a window's last draw replace the carried
     inverse mass by the variance estimate shrunk toward ``base_inv_mass``,
@@ -227,7 +236,7 @@ def windowed_metric_update(welford: WelfordState, position: torch.Tensor, iterat
     is_win_end = any(iteration == e - 1 for e in win_ends)
     inv_mass = carried_inv_mass
     if is_win_end:
-        var, n = pooled_variance(welford, metric_axis)
+        var, n = pooled_variance(welford, metric_axis, chains)
         base = base_inv_mass * torch.ones_like(position)
         inv_mass = (n / (n + 5.0)) * var + (5.0 / (n + 5.0)) * base
         welford = WelfordState.zeros_like(position)
@@ -247,7 +256,8 @@ def metric_carries(adapt_mass: bool, mass_schedule: str, position: torch.Tensor,
     return welford, carried
 
 
-def advance_metric(state, position: torch.Tensor, schedule, inv_mass, metric_axis=None):
+def advance_metric(state, position: torch.Tensor, schedule, inv_mass, metric_axis=None,
+                   chains: Optional[ChainAxis] = None):
     """The adaptive metric's bookkeeping after a draw (kernel.py:666-680,
     nuts.py:301-312): ``schedule`` is ``(windowed, win_start, win_ends,
     switch)`` or None without ``adapt_mass``. Returns ``(welford,
@@ -257,12 +267,13 @@ def advance_metric(state, position: torch.Tensor, schedule, inv_mass, metric_axi
     windowed, win_start, win_ends, switch = schedule
     if windowed:
         return windowed_metric_update(state.welford, position, state.iteration, win_start,
-                                      win_ends, inv_mass, state.inv_mass, metric_axis)
+                                      win_ends, inv_mass, state.inv_mass, metric_axis, chains)
     welford = state.welford.update(position) if state.iteration < switch else state.welford
     return welford, state.inv_mass, False
 
 
-def current_inv_mass(state, schedule, inv_mass, pooled_axis=None):
+def current_inv_mass(state, schedule, inv_mass, pooled_axis=None,
+                     chains: Optional[ChainAxis] = None):
     """The inverse mass of this draw (kernel.py:556-566, nuts.py:232-242):
     under ``'windowed'`` the carried estimate, under ``'half'`` from the
     switch on the Welford variance (pooled over ``pooled_axis``) shrunk
@@ -275,7 +286,7 @@ def current_inv_mass(state, schedule, inv_mass, pooled_axis=None):
     if windowed:
         return state.inv_mass
     if state.iteration >= switch:
-        var, n = pooled_variance(state.welford, pooled_axis)
+        var, n = pooled_variance(state.welford, pooled_axis, chains)
         return (n / (n + 5.0)) * var + 1e-3 * (5.0 / (n + 5.0))
     return inv_mass * torch.ones_like(state.position)
 
@@ -421,7 +432,8 @@ def make_kernel(config: HMCConfig, inv_mass, grad_fn: Optional[Callable] = None,
                 delta_fn: Optional[Callable] = None,
                 log_prob_fn: Optional[Callable] = None,
                 aux_refresh: Optional[Callable] = None,
-                shard_log_prob_fn: Optional[Callable] = None, shard_data=None):
+                shard_log_prob_fn: Optional[Callable] = None, shard_data=None,
+                chains: Optional[ChainAxis] = None):
     """``kernel(state, noise) -> (state, info)`` for all chains at once.
 
     ``grad_fn(q (C, d), aux) -> (C, d)`` is the trajectory field (None:
@@ -433,7 +445,10 @@ def make_kernel(config: HMCConfig, inv_mass, grad_fn: Optional[Callable] = None,
     ``shard_log_prob_fn(q (C, d), shard, aux) -> (C,)`` and ``shard_data``,
     a tensor or a tuple of tensors with the shard index as leading axis.
     ``inv_mass`` is the base metric (the adaptive metric's start and
-    shrinkage target under ``adapt_mass``).
+    shrinkage target under ``adapt_mass``). ``chains``: the chain axis the
+    coupled statistics (``da_axis``, ``metric_axis``) reduce over, across
+    its shards on a mesh (default: the state's chains); the state and the
+    noise hold this rank's rows.
     """
     check_config(config)
     if isinstance(inv_mass, (LowRankMetric, EigenMetric)) and config.adapt_mass:
@@ -457,6 +472,7 @@ def make_kernel(config: HMCConfig, inv_mass, grad_fn: Optional[Callable] = None,
 
     def kernel(state: HMCState, noise: TransitionNoise):
         q0, it = state.position, state.iteration
+        axis = ChainAxis(q0.shape[0]) if chains is None else chains
         in_burn = it < config.burn
         if aux_refresh is not None:
             # new aux: the density and the field at q0 change too
@@ -483,7 +499,7 @@ def make_kernel(config: HMCConfig, inv_mass, grad_fn: Optional[Callable] = None,
         if config.jitter_eps:
             eps = eps * (noise.u_jitter * (1.0 - low) + low)
 
-        inv_mass_t = current_inv_mass(state, schedule, inv_mass, config.metric_axis)
+        inv_mass_t = current_inv_mass(state, schedule, inv_mass, config.metric_axis, axis)
         p0 = mass_sample_momentum(inv_mass_t, noise.z1, noise.z2)
         if alpha > 0.0 and it > 0:
             p0 = alpha * state.momentum + (1.0 - alpha ** 2) ** 0.5 * p0
@@ -523,14 +539,14 @@ def make_kernel(config: HMCConfig, inv_mass, grad_fn: Optional[Callable] = None,
         momentum = torch.where(keep, p1, -p0) if alpha > 0.0 else None
 
         welford, carried, is_win_end = advance_metric(state, position, schedule, inv_mass,
-                                                      config.metric_axis)
+                                                      config.metric_axis, axis)
 
         da = state.da
         if adapt:
             if config.adapt_forever or in_burn:
                 stat = accept_prob
                 if config.da_axis == "chains":
-                    stat = accept_prob.mean().expand_as(accept_prob)
+                    stat = axis.mean(accept_prob).expand_as(accept_prob)
                 da = da_update(state.da, stat, config.target_accept)
             if is_win_end:
                 da = da_restart(da)

@@ -32,6 +32,7 @@ from typing import Callable, Optional
 
 import torch
 
+from vihmc_torch.core.mesh import ChainAxis, chain_axis
 from vihmc_torch.hmc.adaptation import da_init, da_restart, da_update
 from vihmc_torch.hmc.kernel import (HMCState, SampleResult, advance_metric,
                                     current_inv_mass, mass_schedule_of, metric_carries,
@@ -198,10 +199,13 @@ def _make_build_tree(vag, eps, inv_mass, h0, u_merge):
 
 def make_nuts_kernel(log_prob_fn: Callable, config: NUTSConfig, inv_mass=1.0,
                      aux_refresh: Optional[Callable] = None,
-                     grad_fn: Optional[Callable] = None):
+                     grad_fn: Optional[Callable] = None,
+                     chains: Optional[ChainAxis] = None):
     """``kernel(state, noise) -> (state, info)`` for all chains at once
-    (nuts.py:208-333). ``log_prob_fn(q (C, d), aux) -> (C,)``, ``grad_fn``
-    the optional trajectory field, ``inv_mass`` a scalar or (d,) diagonal.
+    (nuts.py:208-333); ``chains`` is the axis the coupled statistics reduce
+    over (:func:`~vihmc_torch.hmc.kernel.make_kernel`).
+    ``log_prob_fn(q (C, d), aux) -> (C,)``, ``grad_fn`` the optional
+    trajectory field, ``inv_mass`` a scalar or (d,) diagonal.
     ``info`` has ``accept_prob`` (the tree's mean acceptance statistic),
     ``accepted`` (the chain moved), ``step_size``, ``divergent``,
     ``log_prob`` and ``tree_leaves`` (the leaves merged before the tree
@@ -213,6 +217,7 @@ def make_nuts_kernel(log_prob_fn: Callable, config: NUTSConfig, inv_mass=1.0,
 
     def kernel(state: HMCState, noise: NUTSNoise):
         q0, it = state.position, state.iteration
+        axis = ChainAxis(q0.shape[0]) if chains is None else chains
         in_burn = it < config.burn
         if aux_refresh is not None:
             aux = aux_refresh(noise.z_aux)
@@ -285,13 +290,13 @@ def make_nuts_kernel(log_prob_fn: Callable, config: NUTSConfig, inv_mass=1.0,
         moved = (traj.q_prop != q0).any(-1)
 
         welford, carried, is_win_end = advance_metric(state, traj.q_prop, schedule, inv_mass,
-                                                      config.metric_axis)
+                                                      config.metric_axis, axis)
 
         da = state.da
         if config.adapt_step_size:
             if config.da_axis == "chains":
                 # as in JAX, the reported statistic is the chain mean too
-                accept_stat = accept_stat.mean().expand_as(accept_stat)
+                accept_stat = axis.mean(accept_stat).expand_as(accept_stat)
             if in_burn:
                 da = da_update(state.da, accept_stat, config.target_accept)
             if is_win_end:
@@ -329,9 +334,14 @@ def nuts_sample(log_prob_fn: Callable, init_position: torch.Tensor, config: NUTS
                 grad_fn: Optional[Callable] = None, seed: int = 0, thin: int = 1,
                 segment_size: Optional[int] = None,
                 progress: Optional[Callable] = None,
-                aux_draw: Optional[Callable] = None) -> SampleResult:
+                aux_draw: Optional[Callable] = None, mesh=None) -> SampleResult:
     """``config.num_samples`` NUTS draws of every chain of ``init_position``
     ((C, d); a (d,) position runs one chain and returns ``(S, ...)``).
+    On a chain ``mesh`` (a ``DeviceMesh``,
+    :func:`~vihmc_torch.chains.make_chain_mesh`) this rank runs its rows of
+    the C chains and the result holds those rows; every
+    draw is drawn for all C chains and sliced, so the chains do not depend
+    on the layout.
 
     The draws run in segments of ``segment_size`` (all in one by default)
     from the generator streams of ``seed``, every ``thin``-th position kept
@@ -345,15 +355,16 @@ def nuts_sample(log_prob_fn: Callable, init_position: torch.Tensor, config: NUTS
     q0 = init_position[None] if single else init_position
     n_chains, dim = q0.shape
     dev = q0.device
+    axis = chain_axis(mesh, n_chains)
     log_prob_fn = normalize_log_prob(log_prob_fn)
     grad_fn = normalize_log_prob(grad_fn)
-    kernel = make_nuts_kernel(log_prob_fn, config, inv_mass, aux_refresh, grad_fn)
-    state = init_nuts_state(log_prob_fn, q0, config, aux, inv_mass, grad_fn)
+    kernel = make_nuts_kernel(log_prob_fn, config, inv_mass, aux_refresh, grad_fn, axis)
+    state = init_nuts_state(log_prob_fn, axis.local(q0), config, aux, inv_mass, grad_fn)
     aux_draw = resolve_aux_draw(aux_refresh, aux_draw, aux, n_chains, dev)
 
     def step(st, gen):
-        return kernel(st, draw_nuts_noise(gen, n_chains, dim, config.max_depth, dev,
-                                          aux_draw))
+        return kernel(st, axis.local(draw_nuts_noise(gen, n_chains, dim, config.max_depth,
+                                                     dev, aux_draw)))
 
     state, samples, out = run_segments(
         step, state, config.num_samples, segment_size or config.num_samples, thin, seed,

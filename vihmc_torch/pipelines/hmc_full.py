@@ -32,7 +32,9 @@ import numpy as np
 import torch
 
 from vihmc_torch.chains.diagnostics import summarize_np
+from vihmc_torch.chains.parallel import gather_chains
 from vihmc_torch.chains.resume import sample_chains_resumable
+from vihmc_torch.core.mesh import is_lead
 from vihmc_torch.core.device import resolve_device, split_to, stream_generator, sync, to_f32
 from vihmc_torch.core.precision import true_f32
 from vihmc_torch.core.ravel import per_segment_vector
@@ -103,7 +105,7 @@ def host_metrics(metrics: dict) -> dict:
 
 
 def run(cfg: NNHMCRunConfig = NNHMCRunConfig(), data=None, inits=None,
-        store: Optional[RunStore] = None, seed: int = 0, device="cuda"):
+        store: Optional[RunStore] = None, seed: int = 0, mesh=None, device="cuda"):
     """Sample, evaluate and (optionally) persist; returns ``result``,
     ``metrics``, ``diagnostics``, ``data``, ``apply_flat`` and ``phases_s``.
 
@@ -111,6 +113,10 @@ def run(cfg: NNHMCRunConfig = NNHMCRunConfig(), data=None, inits=None,
     (tensors or arrays), or None to make it here with noise std
     ``tau_out^-1/2``. ``inits`` (C, D): the chains' start, else
     ``0.3 N(0, 1)``.
+
+    ``mesh`` (:func:`~vihmc_torch.chains.make_chain_mesh`) splits the chains
+    over ranks and gathers them before the scoring, so every rank reports
+    the whole run; the run store is written by its first rank.
     """
     dev = resolve_device(device)
     phases = {}
@@ -136,9 +142,11 @@ def run(cfg: NNHMCRunConfig = NNHMCRunConfig(), data=None, inits=None,
     sync(dev)
     phases["setup_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    res = sample_chains_resumable(lp, inits, hmc_cfg, cfg.num_samples, 1.0, None, seed=seed)
+    res = sample_chains_resumable(lp, inits, hmc_cfg, cfg.num_samples, 1.0, None, seed=seed,
+                                  mesh=mesh)
     sync(dev)
     phases["sampling_s"] = time.perf_counter() - t0
+    res = gather_chains(mesh, res)
 
     t0 = time.perf_counter()
     metrics, _, _ = _score(cfg, apply_flat, prior, data, res.samples, cfg.burn)
@@ -148,7 +156,7 @@ def run(cfg: NNHMCRunConfig = NNHMCRunConfig(), data=None, inits=None,
     diag = summarize_np(res.samples[:, cfg.burn:, :])
     sync(dev)
     phases["evaluate_s"] = time.perf_counter() - t0
-    if store is not None:
+    if store is not None and is_lead(mesh):
         store.save_config(cfg)
         store.save_array("hmc_params", res.samples)
         store.save_array("sample_mse", metrics["sample_mse"])

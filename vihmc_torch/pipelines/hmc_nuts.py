@@ -47,7 +47,9 @@ import numpy as np
 import torch
 
 from vihmc_torch.chains.diagnostics import summarize_np
+from vihmc_torch.chains.parallel import gather_chains
 from vihmc_torch.chains.resume import sample_chains_resumable
+from vihmc_torch.core.mesh import is_lead
 from vihmc_torch.core.device import resolve_device, split_to, stream_generator, sync, to_f32
 from vihmc_torch.core.precision import true_f32
 from vihmc_torch.data.burgers import get_burgers_baseline
@@ -99,7 +101,7 @@ def score_on_validation(cfg, apply_flat, prior, valid, samples, burn):
 def run(cfg: OperatorHMCRunConfig = OperatorHMCRunConfig(), data=None, num_chains: int = 1,
         store: Optional[RunStore] = None, use_fused: bool = False,
         use_gram: Optional[bool] = None, inits=None, tidx0=None, seed: int = 0,
-        device="cuda"):
+        mesh=None, device="cuda"):
     """Sample, score on validation and (optionally) persist (see module doc).
 
     ``data``: ``(train, valid)`` dicts (tensors or arrays), or None for
@@ -107,6 +109,10 @@ def run(cfg: OperatorHMCRunConfig = OperatorHMCRunConfig(), data=None, num_chain
     ``acceptance_rate`` and each chain's ``adapted_step_size``),
     ``diagnostics``, ``data``, ``apply_flat``, ``phases_s`` and the sampler's
     ``log_prob`` and ``grad_fn``.
+
+    ``mesh`` (:func:`~vihmc_torch.chains.make_chain_mesh`) splits the chains
+    over ranks and gathers them before the scoring, so every rank reports
+    the whole run; the run store is written by its first rank.
     """
     dev = resolve_device(device)
     phases = {}
@@ -178,9 +184,10 @@ def run(cfg: OperatorHMCRunConfig = OperatorHMCRunConfig(), data=None, num_chain
     t0 = time.perf_counter()
     res = sample_chains_resumable(log_prob, inits, hmc_cfg, cfg.num_samples, 1.0, aux0,
                                   grad_fn=grad_fn, seed=seed, aux_refresh=aux_refresh,
-                                  aux_draw=aux_draw)
+                                  aux_draw=aux_draw, mesh=mesh)
     sync(dev)
     phases["sampling_s"] = time.perf_counter() - t0
+    res = gather_chains(mesh, res)
 
     t0 = time.perf_counter()
     metrics, _, _ = score_on_validation(cfg, apply_flat, prior, valid, res.samples, cfg.burn)
@@ -190,7 +197,7 @@ def run(cfg: OperatorHMCRunConfig = OperatorHMCRunConfig(), data=None, num_chain
     diag = summarize_np(res.samples[:, cfg.burn:, :])
     sync(dev)
     phases["evaluate_s"] = time.perf_counter() - t0
-    if store is not None:
+    if store is not None and is_lead(mesh):
         store.save_config(cfg)
         store.save_array("hmc_params", res.samples)
         store.save_array("sample_mse", metrics["sample_mse"])

@@ -31,7 +31,9 @@ from typing import Optional
 import torch
 
 from vihmc_torch.chains.diagnostics import summarize_np
+from vihmc_torch.chains.parallel import gather_chains
 from vihmc_torch.chains.resume import sample_chains_resumable
+from vihmc_torch.core.mesh import is_lead
 from vihmc_torch.core.device import resolve_device, split_to, stream_generator, sync, to_f32
 from vihmc_torch.core.precision import true_f32
 from vihmc_torch.data.burgers import split_shards
@@ -68,13 +70,19 @@ def make_shard_log_prob(cfg: SplitHMCRunConfig, trunk: torch.Tensor):
 
 
 def run(cfg: SplitHMCRunConfig = SplitHMCRunConfig(), data=None, num_chains: int = 1,
-        store: Optional[RunStore] = None, inits=None, seed: int = 0, device="cuda"):
+        store: Optional[RunStore] = None, inits=None, seed: int = 0, mesh=None,
+        device="cuda"):
     """Sample, score on validation and (optionally) persist (see module doc).
 
     ``data``: ``(train, valid)`` dicts (tensors or arrays), or None for
     :func:`~vihmc_torch.pipelines.hmc_nuts.load_data`. Returns ``result``,
     ``metrics``, ``diagnostics``, ``data``, ``apply_flat``, ``phases_s`` and
     the sampler's ``log_prob``, ``shard_log_prob`` and ``shard_data``.
+
+    ``mesh`` (:func:`~vihmc_torch.chains.make_chain_mesh`) splits the chains
+    over ranks and gathers them before the scoring, so every rank reports
+    the whole run; the run store is written by its first rank.
+    The split integrator's data shards stay whole on every rank.
     """
     dev = resolve_device(device)
     phases = {}
@@ -115,9 +123,10 @@ def run(cfg: SplitHMCRunConfig = SplitHMCRunConfig(), data=None, num_chains: int
     t0 = time.perf_counter()
     res = sample_chains_resumable(log_prob, inits, hmc_cfg, cfg.num_samples, 1.0, None,
                                   seed=seed, shard_log_prob_fn=shard_log_prob,
-                                  shard_data=shard_data)
+                                  shard_data=shard_data, mesh=mesh)
     sync(dev)
     phases["sampling_s"] = time.perf_counter() - t0
+    res = gather_chains(mesh, res)
 
     t0 = time.perf_counter()
     metrics, _, _ = score_on_validation(cfg, apply_flat, prior, valid, res.samples, cfg.burn)
@@ -126,7 +135,7 @@ def run(cfg: SplitHMCRunConfig = SplitHMCRunConfig(), data=None, num_chains: int
     diag = summarize_np(res.samples[:, cfg.burn:, :])
     sync(dev)
     phases["evaluate_s"] = time.perf_counter() - t0
-    if store is not None:
+    if store is not None and is_lead(mesh):
         store.save_config(cfg)
         store.save_array("hmc_params", res.samples)
         store.save_array("sample_mse", metrics["sample_mse"])

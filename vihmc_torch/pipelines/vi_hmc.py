@@ -49,6 +49,10 @@ Counterpart of ``vihmc_tpu/pipelines/vi_hmc.py`` (``make_spec``,
   ChEES in one call and ignores ``segment_size`` and ``checkpoint_dir``
   there, so the port ignores ``checkpoint_dir`` for them too (it still runs
   them in segments, for the thinning);
+* ``mesh`` (a chain mesh over ``torch.distributed`` ranks): each rank
+  samples its C/N chains, then the chains are gathered, so every rank
+  evaluates and reports the whole run; ``segment_size`` with a mesh raises
+  JAX's ``ValueError`` (vi_hmc.py:485-489);
 * posterior-predictive scoring of the pooled samples on the validation split
   against the frozen vectors the samples were drawn with (DRAW: the draw;
   REFRESH: each chain's last one; MEAN: the VI mean) and the numpy
@@ -112,10 +116,11 @@ import numpy as np
 import torch
 
 from vihmc_torch.chains.diagnostics import summarize_np
-from vihmc_torch.chains.parallel import (sample_chains, sample_chains_chees,
+from vihmc_torch.chains.parallel import (gather_chains, sample_chains, sample_chains_chees,
                                          sample_chains_nuts)
 from vihmc_torch.chains.resume import sample_chains_resumable
 from vihmc_torch.core.device import resolve_device, split_to, stream_generator, sync, to_f32
+from vihmc_torch.core.mesh import is_lead
 from vihmc_torch.core.precision import true_f32
 from vihmc_torch.core.ravel import scatter_subspace
 from vihmc_torch.data.burgers import (get_burgers, load_port_inputs,
@@ -350,7 +355,7 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
                      full_ll=None, full_grad=None, segment_size=None, progress=None,
                      sample_thin: int = 1, evaluate: bool = True, seed: int = 0,
                      frozen=None, lanczos_v0=None, probe_v0=None, subsample=None,
-                     checkpoint_dir=None, tidx0=None, device="cuda"):
+                     checkpoint_dir=None, tidx0=None, mesh=None, device="cuda"):
     """Subspace VI-HMC with ``cfg.algorithm`` (see the module doc).
 
     ``full_ll``: the likelihood override (fused merge-NLL); ``full_grad``: a
@@ -366,7 +371,12 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
     subsampling (the first set ``tidx0``, else drawn from the run's seed).
     ``segment_size`` draws per segment (all draws in one when None), every
     ``sample_thin``-th kept; ``checkpoint_dir`` saves and resumes the HMC
-    sampler there. Returns ``result`` (:class:`SampleResult`),
+    sampler there. ``mesh`` (:func:`~vihmc_torch.chains.make_chain_mesh`):
+    each rank samples its rows of the chains, then the chains are gathered
+    (``phases_s['gather_s']``), so the result, the evaluation and the
+    diagnostics are the whole run's on every rank; the run store is written
+    by the mesh's first rank; with ``segment_size`` HMC raises JAX's
+    ``ValueError``. Returns ``result`` (:class:`SampleResult`),
     ``spec``, ``prior``, ``frozen``, the sampler's ``log_prob``, ``grad_fn``
     and ``inv_mass``, ``algorithm``, ``phases_s``, ``auto_probe`` (under
     'auto'), ``gauss_field_used`` and ``gauss_field_probe_acceptance``
@@ -462,9 +472,9 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
                               num_leapfrog=cfg.L, step_size=cfg.step_size, burn=0,
                               sampler="hmc", jitter_l=cfg.jitter_l, jitter_eps=cfg.jitter_eps,
                               jitter_low_frac=cfg.jitter_low_frac, max_step=cfg.max_step)
-        probe = sample_chains(log_prob, inits, probe_cfg, inv_mass=inv_mass, aux=aux0,
-                              aux_refresh=aux_refresh, grad_fn=gauss_fn,
-                              seed=seed + _PROBE_SEED_OFFSET)
+        probe = gather_chains(mesh, sample_chains(
+            log_prob, inits, probe_cfg, inv_mass=inv_mass, aux=aux0, aux_refresh=aux_refresh,
+            grad_fn=gauss_fn, seed=seed + _PROBE_SEED_OFFSET, mesh=mesh))
         probe_acceptance = float(np.mean(probe.accept_probs))
         gauss_used = probe_acceptance >= cfg.gauss_field_floor
         if gauss_used:
@@ -485,7 +495,7 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
         res = sample_chains_chees(log_prob, inits, chees_cfg, inv_mass=inv_mass, aux=aux0,
                                   aux_refresh=aux_refresh, grad_fn=grad_fn, seed=seed,
                                   thin=sample_thin, segment_size=seg, progress=progress,
-                                  aux_draw=aux_draw)
+                                  aux_draw=aux_draw, mesh=mesh)
     elif cfg.algorithm == "nuts":
         nuts_cfg = NUTSConfig(num_samples=cfg.num_samples, max_depth=cfg.nuts_max_depth,
                               step_size=cfg.step_size, burn=cfg.burn_, adapt_step_size=True,
@@ -494,7 +504,7 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
         res = sample_chains_nuts(log_prob, inits, nuts_cfg, inv_mass=inv_mass, aux=aux0,
                                  aux_refresh=aux_refresh, grad_fn=grad_fn, seed=seed,
                                  thin=sample_thin, segment_size=seg, progress=progress,
-                                 aux_draw=aux_draw)
+                                 aux_draw=aux_draw, mesh=mesh)
     else:
         hmc_cfg = HMCConfig(num_samples=cfg.num_samples, num_leapfrog=cfg.L,
                             step_size=cfg.step_size, burn=cfg.burn_,
@@ -505,12 +515,20 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
                             max_step=cfg.max_step, da_axis=cfg.da_axis,
                             adapt_forever=cfg.adapt_forever,
                             store_aux_trace=cfg.save_vi_trace)
+        if segment_size is not None and mesh is not None:
+            raise ValueError("segment_size (resumable sampling) does not compose with a "
+                             "mesh yet; shard chains via separate per-host runs instead")
         res = sample_chains_resumable(log_prob, inits, hmc_cfg, seg, inv_mass, aux0,
                                       grad_fn=grad_fn, thin=sample_thin, seed=seed,
                                       progress=progress, aux_refresh=aux_refresh,
-                                      aux_draw=aux_draw, checkpoint_dir=checkpoint_dir)
+                                      aux_draw=aux_draw, checkpoint_dir=checkpoint_dir,
+                                      mesh=mesh)
     sync(dev)
     phases["sampling_s"] = time.perf_counter() - t0
+    if mesh is not None:
+        t0 = time.perf_counter()
+        res = gather_chains(mesh, res)
+        phases["gather_s"] = time.perf_counter() - t0
 
     out = {"result": res, "spec": spec, "prior": prior, "frozen": aux0,
            "log_prob": log_prob, "grad_fn": grad_fn, "inv_mass": inv_mass,
@@ -538,7 +556,7 @@ def run_subspace_hmc(cfg: VIHMCRunConfig, full_forward, y_train, artifacts,
         sync(dev)
         phases["evaluate_s"] = time.perf_counter() - t0
 
-    if store is not None:
+    if store is not None and is_lead(mesh):
         store.save_config(cfg)
         store.save_array("hmc_params", res.samples)
         if cfg.save_vi_trace and res.aux_trace is not None:
@@ -593,14 +611,15 @@ def _subsampled_posterior(cfg: VIHMCRunConfig, subsample: dict, spec: SubspaceSp
 def run_nn(cfg: VIHMCRunConfig, mlp_cfg: MLPConfig, artifacts, data=None,
            store: Optional[RunStore] = None, segment_size=None, progress=None,
            sample_thin: int = 1, evaluate: bool = True, seed: int = 0, frozen=None,
-           lanczos_v0=None, probe_v0=None, checkpoint_dir=None, device="cuda"):
+           lanczos_v0=None, probe_v0=None, checkpoint_dir=None, mesh=None, device="cuda"):
     """NN regression VI-HMC (the reference's ``main_VI_HMC.py``): autograd
     trajectories through the MLP likelihood on the synthetic data.
 
     ``data``: the dict of :func:`~vihmc_torch.data.synthetic.regression_data`
     (tensors or arrays), or None to make it here with noise std
     ``sqrt(tau_out)`` under NLL (a variance), ``tau_out^-1/2`` otherwise (a
-    precision), from a generator seeded with ``seed``.
+    precision), from a generator seeded with ``seed``. ``mesh`` splits the
+    chains over ranks (:func:`run_subspace_hmc`).
     """
     dev = resolve_device(device)
     if cfg.coarse_stride or cfg.fn_stride or cfg.grad_dtype == "bfloat16":
@@ -615,7 +634,7 @@ def run_nn(cfg: VIHMCRunConfig, mlp_cfg: MLPConfig, artifacts, data=None,
         eval_forward=lambda flat: apply_flat(flat, data["x_val"]), y_eval=data["y_val"],
         store=store, segment_size=segment_size, progress=progress, sample_thin=sample_thin,
         evaluate=evaluate, seed=seed, frozen=frozen, lanczos_v0=lanczos_v0,
-        probe_v0=probe_v0, checkpoint_dir=checkpoint_dir, device=dev)
+        probe_v0=probe_v0, checkpoint_dir=checkpoint_dir, mesh=mesh, device=dev)
     out["data"] = data
     out["apply_flat"] = apply_flat
     return out
@@ -634,7 +653,7 @@ def run_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artifacts,
                  use_gram: Optional[bool] = None, segment_size=None, progress=None,
                  sample_thin: int = 1, evaluate: bool = True, seed: int = 0,
                  frozen=None, lanczos_v0=None, probe_v0=None, checkpoint_dir=None,
-                 mat_path=None, tidx0=None, device="cuda"):
+                 mat_path=None, tidx0=None, mesh=None, device="cuda"):
     """Operator VI-HMC on Burgers (the reference's ``main_VI_HMC_burgers.py``).
 
     ``data``: ``(train, valid)`` dicts of ``branch_in`` (N, nx), ``trunk_in``
@@ -649,7 +668,9 @@ def run_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artifacts,
     gradient, on the stride subsets of ``coarse_stride``/``fn_stride`` when
     set; None enables it when eligible (algorithm 'hmc' or 'auto', NLL,
     homoscedastic shared-grid merge, no ``gauss_field`` unless
-    ``gauss_field_auto``), False takes autograd through the density. The
+    ``gauss_field_auto``), False takes autograd through the density.
+    ``mesh`` splits the chains over ranks (:func:`run_subspace_hmc`): each
+    rank's fused density launches ``merge_sums`` on its own C/N chains. The
     device is the card unless the caller asks for the CPU.
     """
     dev = resolve_device(device)
@@ -707,7 +728,7 @@ def run_operator(cfg: VIHMCRunConfig, deeponet_cfg: DeepONetConfig, artifacts,
         segment_size=segment_size, progress=progress, sample_thin=sample_thin,
         evaluate=evaluate, seed=seed, frozen=frozen, lanczos_v0=lanczos_v0,
         probe_v0=probe_v0, subsample=subsample, checkpoint_dir=checkpoint_dir, tidx0=tidx0,
-        device=dev)
+        mesh=mesh, device=dev)
     out["phases_s"] = {"data_s": t_data, **out["phases_s"]}
     out["data"] = (train, valid)
     out["apply_flat"] = apply_flat
