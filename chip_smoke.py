@@ -14,7 +14,8 @@ Phases, each printed with its wall time:
    may be at most twice the plain version's plus 1e-3 nats); the kernel's
    time beside both bounds (f32 FMA, and the split tensor-core one of six
    bf16 products) and the plain version's;
-3. the operator row at full width through ``run_operator_row`` (reference
+3. the operator row at full width through ``bench_operator`` at the recipe
+   ``python -m vihmc_torch.bench`` resolves for key 2 (reference
    DeepONet, B = 1000 x P = 10,201, 2048-dim subspace, 48 chains, L = 4,
    bf16 Gram trajectory gradients, the fused paired delta, a low-rank
    metric), with only its depth cut; the kernel launch counts of that run
@@ -81,7 +82,7 @@ Phases, each printed with its wall time:
 18. the NN bench row through ``bench_nn`` at full width (1024 chains, L = 96,
     the 73-dim subspace of ``nn_stage12.npz``, DRAW, coupled dual averaging
     with step jitter, the clipped autodiff field, the 400-step warm start),
-    depth cut to one key and a few hundred draws: draws/s, fs-ESS/s and the
+    depth cut to one key and 120 draws: draws/s, fs-ESS/s and the
     acceptance (finite and positive), then one transition at 1024 chains
     under ``torch.profiler``: device time against wall, the per-draw host
     time;
@@ -128,11 +129,25 @@ Phases, each printed with its wall time:
     refused; (c) the full-width ``shard_query`` log posterior's value and
     gradient over the two ranks (5,101 / 5,100 points) against the unsharded
     ones; (d) ``python -m vihmc_torch.run_multihost`` on two gloo ranks
-    against one rank, at the JAX test's tolerances.
+    against one rank, at the JAX test's tolerances;
+28. ``bench.py``'s operator row through ``python -m vihmc_torch.bench``'s
+    entry points at full width, depth cut: (a) the zero-argument recipe on
+    keys 2,3,4 (one JSON line with three ``ess_per_s_by_key``;
+    ``paired_sums`` once per draw of each key plus the ``mfu`` block's),
+    then a short CPU baseline with a finite ``vs_baseline``; (b) ``--subspace
+    90pct`` (81,131 dimensions, 32 chains, one key): finite samples, then
+    ``paired_sums`` at C = 32 against its plain version and float64, timed
+    beside its bounds; (c) ``--extras``' gradient of the full log posterior:
+    ``merge_sums`` at C = 1 once per fused gradient, the fused gradient's
+    cosine with the composed one, both rates, and ``merge_sums`` at C = 1
+    against its plain version and float64, timed; (d) ``--coupled --stride 5
+    --fn-stride 5``, ``--gauss-field``, ``--adaptive``, ``--no-gram``,
+    ``--composed-delta`` and ``--no-paired-delta``, a few draws each, finite,
+    ``paired_sums`` launched only where the delta is the fused one.
 
 Phase 3 also prints the operator row's ``mfu`` block and phase 18 the NN
 row's, with its CPU baseline (``vs_baseline``): both blocks present with 0 <
-``mfu`` <= 1. Before each driven path (3, 6, 7, 8, 9, 10, 11, 12-27) every
+``mfu`` <= 1. Before each driven path (3, 6, 7, 8, 9, 10, 11, 12-28) every
 kernel count is set to 0, and it is read just after (stages 1 and 2,
 ``hmc_split``, ``hmc_full``, the NN paths of 18 and 21 and phases 25-26 run
 no kernel of the port). Every depth cut is printed. The second-to-last line is a JSON object describing every
@@ -167,8 +182,12 @@ from vihmc_torch.dists.priors import IsotropicGaussianPrior
 from vihmc_torch.hmc.kernel import value_and_grad
 from vihmc_torch.chains.diagnostics import potential_scale_reduction_np
 from vihmc_torch.models.symmetry import canonicalize_deeponet, random_orbit_element
-from vihmc_torch.bench_operator import (build_operator_problem, operator_fns,
-                                        run_operator_row)
+from vihmc_torch import bench as tbench
+from vihmc_torch.bench_operator import (BENCH_L, bench_grad_path, bench_operator,
+                                        bench_torch_baseline, build_problem,
+                                        grad_path_log_posteriors, log_posterior_grad,
+                                        mh_delta, problem_laplace_inv_mass, trajectory_field)
+from vihmc_torch.dists.priors import DiagonalGaussianPrior
 from vihmc_torch.core.precision import true_f32
 from vihmc_torch.core.ravel import scatter_subspace
 from vihmc_torch.data.burgers import (get_burgers, load_port_inputs,
@@ -197,7 +216,8 @@ from vihmc_torch.models.mlp import MLPConfig
 from vihmc_torch.data.burgers import load_burgers_mat
 from vihmc_torch.io.artifacts import RunStore
 from vihmc_torch.pipelines import cli, hmc_full, hmc_nuts, hmc_split, sensitivity, vi_train
-from vihmc_torch.pipelines.common import (make_deeponet_nll_log_posterior,
+from vihmc_torch.pipelines.common import (conditional_warm_start,
+                                          make_deeponet_nll_log_posterior,
                                           make_flat_deeponet)
 from vihmc_torch.pipelines.configs import (NNHMCRunConfig, NNVIRunConfig,
                                            OperatorHMCRunConfig, OperatorVIRunConfig,
@@ -235,7 +255,7 @@ L2_ROTATION = 8              # input copies cycled per timing: 8 x 15.6 MB excee
 SENS_OVERLAP_MARGIN = 0.05
 NN_BUNDLE = STAGE12_ASSET.replace("burgers_stage12_r2", "nn_stage12_r2")
 # depth cuts of phases 18-21 (the row's or the config's own value in brackets)
-NN_DRAWS, NN_SEGMENT = 240, 120          # NN row draws, segment (2880, 480)
+NN_DRAWS, NN_SEGMENT = 120, 120          # NN row draws, segment (2880, 480)
 S3_NUTS_DRAWS, NUTS_DEPTH = 4, 3         # stage-3 NUTS draws, max depth (450, 6)
 S3_CHEES_DRAWS, CHEES_MAX_STEPS = 4, 8   # stage-3 ChEES draws, step cap (450, 256)
 ADAPT_DRAWS, ADAPT_BURN = 60, 40         # NN stage 3, windowed metric (450, 90)
@@ -258,12 +278,24 @@ MESH_CHILD_TIMEOUT_S = 300               # phase 27: each spawned rank's limit
 MESH_SAMPLE_RTOL = 1e-4
 QUERY_VALUE_RTOL = 1e-5                  # phase 27 (c): the sharded ll (JAX's test tolerance)
 QUERY_GRAD_RTOL = 1e-4                   # ... its gradient, of the gradient's largest entry
+# phase 28: bench.py's row through python -m vihmc_torch.bench (recipe values in brackets)
+ROW_DRAWS, ROW_BURN, ROW_SEGMENT = 60, 12, 30   # (a) per key (2880, 288, 120)
+ROW_INIT_OPT, ROW_RANK = 100, 16                # (a), (b) warm-start steps, Lanczos rank (800, 256)
+ROW_BASELINE_SECONDS = 10.0                     # (a) CPU baseline cap (bench: 120 s)
+NINETY_DRAWS, NINETY_BURN, NINETY_SEGMENT = 24, 6, 12   # (b) the 90 % row (2880, 288, 60)
+C32_STEP = 0.01                                 # (b) the kernel check's trajectory step
+GRAD_ITERS = 30                                 # (c) gradient evaluations (bench: 30)
+GRAD_PATH_COS_MIN = 0.9999                      # (c) fused vs composed gradient
+VARIANT_DRAWS = 6                               # (d) draws per recipe (24 where thin 3 needs segments)
 
 KERNELS = {
     "paired_sums": {"route": "cuda", "source": "vihmc_torch/csrc/paired_sums.cu",
                     "replaces": "vihmc_tpu/ops/deeponet_merge.py:349"},
     "merge_sums": {"route": "cuda", "source": "vihmc_torch/csrc/merge_sums.cu",
                    "replaces": "vihmc_tpu/ops/deeponet_merge.py:108"},
+    # the same kernel unbatched (C = 1), on --extras' fused gradient
+    "merge_sums_c1": {"route": "cuda", "source": "vihmc_torch/csrc/merge_sums.cu",
+                      "replaces": "vihmc_tpu/ops/deeponet_merge.py:72"},
     "leapfrog_update": {"route": "cuda", "source": "vihmc_torch/csrc/leapfrog_update.cu",
                         "replaces": "vihmc_tpu/ops/leapfrog.py:46"},
 }
@@ -1750,6 +1782,206 @@ def mesh_phase(dev, data, arts, tmp):
             "mesh_launches_per_rank": [int(z["merge_sums"]) for z in ranks]}
 
 
+def bench_cli(argv) -> dict:
+    """One ``python -m vihmc_torch.bench`` invocation in this process, its
+    line printed after a label (so that no bare JSON line precedes the
+    kernels' line)."""
+    line = tbench.run(argv + ["--device", "cuda"])
+    print("  bench line: " + json.dumps(line))
+    return line
+
+
+def bench_row_phase(dev, reps: int) -> dict:
+    """Phase 28: ``bench.py``'s operator row through ``python -m
+    vihmc_torch.bench``'s entry points at full width, depth cut; returns the
+    kernel rows and launch counts it measured."""
+    out = {}
+    # (a) the zero-argument recipe, depth cut, keys 2,3,4
+    a_argv = ["--keys", "2,3,4", "--draws", str(ROW_DRAWS), "--burn", str(ROW_BURN),
+              "--segment", str(ROW_SEGMENT), "--init-opt", str(ROW_INIT_OPT),
+              "--lowrank-mass", str(ROW_RANK), "--skip-baseline"]
+    print(f"  (a) depth cut: draws {ROW_DRAWS}, burn {ROW_BURN}, segments of {ROW_SEGMENT}, "
+          f"init-opt {ROW_INIT_OPT}, rank {ROW_RANK} (recipe 2880, 288, 120, 800, 256); "
+          f"CPU baseline {ROW_BASELINE_SECONDS:.0f} s (bench: 120 s)")
+    reset_counts()
+    t0 = time.perf_counter()
+    line = bench_cli(a_argv)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    ex = line["extras"]
+    print(f"  (a) launches {counts}; headline {line['value']} ESS/s (median ESS "
+          f"{ex['ess_median_by_key']} over median wall {ex['wall_s_median']} s), "
+          f"ess_per_s_by_key {ex['ess_per_s_by_key']}, draws/s {ex['draws_per_s']:.3f}, "
+          f"acceptance {ex['acceptance']}, phases {ex['phases_s']}; run wall {wall:.2f} s")
+    check(len(ex["ess_per_s_by_key"]) == 3, f"(a) ess_per_s_by_key {ex['ess_per_s_by_key']}")
+    check(math.isfinite(line["value"]) and line["value"] > 0, f"(a) value {line['value']}")
+    check(ex["samples_finite"], "(a) non-finite samples")
+    # one launch per draw of each key, one in the mfu block's transition
+    check(counts["paired_sums"] == 3 * ROW_DRAWS + 1,
+          f"(a) paired_sums {counts['paired_sums']} != 3 x {ROW_DRAWS} + 1")
+    check(counts["merge_sums"] == 0 and counts["leapfrog_update"] == 0, f"(a) {counts}")
+    check_mfu("(a) bench row", ex)
+    out["row_paired_sums"] = counts["paired_sums"]
+    args = tbench.parse_args(a_argv)
+    tbench.resolve(args)
+    kw = dict(tbench.baseline_kwargs(args, ex), max_seconds=ROW_BASELINE_SECONDS)
+    tb = bench_torch_baseline(**kw)
+    fields = tbench.vs_baseline_fields(args, ex["samples_per_s"], tb["samples_per_s"])
+    print(f"  (a) CPU baseline (one torch chain, L = {BENCH_L}, step {kw.get('step', 1e-4)}): "
+          f"{tb['draws']} draws in {tb['elapsed_s']:.2f} s, {tb['samples_per_s']:.4f} draws/s; "
+          f"vs_baseline {fields['vs_baseline']:.2f} ({fields['vs_baseline_kind']})")
+    check(math.isfinite(fields["vs_baseline"]) and fields["vs_baseline"] > 0,
+          f"(a) vs_baseline {fields['vs_baseline']}")
+
+    # (b) --subspace 90pct at full width, one key
+    b_argv = ["--subspace", "90pct", "--keys", "2", "--draws", str(NINETY_DRAWS), "--burn",
+              str(NINETY_BURN), "--segment", str(NINETY_SEGMENT), "--init-opt",
+              str(ROW_INIT_OPT), "--lowrank-mass", str(ROW_RANK), "--skip-baseline"]
+    print(f"  (b) depth cut: one key, draws {NINETY_DRAWS}, burn {NINETY_BURN}, segments of "
+          f"{NINETY_SEGMENT} (recipe 2880, 288, 60), init-opt {ROW_INIT_OPT}, rank {ROW_RANK}")
+    recipe = tbench.resolve(tbench.parse_args(b_argv))
+    reset_counts()
+    t0 = time.perf_counter()
+    st, prob = bench_operator(device=dev, **recipe["operator"])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    d, c = st["subspace_dim"], st["chains"]
+    print(f"  (b) 90 % row: {d} dims, {c} chains; launches {counts}; ESS/s {st['ess_per_s']:.4f}"
+          f", draws/s {st['draws_per_s']:.3f} ({1e3 / st['draws_per_s']:.2f} ms per draw), "
+          f"acceptance {st['acceptance']:.4f}, step quartiles {st['step_quartiles']}, "
+          f"phases {st['phases_s']}, segment walls {st.get('seg_wall_s')}; run wall "
+          f"{wall:.2f} s")
+    check(d == 81131 and c == 32, f"(b) {d} dims, {c} chains")
+    check(st["samples_finite"], "(b) non-finite samples")
+    check(counts["paired_sums"] == NINETY_DRAWS + 1, f"(b) paired_sums {counts}")
+    check_mfu("(b) 90 % row", st)
+    out["ninety_draws_per_s"] = st["draws_per_s"]
+    # paired_sums at C = 32 on the 90 % problem, held like phase 2's C = 48
+    spec, aux = prob.spec, prob.frozen
+    prior = DiagonalGaussianPrior(loc=spec.sub_mu(), scale=spec.sub_sigma())
+    inv_mass = problem_laplace_inv_mass(prob)
+    field = trajectory_field(prob, prior, inv_mass, stride=1, fn_stride=1,
+                             grad_dtype="bfloat16")
+    # q0 the conditional mode (the warm start without jitter), q1 one L = 4
+    # trajectory from it on the diagonal metric at a step it keeps stable
+    # (the row's step rides the low-rank metric; on the diagonal alone its
+    # stiffest directions diverge to |dll| ~ 1e6 nats, where the f32
+    # result's own rounding exceeds DLL_ATOL)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    q0 = conditional_warm_start(field, aux, spec.sub_mu(), inv_mass, ROW_INIT_OPT, c, gen,
+                                spread=0.0)
+    p0 = torch.randn((c, d), generator=gen, device=dev) / torch.sqrt(inv_mass)
+    q1, _, _ = leapfrog_grad_only(lambda q: field(q, aux), q0, p0, field(q0, aux),
+                                  C32_STEP, 4, inv_mass)
+    feats, biases = [], []
+    with true_f32():
+        for q in (q1, q0):
+            params = unravel_deeponet(prob.cfg, scatter_subspace(aux, q, spec.idx))
+            bo, to = deeponet_features(prob.cfg, params, prob.branch_x, prob.trunk_x)
+            feats += [bo.contiguous(), to.contiguous()]
+            biases.append(params["b"].contiguous())
+    b, k = feats[0].shape[1:]
+    p = feats[1].shape[1]
+    out["paired_sums_c32_err"] = compare_paired(f"90 % row C={c} B={b} P={p} K={k}", feats,
+                                                biases, prob.y, main=True)
+    ms = time_device("paired_sums C=32", lambda: paired_sums(*feats, prob.y), reps)
+    plain_ms = time_device("paired_sums C=32 plain",
+                           lambda: paired_sums_reference(*feats, prob.y), 2, warmup=1)
+    bound_ms, bound_by, tc_ms = paired_sums_bound_ms(c, b, p, k)
+    print(f"  paired_sums at C={c} B={b} P={p} K={k}: kernel {ms:.3f} ms (mean of {reps} "
+          f"queued launches); {bound_line(ms, bound_ms, tc_ms)}; plain {plain_ms:.3f} ms")
+    out.update(paired_sums_c32_ms=ms, paired_sums_c32_bound_ms=bound_ms,
+               paired_sums_c32_tc_ms=tc_ms)
+    # where a 90 % row draw's time goes (after the counts were read)
+    grad_ms = time_device("90 % row Gram field", lambda: field(q0, aux), SPLIT_REPS)
+
+    def feature_forwards():
+        with true_f32():
+            for q in (q1, q0):
+                deeponet_features(prob.cfg, unravel_deeponet(prob.cfg, scatter_subspace(
+                    aux, q, spec.idx)), prob.branch_x, prob.trunk_x)
+
+    feat_ms = time_device("90 % row feature forwards", feature_forwards, SPLIT_REPS)
+    delta = mh_delta(prob, prior)
+    delta_ms = time_device("90 % row delta", lambda: delta(q1, q0, aux), SPLIT_REPS)
+    draw_ms = 1e3 / st["draws_per_s"]
+    parts = {"gram_field_x4": 4 * grad_ms, "delta_feature_forwards": feat_ms,
+             "paired_sums": ms, "delta_rest": delta_ms - feat_ms - ms}
+    parts["rest_of_draw"] = draw_ms - sum(parts.values())
+    print(f"  per 90 % row draw at C={c} (device time, mean of {SPLIT_REPS} queued calls): "
+          f"sampling wall {draw_ms:.2f} ms = "
+          + ", ".join(f"{k_} {v:.2f} ms ({100 * v / draw_ms:.1f} %)" for k_, v in parts.items()))
+    del prob, feats, field, delta, q0, q1, p0, st
+    torch.cuda.empty_cache()
+
+    # (c) --extras' gradient at full width: merge_sums at C = 1
+    prob = build_problem(False, device=dev)
+    composed, fused, flat0 = grad_path_log_posteriors(prob)
+    reset_counts()
+    rates = bench_grad_path(False, iters=GRAD_ITERS, device=dev, problem=prob)
+    counts = read_counts()
+    print(f"  (c) gradient of the full log posterior, {GRAD_ITERS} + 1 evaluations each: "
+          f"{json.dumps(rates)}; launches {counts}")
+    check(counts["merge_sums"] == GRAD_ITERS + 1 and counts["paired_sums"] == 0,
+          f"(c) merge_sums {counts} for {GRAD_ITERS} + 1 fused gradients")
+    out["grad_merge_sums"] = counts["merge_sums"]
+    gc = log_posterior_grad(composed, flat0).double().flatten()
+    gf = log_posterior_grad(fused, flat0).double().flatten()
+    cos = torch.nn.functional.cosine_similarity(gf, gc, dim=0).item()
+    rel = ((gf - gc).norm() / gc.norm()).item()
+    print(f"  (c) fused vs composed gradient: cosine {cos:.9f}, relative error {rel:.3g}")
+    check(cos >= GRAD_PATH_COS_MIN, f"(c) gradient cosine {cos}")
+    with true_f32():
+        params = unravel_deeponet(prob.cfg, flat0)
+        bo, to = deeponet_features(prob.cfg, params, prob.branch_x, prob.trunk_x)
+    bo, to, bias = bo.contiguous(), to.contiguous(), params["b"].contiguous()
+    c1, b1, k1 = bo.shape
+    p1 = to.shape[1]
+    err = compare_merge(f"--extras C={c1} B={b1} P={p1} K={k1}", bo, to, bias, prob.y,
+                        main=True)
+    ms = time_device("merge_sums C=1", lambda: merge_sums(bo, to, prob.y), reps)
+    plain_ms = time_device("merge_sums C=1 plain",
+                           lambda: merge_sums_reference(bo, to, prob.y), SPLIT_REPS, warmup=1)
+    bound_ms, bound_by, tc_ms = merge_sums_bound_ms(c1, b1, p1, k1)
+    print(f"  merge_sums at C={c1} B={b1} P={p1} K={k1}: kernel {ms:.3f} ms (mean of {reps} "
+          f"queued launches); {bound_line(ms, bound_ms, tc_ms)}; plain {plain_ms:.3f} ms, "
+          f"library_ms n/a (no single PyTorch call computes S1 and S2)")
+    out["merge_sums_c1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, bound_tc_ms=tc_ms)
+    del prob, composed, fused, flat0, bo, to, gc, gf
+    torch.cuda.empty_cache()
+
+    # (d) the row's other recipes, a few draws each
+    short = ["--keys", "2", "--draws", str(VARIANT_DRAWS), "--init-opt", "20",
+             "--skip-baseline"]
+    variants = {
+        "--coupled --stride 5 --fn-stride 5": ["--coupled", "--stride", "5", "--fn-stride", "5"],
+        "--gauss-field": ["--gauss-field"],
+        "--adaptive": ["--adaptive"],
+        "--no-gram (L 4)": ["--no-gram", "--L", "4"],
+        # the zero-argument recipe's thin 3 needs segments: 24 draws in 12s
+        "--composed-delta": ["--composed-delta", "--draws", "24", "--burn", "6", "--segment",
+                             "12", "--lowrank-mass", "8"],
+        "--no-paired-delta": ["--no-paired-delta", "--draws", "24", "--burn", "6",
+                              "--segment", "12", "--lowrank-mass", "8"],
+    }
+    for label, extra in variants.items():
+        reset_counts()
+        line = bench_cli(short + extra)
+        draws = line["extras"]["draws"]
+        counts = read_counts()
+        ex = line["extras"]
+        fused = ex["fused_delta"]
+        print(f"  (d) {label}: acceptance {ex['acceptance']}, draws/s {ex['draws_per_s']:.3f}, "
+              f"fused delta {fused}, paired delta {ex['paired_delta']}; launches {counts}")
+        check(ex["samples_finite"], f"(d) {label}: non-finite samples")
+        want = draws + 1 if fused else 0
+        check(counts["paired_sums"] == want, f"(d) {label}: paired_sums {counts} != {want}")
+        check(counts["merge_sums"] == 0, f"(d) {label}: merge_sums {counts}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke run on one GPU")
     ap.add_argument("--draws", type=int, default=240, help="operator-row draws")
@@ -1805,7 +2037,7 @@ def main(argv=None) -> int:
 
     # ---- phase 2: paired_sums against its plain version ----
     t0 = time.perf_counter()
-    problem = build_operator_problem(dev)
+    problem = build_problem(False, device=dev)
     torch.cuda.synchronize()
     print(f"problem: Burgers solve + asset load {time.perf_counter() - t0:.2f} s; "
           f"y {tuple(problem.y.shape)}, subspace {problem.spec.subspace_dim}")
@@ -1815,16 +2047,20 @@ def main(argv=None) -> int:
     check(burgers_err <= BURGERS_ATOL, f"Burgers solve differs from JAX by {burgers_err}")
 
     cfg, spec, aux = problem.cfg, problem.spec, problem.frozen
-    fns = operator_fns(problem)
-    field = fns.grad_fn
+    # the recipe's field and fused delta on the Laplace diagonal
+    prior = DiagonalGaussianPrior(loc=spec.sub_mu(), scale=spec.sub_sigma())
+    inv_mass = problem_laplace_inv_mass(problem)
+    field = trajectory_field(problem, prior, inv_mass, stride=1, fn_stride=1,
+                             grad_dtype="bfloat16")
+    delta = mh_delta(problem, prior)
     chains, d = 48, spec.subspace_dim
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    scale = torch.sqrt(problem.inv_mass_diag)
+    scale = torch.sqrt(inv_mass)
     q0 = spec.sub_mu() + 0.5 * scale * torch.randn((chains, d), generator=gen, device=dev)
     p0 = torch.randn((chains, d), generator=gen, device=dev) / scale
     q1, _, _ = leapfrog_grad_only(lambda q: field(q, aux), q0, p0, field(q0, aux), 0.1, 4,
-                                  problem.inv_mass_diag)
+                                  inv_mass)
     # the bf16 Gram field against autograd of the composed f32 likelihood
     with torch.enable_grad(), true_f32():
         full = scatter_subspace(aux, q0[:1], spec.idx).requires_grad_(True)
@@ -1877,11 +2113,12 @@ def main(argv=None) -> int:
     for key_, (val, full_val) in cuts.items():
         if val != full_val:
             print(f"  depth cut: {key_} {val} (recipe {full_val})")
+    # the zero-argument recipe of python -m vihmc_torch.bench, key 2
+    recipe = tbench.resolve(tbench.parse_args([
+        "--keys", "2", "--draws", str(args.draws), "--burn", str(args.burn), "--segment",
+        str(args.segment), "--init-opt", str(args.init_opt), "--lowrank-mass", str(args.rank)]))
     reset_counts()
-    stats = run_operator_row(device=dev, draws=args.draws, burn=args.burn, thin=3,
-                             chains=48, L=4, target=0.25, init_opt=args.init_opt,
-                             lowrank_rank=args.rank, segment=args.segment, seed=2,
-                             problem=problem)
+    stats, _ = bench_operator(device=dev, problem=problem, **recipe["operator"])
     row_counts = read_counts()
     print(f"  launches in the operator row: {row_counts} for {args.draws} draws")
     # one launch per draw, and one in the transition the mfu block counts
@@ -1898,12 +2135,11 @@ def main(argv=None) -> int:
     check(stats["samples_finite"], "non-finite samples")
     check(stats["samples_shape"] == [48, args.draws // 3, d],
           f"samples shape {stats['samples_shape']}")
-    print(f"  acceptance {acc:.4f}; step quartiles {[round(s, 4) for s in steps]}; "
-          f"divergent {stats['divergent']}")
+    print(f"  acceptance {acc:.4f}; step quartiles {steps}")
     print(f"  draws/s {stats['draws_per_s']:.3f} (each draw moves 48 chains; "
-          f"{stats['chain_draws_per_s']:.1f} chain-draws/s)")
+          f"{48 * stats['draws_per_s']:.1f} chain-draws/s)")
     print("  phases (s): " + ", ".join(f"{k_} {v:.2f}" for k_, v in stats["phases_s"].items()))
-    print(f"  segment walls (s): {[round(w, 2) for w in stats['segment_walls_s']]}")
+    print(f"  segment walls (s): {stats['seg_wall_s']}")
     print(f"  lowrank metric: {stats['lowrank_metric']}")
     check_mfu("operator row", stats)
     print("  diagnostics (reduced depth): " + json.dumps(
@@ -1922,15 +2158,15 @@ def main(argv=None) -> int:
                                   problem.branch_x, problem.trunk_x)
 
     feat_ms = time_device("row feature forwards", feature_forwards, SPLIT_REPS)
-    delta_ms = time_device("row delta", lambda: fns.delta_fn(q1, q0, aux), SPLIT_REPS)
-    draw_ms = 1e3 * stats["phases_s"]["sampling_s"] / args.draws
+    delta_ms = time_device("row delta", lambda: delta(q1, q0, aux), SPLIT_REPS)
+    draw_ms = 1e3 / stats["draws_per_s"]
     parts = {"gram_field_x4": 4 * grad_ms, "delta_feature_forwards": feat_ms,
              "paired_sums": ms, "delta_rest": delta_ms - feat_ms - ms}
     parts["rest_of_draw"] = draw_ms - sum(parts.values())
     print(f"  per draw at C=48 (device time, mean of {SPLIT_REPS} queued calls): sampling "
           f"wall {draw_ms:.2f} ms = "
           + ", ".join(f"{k_} {v:.2f} ms ({100 * v / draw_ms:.1f} %)" for k_, v in parts.items()))
-    del problem, fns, field, q0, q1, p0
+    del problem, delta, field, q0, q1, p0
     torch.cuda.empty_cache()
     phase("4 row per-draw breakdown", t0)
 
@@ -2248,12 +2484,23 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase("27 mesh on the card", t0)
 
+    # ---- phase 28: bench.py's row through python -m vihmc_torch.bench ----
+    t0 = time.perf_counter()
+    row28 = bench_row_phase(dev, args.timing_reps)
+    kernel_rows["merge_sums_c1"] = row28["merge_sums_c1"]
+    phase("28 bench.py row", t0)
+
     launches = {"paired_sums": row_counts["paired_sums"],
                 "merge_sums": s3_counts["merge_sums"],
-                "leapfrog_update": s3_counts["leapfrog_update"]}
+                "leapfrog_update": s3_counts["leapfrog_update"],
+                "merge_sums_c1": row28["grad_merge_sums"]}
     print("  launches per kernel on its main path: paired_sums in the operator row, "
-          "merge_sums in stage 3; leapfrog_update is on no path (no sampler calls it, "
+          "merge_sums in stage 3, merge_sums at C = 1 in --extras' fused gradient "
+          "(phase 28 (c)); leapfrog_update is on no path (no sampler calls it, "
           "as in the JAX package): " + json.dumps(launches))
+    print(f"  paired_sums on bench.py's row (phase 28): {row28['row_paired_sums']} launches in "
+          f"(a); at C = 32 on the 90 % row {row28['paired_sums_c32_ms']:.3f} ms (bound "
+          f"{row28['paired_sums_c32_bound_ms']:.3f} ms)")
     print(f"  merge_sums on the two-rank mesh path (phase 27): "
           f"{mesh['mesh_launches_per_rank']} launches per rank, "
           f"{mesh['merge_sums_c8_ms']:.3f} ms at C=8 (bound {mesh['merge_sums_c8_bound_ms']:.3f} ms)")

@@ -182,7 +182,7 @@ print("ok", len(mods))
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
-    from vihmc_torch.bench_operator import run_operator_row
+    from vihmc_torch.bench_operator import bench_operator
     from vihmc_torch.data.burgers import get_burgers, get_burgers_train
     from vihmc_torch.models.deeponet import DeepONetConfig
     from vihmc_torch.pipelines.configs import VIHMCRunConfig
@@ -191,7 +191,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device is usable")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        run_operator_row()
+        bench_operator()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_burgers_train()
     with pytest.raises(RuntimeError, match="device='cpu'"):

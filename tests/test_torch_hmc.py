@@ -206,7 +206,7 @@ def test_warm_start_matches_optax_adam():
     """50 preconditioned Adam steps (optax defaults, lr 0.1) on the f32 Gram
     field with no jitter: the optimum agrees to rtol 1e-4."""
     import bench
-    from vihmc_torch.bench_operator import conditional_warm_start
+    from vihmc_torch.pipelines.common import conditional_warm_start
 
     tp = tiny_problem(seed=5)
     _, jg, _ = _jax_side(tp)
@@ -339,21 +339,23 @@ def test_chains_agree_in_distribution_with_jax(one_torch_thread):
 
 
 def test_operator_row_control_flow_on_cpu():
-    """run_operator_row end to end at a tiny size on the CPU: warm start,
-    Lanczos metric, segmented sampling with thinning, diagnostics."""
-    from vihmc_torch.bench_operator import OperatorProblem, laplace_inv_mass, run_operator_row
+    """The operator row's recipe end to end at a tiny size on the CPU
+    (bench_operator on a posterior given to it): warm start, Lanczos
+    metric, segmented sampling with thinning, diagnostics."""
+    from vihmc_torch.bench_operator import BenchProblem, bench_operator
     from vihmc_torch.ops.deeponet_merge import paired_sums
 
     tp = tiny_problem(seed=10, sub_dim=12)
     scores = (np.random.default_rng(10).random(tp.mu.shape[0]) * 1e-5).astype(np.float32)
-    prob = OperatorProblem(
+    prob = BenchProblem(
         cfg=tp.tcfg, branch_x=tp.t("bx"), trunk_x=tp.t("tx"), y=tp.t("y"), spec=tp.tspec,
-        frozen=tp.t("frozen"),
-        inv_mass_diag=torch.as_tensor(laplace_inv_mass(scores, tp.sigma, tp.idx,
-                                                       tp.y.size)))
+        eps=torch.as_tensor((tp.frozen - tp.mu) / tp.sigma), n_chains=3, n_samples=24,
+        provenance={"posterior": "vi_fit"}, scores=scores)
+    recipe = dict(coupled=True, stride=1, fn_stride=1, laplace_mass=True, grad_dtype="bfloat16",
+                  num_leapfrog=4, target_accept=0.25, burn=6, thin=3, segment=12, keys=(0,),
+                  init_opt=20, lowrank_rank=4)
     launches = paired_sums.launches
-    st = run_operator_row(device="cpu", draws=24, burn=6, thin=3, chains=3, L=4,
-                          init_opt=20, lowrank_rank=4, segment=12, seed=0, problem=prob)
+    st, _ = bench_operator(device="cpu", problem=prob, **recipe)
     assert paired_sums.launches == launches  # CPU tensors take the plain version
     assert st["samples_shape"] == [3, 8, 12] and st["samples_finite"]
     assert 0.0 <= st["acceptance"] <= 1.0
@@ -361,7 +363,7 @@ def test_operator_row_control_flow_on_cpu():
     assert np.isfinite(st["ess_median"]) and st["device"] == "cpu"
     assert st["lowrank_metric"]["rank"] == 4
     with pytest.raises(ValueError, match="thin"):
-        run_operator_row(device="cpu", draws=24, burn=5, thin=3, problem=prob)
+        bench_operator(device="cpu", problem=prob, **dict(recipe, burn=5))
 
 
 def test_hmc_config_fields_and_defaults_match_jax():

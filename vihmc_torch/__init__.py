@@ -10,7 +10,8 @@ The hand-written CUDA kernels (``csrc/``, built with ``nvcc`` at first use):
 ``ops.deeponet_merge.merge_sums`` (the fused merge-NLL density of the stage-3
 pipeline) and ``ops.leapfrog.fused_leapfrog_update``. Entry points: the command line
 ``python -m vihmc_torch <command>`` (``pipelines.cli``, the JAX package's
-subcommands), ``bench_operator`` and ``bench_nn`` (the two rows),
+subcommands), ``python -m vihmc_torch.bench`` (``bench.py``'s command line:
+the operator row of ``bench_operator`` and the NN row of ``bench_nn``),
 ``pipelines.vi_train`` (stages 1 and 2: VI training and sensitivity) and
 ``pipelines.vi_hmc`` (stage 3).
 """

@@ -17,16 +17,21 @@ no ``0.5 log 2 pi`` constant.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 GNLL_EPS = 1e-6
 
 
-def gaussian_nll(pred: torch.Tensor, target: torch.Tensor, var: float) -> torch.Tensor:
-    """Elementwise ``0.5 (log var + (pred - target)^2 / var)``."""
+def gaussian_nll(pred: torch.Tensor, target: torch.Tensor, var: float, *,
+                 full: bool = False) -> torch.Tensor:
+    """Elementwise ``0.5 (log var + (pred - target)^2 / var)``, plus
+    ``0.5 log 2 pi`` with ``full`` (torch's ``gaussian_nll_loss`` convention)."""
     v = max(float(var), GNLL_EPS)
-    return 0.5 * (torch.log(torch.tensor(v, dtype=pred.dtype, device=pred.device))
-                  + (pred - target) ** 2 / v)
+    out = 0.5 * (torch.log(torch.tensor(v, dtype=pred.dtype, device=pred.device))
+                 + (pred - target) ** 2 / v)
+    return out + 0.5 * math.log(2 * math.pi) if full else out
 
 
 def gaussian_nll_var(pred: torch.Tensor, target: torch.Tensor,

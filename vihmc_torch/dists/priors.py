@@ -36,9 +36,9 @@ class IsotropicGaussianPrior:
 
     scale: float = 1.0
 
-    def log_prob(self, q: torch.Tensor) -> torch.Tensor:
+    def log_prob(self, flat: torch.Tensor) -> torch.Tensor:
         """``(C, d) -> (C,)``."""
-        z = q / self.scale
+        z = flat / self.scale
         return (-0.5 * z * z - math.log(self.scale) - 0.5 * _LOG_2PI).sum(-1)
 
     def grad(self, q: torch.Tensor) -> torch.Tensor:
@@ -53,9 +53,9 @@ class DiagonalGaussianPrior:
     loc: torch.Tensor    # (d,)
     scale: torch.Tensor  # (d,)
 
-    def log_prob(self, q: torch.Tensor) -> torch.Tensor:
+    def log_prob(self, flat: torch.Tensor) -> torch.Tensor:
         """``(C, d) -> (C,)``."""
-        z = (q - self.loc) / self.scale
+        z = (flat - self.loc) / self.scale
         return (-0.5 * z * z - torch.log(self.scale) - 0.5 * _LOG_2PI).sum(-1)
 
     def grad(self, q: torch.Tensor) -> torch.Tensor:
@@ -71,9 +71,9 @@ class PerSegmentGaussianPrior:
 
     scales_flat: torch.Tensor  # (D,)
 
-    def log_prob(self, q: torch.Tensor) -> torch.Tensor:
+    def log_prob(self, flat: torch.Tensor) -> torch.Tensor:
         """``(C, D) -> (C,)``."""
-        z = q / self.scales_flat
+        z = flat / self.scales_flat
         return (-0.5 * z * z - torch.log(self.scales_flat) - 0.5 * _LOG_2PI).sum(-1)
 
     def grad(self, q: torch.Tensor) -> torch.Tensor:

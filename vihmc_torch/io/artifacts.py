@@ -58,6 +58,16 @@ class RunStore:
     def load_array(self, name: str) -> np.ndarray:
         return np.load(os.path.join(self.path, f"{name}.npy"), allow_pickle=False)
 
+    def save_arrays(self, name: str, **arrays) -> str:
+        """Several arrays in one ``<name>.npz`` (numpy's format, as in JAX)."""
+        out = os.path.join(self.path, f"{name}.npz")
+        np.savez(out, **{k: np.asarray(v) for k, v in arrays.items()})
+        return out
+
+    def load_arrays(self, name: str) -> dict:
+        with np.load(os.path.join(self.path, f"{name}.npz")) as z:
+            return dict(z)
+
     def save_config(self, config: Any, name: str = "config") -> str:
         """Config snapshot (the reference copies config.py next to artifacts)."""
         out = os.path.join(self.path, f"{name}.json")
@@ -83,3 +93,10 @@ class RunStore:
         if not os.path.isdir(store.path):
             raise FileNotFoundError(store.path)
         return store
+
+    @staticmethod
+    def list_runs(root: str) -> list:
+        """The run uids under ``root``, sorted (empty when it does not exist)."""
+        if not os.path.isdir(root):
+            return []
+        return sorted(d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d)))

@@ -27,8 +27,7 @@ reads ``--mat``, a Cone ``.mat``/``.npz``);
 ``reevaluate`` and ``predict`` score against each chain's last frozen
 vector when the run stored its VI trace (``vi_params``), the base its own
 evaluation used, else against the VI mean as JAX does; ``bench`` runs the
-port's two rows (``vihmc_torch.bench_operator``, then ``bench_nn``; with
-``--quick`` at ``chip_smoke.py``'s depth cuts), never ``bench.py``.
+port's ``python -m vihmc_torch.bench [--quick] --device D``, never ``bench.py``.
 """
 
 from __future__ import annotations
@@ -41,11 +40,6 @@ import subprocess
 import sys
 
 import numpy as np
-
-#: the depth cuts of ``--quick`` (chip_smoke.py's phases 3 and 18)
-QUICK_OPERATOR_ROW = ("--draws", "240", "--segment", "120", "--burn", "48",
-                      "--init-opt", "800", "--rank", "32")
-QUICK_NN_ROW = ("--draws", "240", "--segment", "120", "--keys", "2")
 
 
 def _common(p):
@@ -197,7 +191,7 @@ def build_parser():
     p.add_argument("--burn", type=int, default=0)
     p.add_argument("--out", default=None, help="save stacked samples here (.npy)")
 
-    p = sub.add_parser("bench", help="run the port's operator and NN bench rows")
+    p = sub.add_parser("bench", help="run the ESS/s benchmark (python -m vihmc_torch.bench)")
     p.add_argument("--quick", action="store_true")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
     return ap
@@ -264,14 +258,8 @@ def _reevaluate(args, dev):
 
 
 def _bench(args) -> int:
-    quick = args.quick
-    for module, cuts in (("vihmc_torch.bench_operator", QUICK_OPERATOR_ROW),
-                         ("vihmc_torch.bench_nn", QUICK_NN_ROW)):
-        rc = subprocess.call([sys.executable, "-m", module, "--device", args.device]
-                             + (list(cuts) if quick else []))
-        if rc:
-            return rc
-    return 0
+    return subprocess.call([sys.executable, "-m", "vihmc_torch.bench", "--device",
+                            args.device] + (["--quick"] if args.quick else []))
 
 
 def _postprocess(args) -> int:

@@ -52,7 +52,7 @@ from vihmc_torch.chains.resume import sample_chains_resumable
 from vihmc_torch.core.mesh import is_lead
 from vihmc_torch.core.device import resolve_device, split_to, stream_generator, sync, to_f32
 from vihmc_torch.core.precision import true_f32
-from vihmc_torch.data.burgers import get_burgers_baseline
+from vihmc_torch.data.burgers import get_burgers, get_burgers_baseline
 from vihmc_torch.dists.likelihoods import get_likelihood
 from vihmc_torch.dists.priors import IsotropicGaussianPrior
 from vihmc_torch.hmc.kernel import HMCConfig
@@ -70,9 +70,14 @@ _INIT_STREAM, _SUBSAMPLE_STREAM = 720_001, 720_002
 EVAL_CHUNK = 16
 
 
-def load_data(cfg, device):
+def load_data(cfg, device, mat_path: Optional[str] = None):
     """``(train, valid, n_valid)``: the first ``cfg.n_train`` exported
-    functions and validation rows from row 1000 on, at most the 200 exported."""
+    functions and validation rows from row 1000 on, at most the 200 exported;
+    with ``mat_path`` the ``.mat``'s rows, as JAX's ``get_burgers(key,
+    n_train, n_valid, mat_path)`` slices them."""
+    if mat_path is not None:
+        train, valid = get_burgers(device, cfg.n_train, cfg.n_valid, mat_path=mat_path)
+        return train, valid, valid["solution"].shape[0]
     return get_burgers_baseline(device, cfg.n_train, cfg.n_valid)
 
 
@@ -101,11 +106,11 @@ def score_on_validation(cfg, apply_flat, prior, valid, samples, burn):
 def run(cfg: OperatorHMCRunConfig = OperatorHMCRunConfig(), data=None, num_chains: int = 1,
         store: Optional[RunStore] = None, use_fused: bool = False,
         use_gram: Optional[bool] = None, inits=None, tidx0=None, seed: int = 0,
-        mesh=None, device="cuda"):
+        mesh=None, device="cuda", mat_path: Optional[str] = None):
     """Sample, score on validation and (optionally) persist (see module doc).
 
     ``data``: ``(train, valid)`` dicts (tensors or arrays), or None for
-    :func:`load_data`. Returns ``result``, ``metrics`` (with
+    :func:`load_data` (of ``mat_path`` when given). Returns ``result``, ``metrics`` (with
     ``acceptance_rate`` and each chain's ``adapted_step_size``),
     ``diagnostics``, ``data``, ``apply_flat``, ``phases_s`` and the sampler's
     ``log_prob`` and ``grad_fn``.
@@ -118,7 +123,7 @@ def run(cfg: OperatorHMCRunConfig = OperatorHMCRunConfig(), data=None, num_chain
     phases = {}
     t0 = time.perf_counter()
     if data is None:
-        train, valid, _ = load_data(cfg, dev)
+        train, valid, _ = load_data(cfg, dev, mat_path)
     else:
         train, valid = (split_to(s, dev) for s in data)
     sync(dev)
@@ -206,13 +211,13 @@ def run(cfg: OperatorHMCRunConfig = OperatorHMCRunConfig(), data=None, num_chain
             "grad_fn": grad_fn}
 
 
-def reevaluate(cfg, store: RunStore, data=None, device="cuda"):
+def reevaluate(cfg, store: RunStore, data=None, device="cuda", mat_path: Optional[str] = None):
     """Reload saved full-parameter samples and re-score them on the
     validation split (the reference's ``evaluate`` mode; the NUTS-style and
-    split configs share it)."""
+    split configs share it); ``mat_path`` as in :func:`load_data`."""
     dev = resolve_device(device)
     if data is None:
-        _, valid, _ = load_data(cfg, dev)
+        _, valid, _ = load_data(cfg, dev, mat_path)
     else:
         valid = split_to(data[1], dev)
     apply_flat = make_flat_deeponet(cfg.model)

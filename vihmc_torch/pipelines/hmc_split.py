@@ -71,11 +71,12 @@ def make_shard_log_prob(cfg: SplitHMCRunConfig, trunk: torch.Tensor):
 
 def run(cfg: SplitHMCRunConfig = SplitHMCRunConfig(), data=None, num_chains: int = 1,
         store: Optional[RunStore] = None, inits=None, seed: int = 0, mesh=None,
-        device="cuda"):
+        device="cuda", mat_path: Optional[str] = None):
     """Sample, score on validation and (optionally) persist (see module doc).
 
     ``data``: ``(train, valid)`` dicts (tensors or arrays), or None for
-    :func:`~vihmc_torch.pipelines.hmc_nuts.load_data`. Returns ``result``,
+    :func:`~vihmc_torch.pipelines.hmc_nuts.load_data` (of ``mat_path`` when
+    given). Returns ``result``,
     ``metrics``, ``diagnostics``, ``data``, ``apply_flat``, ``phases_s`` and
     the sampler's ``log_prob``, ``shard_log_prob`` and ``shard_data``.
 
@@ -88,7 +89,7 @@ def run(cfg: SplitHMCRunConfig = SplitHMCRunConfig(), data=None, num_chains: int
     phases = {}
     t0 = time.perf_counter()
     if data is None:
-        train, valid, _ = load_data(cfg, dev)
+        train, valid, _ = load_data(cfg, dev, mat_path)
     else:
         train, valid = (split_to(s, dev) for s in data)
     sync(dev)
