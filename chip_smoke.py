@@ -8,7 +8,8 @@ Phases, each printed with its wall time:
    kernel of the port from ``vihmc_torch/csrc`` (one ``nvcc`` per source, all
    started together);
 2. ``paired_sums`` against its plain PyTorch version on the card, at a ragged
-   shape and at the operator row's shape, on real features at q0 and at q1
+   shape, at the operator row's shape and at one chain of it (the unbatched
+   form, C = 1), on real features at q0 and at q1
    one leapfrog trajectory away, with a float64 evaluation as a third
    reference (at the main shape the kernel's Delta ll error against float64
    may be at most twice the plain version's plus 1e-3 nats); the kernel's
@@ -143,11 +144,22 @@ Phases, each printed with its wall time:
     against its plain version and float64, timed; (d) ``--coupled --stride 5
     --fn-stride 5``, ``--gauss-field``, ``--adaptive``, ``--no-gram``,
     ``--composed-delta`` and ``--no-paired-delta``, a few draws each, finite,
-    ``paired_sums`` launched only where the delta is the fused one.
+    ``paired_sums`` launched only where the delta is the fused one;
+29. the result scripts (``python -m vihmc_torch.scripts.<name>``) through
+    their ``main`` at full width (``DeepONetConfig()``, 172,401 parameters,
+    1000 + 200 Burgers functions on the 101 x 101 grid), depth cut: (a)
+    ``run_operator_stage12`` writes a run store and a bundle with the
+    committed asset's keys; (b) ``run_operator_stage3 --artifacts <(a)>
+    --ckpt`` samples (a)'s own subspace in segments on the fused density,
+    ``merge_sums`` exactly 1 + 2 x draws; (c) ``canonicalize_operator_draws``
+    on (b)'s checkpoint and (d) ``fs_diagnostics_operator`` on (b)'s run,
+    finite; (e) ``run_operator_demo`` on the composed density, (f)
+    ``run_nn_stage12`` (whose bundle ``bench_nn`` loads) and ``run_nn_demo``,
+    (g) ``run_cone_demo``: no kernel launch in (a) and (e)-(g).
 
 Phase 3 also prints the operator row's ``mfu`` block and phase 18 the NN
 row's, with its CPU baseline (``vs_baseline``): both blocks present with 0 <
-``mfu`` <= 1. Before each driven path (3, 6, 7, 8, 9, 10, 11, 12-28) every
+``mfu`` <= 1. Before each driven path (3, 6, 7, 8, 9, 10, 11, 12-29) every
 kernel count is set to 0, and it is read just after (stages 1 and 2,
 ``hmc_split``, ``hmc_full``, the NN paths of 18 and 21 and phases 25-26 run
 no kernel of the port). Every depth cut is printed. The second-to-last line is a JSON object describing every
@@ -287,10 +299,19 @@ C32_STEP = 0.01                                 # (b) the kernel check's traject
 GRAD_ITERS = 30                                 # (c) gradient evaluations (bench: 30)
 GRAD_PATH_COS_MIN = 0.9999                      # (c) fused vs composed gradient
 VARIANT_DRAWS = 6                               # (d) draws per recipe (24 where thin 3 needs segments)
+# phase 29: the result scripts (their defaults in brackets in the phase's cut line)
+SCRIPT_EPOCHS = 2                                   # stage 1 of stage12 / the demos
+SCRIPT_DRAWS, SCRIPT_SEGMENT = 12, 6                # (b) stage 3
+SCRIPT_DEMO_DRAWS = 8                               # (e), (g)
+NN_SCRIPT_EPOCHS, NN_SCRIPT_HMC_DRAWS = 300, 8      # (f)
+NN_SCRIPT_VIHMC_DRAWS, NN_SCRIPT_CONV_DRAWS = 20, 40
 
 KERNELS = {
     "paired_sums": {"route": "cuda", "source": "vihmc_torch/csrc/paired_sums.cu",
                     "replaces": "vihmc_tpu/ops/deeponet_merge.py:349"},
+    # the same kernel unbatched (C = 1), counted apart by its wrapper
+    "paired_sums_c1": {"route": "cuda", "source": "vihmc_torch/csrc/paired_sums.cu",
+                       "replaces": "vihmc_tpu/ops/deeponet_merge.py:304"},
     "merge_sums": {"route": "cuda", "source": "vihmc_torch/csrc/merge_sums.cu",
                    "replaces": "vihmc_tpu/ops/deeponet_merge.py:108"},
     # the same kernel unbatched (C = 1), on --extras' fused gradient
@@ -299,8 +320,12 @@ KERNELS = {
     "leapfrog_update": {"route": "cuda", "source": "vihmc_torch/csrc/leapfrog_update.cu",
                         "replaces": "vihmc_tpu/ops/leapfrog.py:46"},
 }
-COUNTERS = {"paired_sums": paired_sums, "merge_sums": merge_sums,
-            "leapfrog_update": fused_leapfrog_update}
+# (wrapper, attribute): each wrapper counts its launches, and those at C = 1 apart
+COUNTERS = {"paired_sums": (paired_sums, "launches"),
+            "paired_sums_c1": (paired_sums, "launches_c1"),
+            "merge_sums": (merge_sums, "launches"),
+            "merge_sums_c1": (merge_sums, "launches_c1"),
+            "leapfrog_update": (fused_leapfrog_update, "launches")}
 
 
 def check(cond: bool, msg: str):
@@ -314,13 +339,13 @@ def phase(name: str, t0: float):
 
 def reset_counts():
     torch.cuda.synchronize()
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
     torch.cuda.synchronize()
-    return {k: fn.launches for k, fn in COUNTERS.items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in COUNTERS.items()}
 
 
 def time_device(label: str, fn, reps: int, warmup: int = 2) -> float:
@@ -1925,7 +1950,9 @@ def bench_row_phase(dev, reps: int) -> dict:
           f"{json.dumps(rates)}; launches {counts}")
     check(counts["merge_sums"] == GRAD_ITERS + 1 and counts["paired_sums"] == 0,
           f"(c) merge_sums {counts} for {GRAD_ITERS} + 1 fused gradients")
-    out["grad_merge_sums"] = counts["merge_sums"]
+    check(counts["merge_sums_c1"] == counts["merge_sums"],
+          f"(c) the fused gradient runs merge_sums at C = 1: {counts}")
+    out["grad_merge_sums_c1"] = counts["merge_sums_c1"]
     gc = log_posterior_grad(composed, flat0).double().flatten()
     gf = log_posterior_grad(fused, flat0).double().flatten()
     cos = torch.nn.functional.cosine_similarity(gf, gc, dim=0).item()
@@ -1980,6 +2007,119 @@ def bench_row_phase(dev, reps: int) -> dict:
         check(counts["paired_sums"] == want, f"(d) {label}: paired_sums {counts} != {want}")
         check(counts["merge_sums"] == 0, f"(d) {label}: merge_sums {counts}")
     return out
+
+
+def finite_values(label: str, obj: dict, keys) -> None:
+    vals = {k: obj[k] for k in keys}
+    print(f"  {label}: " + ", ".join(f"{k} {v:.6g}" for k, v in vals.items()))
+    check(all(math.isfinite(v) for v in vals.values()), f"{label}: non-finite {vals}")
+
+
+def scripts_phase(dev, tmp) -> dict:
+    """Phase 29: the result scripts (``python -m vihmc_torch.scripts.<name>``)
+    driven in process through their ``main`` at full width, depth cut."""
+    from vihmc_torch.scripts import (canonicalize_operator_draws, fs_diagnostics_operator,
+                                     run_cone_demo, run_nn_demo, run_nn_stage12,
+                                     run_operator_demo, run_operator_stage12,
+                                     run_operator_stage3)
+
+    print(f"  depth cuts: stage 1 {SCRIPT_EPOCHS} epochs (2400), stage 3 {SCRIPT_DRAWS} draws "
+          f"(450) in segments of {SCRIPT_SEGMENT} (90), thin 1 (3); the demo "
+          f"{SCRIPT_EPOCHS} epochs (200), {SCRIPT_DEMO_DRAWS} draws (450); NN "
+          f"{NN_SCRIPT_EPOCHS} epochs (10,000), hmc_full {NN_SCRIPT_HMC_DRAWS} draws (1000), "
+          f"VI-HMC and NUTS {NN_SCRIPT_VIHMC_DRAWS} (100), converged {NN_SCRIPT_CONV_DRAWS} "
+          f"(3000); Cone {SCRIPT_EPOCHS} epochs (1200), {SCRIPT_DEMO_DRAWS} draws (600)")
+    walls = {}
+    op, ck = os.path.join(tmp, "op"), os.path.join(tmp, "op", "ck")
+    bundle = os.path.join(op, "burgers_stage12.npz")
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    # (a) stage 1 + 2 write a run store and a bundle
+    reset_counts()
+    s12 = timed("stage12", lambda: run_operator_stage12.main(
+        ["--epochs", str(SCRIPT_EPOCHS), "--out", os.path.join(op, "stage12"),
+         "--assets", bundle]))
+    expect_no_launches("(a) run_operator_stage12")
+    with np.load(bundle) as z:
+        check(set(z.files) == set(np.load(STAGE12_ASSET).files) and len(z["mu"]) == 172_401,
+              f"(a) bundle keys {sorted(z.files)}")
+    finite_values("(a) stage12", s12, ("valid_mse_best", "subspace_frac", "vi_seconds"))
+
+    # (b) stage 3 on (a)'s own subspace, checkpointed in segments
+    reset_counts()
+    s3 = timed("stage3", lambda: run_operator_stage3.main(
+        ["--artifacts", os.path.join(op, "stage12", "stage12"), "--out",
+         os.path.join(op, "stage3"), "--uid", "s3", "--ckpt", ck, "--variant", "stride",
+         "--draws", str(SCRIPT_DRAWS), "--segment", str(SCRIPT_SEGMENT), "--thin", "1"]))
+    counts = read_counts()
+    want = 1 + 2 * SCRIPT_DRAWS
+    print(f"  (b) run_operator_stage3 launches: {counts} (merge_sums 1 + 2 x {SCRIPT_DRAWS} = "
+          f"{want})")
+    check(counts["merge_sums"] == want and counts["paired_sums"] == 0
+          and counts["leapfrog_update"] == 0, f"(b) launches {counts}, merge_sums {want} wanted")
+    check(len([f for f in os.listdir(ck) if f.startswith("samples_seg")])
+          == SCRIPT_DRAWS // SCRIPT_SEGMENT, "(b) segment files")
+    finite_values("(b) stage3", s3, ("acceptance_post_burn", "expected_mse_of_mean",
+                                     "mean_relative_l2", "ess_median", "r_hat_max"))
+
+    # (c) canonicalization of (b)'s checkpoint, (d) function-space diagnostics of its run
+    canon = timed("canonicalize", lambda: canonicalize_operator_draws.main(
+        ["--ckpt", ck, "--assets", bundle, "--burn-kept", "2", "--permute",
+         "--out", os.path.join(op, "canonicalization.json")]))
+    finite_values("(c) canonicalize", canon, ("rhat_raw_max", "rhat_sign_max", "rhat_perm_max"))
+    fs = timed("fs_diagnostics", lambda: fs_diagnostics_operator.main(
+        ["--run", os.path.join(op, "stage3", "s3"), "--assets", bundle, "--thin", "1"]))
+    finite_values("(d) fs diagnostics", fs, ("fs_r_hat_max", "fs_r_hat_rank_max",
+                                             "fs_ess_median", "fs_ess_bulk_min"))
+
+    # (e) the three-stage demo on the composed density
+    reset_counts()
+    demo = timed("operator_demo", lambda: run_operator_demo.main(
+        ["--epochs", str(SCRIPT_EPOCHS), "--draws", str(SCRIPT_DEMO_DRAWS),
+         "--out", os.path.join(tmp, "demo")]))
+    expect_no_launches("(e) run_operator_demo")
+    finite_values("(e) operator demo", demo, ("acceptance", "expected_mse_of_mean",
+                                              "mean_relative_l2", "ess_median"))
+
+    # (f) the NN bundle (which bench_nn loads) and the NN demo
+    reset_counts()
+    nn_path = os.path.join(tmp, "nn_stage12.npz")
+    timed("nn_stage12", lambda: run_nn_stage12.main(
+        ["--epochs", str(NN_SCRIPT_EPOCHS), "--out", nn_path]))
+    expect_no_launches("(f) run_nn_stage12")
+    prev = bench_nn.NN_STAGE12_ASSET
+    bench_nn.NN_STAGE12_ASSET = nn_path
+    try:
+        problem = bench_nn.build_nn_problem(dev)
+    finally:
+        bench_nn.NN_STAGE12_ASSET = prev
+    print(f"  (f) bench_nn loads the written bundle: {problem[-1]['subspace']}")
+    reset_counts()
+    nn = timed("nn_demo", lambda: run_nn_demo.main(
+        ["--epochs", str(NN_SCRIPT_EPOCHS), "--hmc-draws", str(NN_SCRIPT_HMC_DRAWS),
+         "--vihmc-draws", str(NN_SCRIPT_VIHMC_DRAWS), "--converged-draws",
+         str(NN_SCRIPT_CONV_DRAWS), "--out", os.path.join(tmp, "demo_nn")]))
+    expect_no_launches("(f) run_nn_demo")
+    for block in ("hmc_full", "vi_hmc", "vi_hmc_converged", "vi_nuts"):
+        finite_values(f"(f) nn demo {block}", nn[block], ("acceptance", "expected_mse_of_mean"))
+
+    # (g) the Cone demo (per-example query points)
+    reset_counts()
+    cone = timed("cone_demo", lambda: run_cone_demo.main(
+        ["--epochs", str(SCRIPT_EPOCHS), "--draws", str(SCRIPT_DEMO_DRAWS),
+         "--out", os.path.join(tmp, "cone_demo_summary.json"),
+         "--store", os.path.join(tmp, "cone_demo")]))
+    expect_no_launches("(g) run_cone_demo")
+    finite_values("(g) cone demo", cone, ("acceptance_post_burn", "expected_mse_of_mean",
+                                          "fs_r_hat_max", "fs_ess_median"))
+    print("  phase 29 walls (s): " + json.dumps({k: round(v, 3) for k, v in walls.items()}))
+    return {"stage3_merge_sums": counts["merge_sums"], "walls": walls}
 
 
 def main(argv=None) -> int:
@@ -2102,7 +2242,19 @@ def main(argv=None) -> int:
     kernel_rows = {"paired_sums": dict(max_abs_err=err_main, ms=ms, plain_ms=plain_ms,
                                        bound_ms=bound_ms, bound_by=bound_by,
                                        bound_tc_ms=tc_ms)}
-    del feats, ragged, bout1, tout1, bout0, tout0
+    # the unbatched form (_paired_sums_pallas): the same kernel at C = 1
+    feats1 = [t[:1].contiguous() for t in feats]
+    err_c1 = compare_paired(f"C=1 B={b} P={p} K={k}", feats1, (biases[0][:1], biases[1][:1]),
+                            y, main=True)
+    ms1 = time_device("paired_sums C=1", lambda: paired_sums(*feats1, y), args.timing_reps)
+    plain1 = time_device("paired_sums C=1 plain", lambda: paired_sums_reference(*feats1, y), 2,
+                         warmup=1)
+    b1_ms, b1_by, tc1_ms = paired_sums_bound_ms(1, b, p, k)
+    print(f"  paired_sums at C=1: kernel {ms1:.3f} ms; {bound_line(ms1, b1_ms, tc1_ms)}; plain "
+          f"{plain1:.3f} ms")
+    kernel_rows["paired_sums_c1"] = dict(max_abs_err=err_c1, ms=ms1, plain_ms=plain1,
+                                         bound_ms=b1_ms, bound_by=b1_by, bound_tc_ms=tc1_ms)
+    del feats, feats1, ragged, bout1, tout1, bout0, tout0
     phase("2 paired_sums vs plain", t0)
 
     # ---- phase 3: the operator row at full width ----
@@ -2490,14 +2642,24 @@ def main(argv=None) -> int:
     kernel_rows["merge_sums_c1"] = row28["merge_sums_c1"]
     phase("28 bench.py row", t0)
 
+    # ---- phase 29: the result scripts ----
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        scripts = scripts_phase(dev, tmp)
+    torch.cuda.empty_cache()
+    phase("29 result scripts", t0)
+
     launches = {"paired_sums": row_counts["paired_sums"],
+                "paired_sums_c1": row_counts["paired_sums_c1"],
                 "merge_sums": s3_counts["merge_sums"],
                 "leapfrog_update": s3_counts["leapfrog_update"],
-                "merge_sums_c1": row28["grad_merge_sums"]}
-    print("  launches per kernel on its main path: paired_sums in the operator row, "
-          "merge_sums in stage 3, merge_sums at C = 1 in --extras' fused gradient "
-          "(phase 28 (c)); leapfrog_update is on no path (no sampler calls it, "
-          "as in the JAX package): " + json.dumps(launches))
+                "merge_sums_c1": row28["grad_merge_sums_c1"]}
+    print("  launches per kernel on its main path: paired_sums and paired_sums at C = 1 in "
+          "the operator row (phase 3), merge_sums and leapfrog_update in stage 3 (phase 4), "
+          "merge_sums at C = 1 in --extras' fused gradient (phase 28 (c)); each counted by "
+          "its wrapper where it launches: " + json.dumps(launches))
+    print(f"  merge_sums in the stage-3 script (phase 29 (b)): "
+          f"{scripts['stage3_merge_sums']} launches")
     print(f"  paired_sums on bench.py's row (phase 28): {row28['row_paired_sums']} launches in "
           f"(a); at C = 32 on the 90 % row {row28['paired_sums_c32_ms']:.3f} ms (bound "
           f"{row28['paired_sums_c32_bound_ms']:.3f} ms)")

@@ -203,6 +203,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     for argv in ([], ["--no-gram", "--draws", "3"]):  # the stage-3 entry's CLI
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)
+    # the result scripts (python -m vihmc_torch.scripts.<name>)
+    import importlib
+
+    from vihmc_torch.scripts import __all__ as scripts
+
+    for name in scripts:
+        argv = ["--mat", "unused.mat"] if name == "parity_osf" else []
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            importlib.import_module(f"vihmc_torch.scripts.{name}").main(argv)
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -86,7 +86,8 @@ def merge_sums(bout, tout, y) -> torch.Tensor:
     """``(C, 2)`` f64 sums ``[S1, S2]`` per chain (see module doc).
 
     CUDA tensors: one launch of the hand-written kernel for all chains (plus
-    its fixed-order reduction), counted in ``merge_sums.launches``. CPU
+    its fixed-order reduction), counted in ``merge_sums.launches`` (and at
+    C = 1 also in ``merge_sums.launches_c1``). CPU
     tensors: :func:`merge_sums_reference`. Anything else raises. The result
     is f64, not the f32 of JAX: ``S1`` is about ``-sum y^2`` (~1.7e6) at
     reference scale, where rounding it to f32 alone moves ll by up to 0.03
@@ -110,11 +111,13 @@ def merge_sums(bout, tout, y) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"merge_sums kernel launch failed: CUDA error {err}")
     merge_sums.launches += 1
+    merge_sums.launches_c1 += int(c == 1)   # the unbatched form's launches
     merge_sums.flops += 2 * c * b * p * k
     return out
 
 
 merge_sums.launches = 0
+merge_sums.launches_c1 = 0
 merge_sums.flops = 0   # matmul FLOPs of the launches (core.profiling.count_flops)
 
 
@@ -222,7 +225,8 @@ def paired_sums(bout1, tout1, bout0, tout0, y) -> torch.Tensor:
     """``(C, 5)`` f32 sums ``[D, Bd, Sm, Q1, C1]`` per chain (see module doc).
 
     CUDA tensors: one launch of the hand-written kernel for all chains (plus
-    its fixed-order reduction), counted in ``paired_sums.launches``. CPU
+    its fixed-order reduction), counted in ``paired_sums.launches`` (and at
+    C = 1 also in ``paired_sums.launches_c1``). CPU
     tensors: :func:`paired_sums_reference`. Anything else raises.
     """
     c, b, p, k = _check_inputs(bout1, tout1, bout0, tout0, y)
@@ -244,11 +248,13 @@ def paired_sums(bout1, tout1, bout0, tout0, y) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"paired_sums kernel launch failed: CUDA error {err}")
     paired_sums.launches += 1
+    paired_sums.launches_c1 += int(c == 1)   # the unbatched form's launches
     paired_sums.flops += 2 * 2 * c * b * p * k   # the two products m1, m0
     return out
 
 
 paired_sums.launches = 0
+paired_sums.launches_c1 = 0
 paired_sums.flops = 0   # matmul FLOPs of the launches (core.profiling.count_flops)
 
 

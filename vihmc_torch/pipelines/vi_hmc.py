@@ -97,8 +97,10 @@ line with the script's summary keys, ``draws_per_s`` and the phase walls::
         [--clip-scale 13] [--no-gram] [--frozen-policy draw|refresh|mean]
         [--device cuda]
 
-One difference from the script: it reads ``assets/burgers_stage12.npz``; the
-port reads ``assets/burgers_stage12_r2.npz`` (mu, sigma, indices, scores),
+The flags it shares with ``python -m vihmc_torch.scripts.run_operator_stage3``
+(which adds the script's own: ``--artifacts``, ``--ckpt``, ``--key``, ...)
+are :func:`add_stage3_flags`'. One difference from the script: it reads
+``assets/burgers_stage12.npz``; the port reads ``assets/burgers_stage12_r2.npz`` (mu, sigma, indices, scores),
 whose Burgers initial conditions it already holds in
 ``assets/burgers_r2_port_inputs.npz`` (the 200 validation functions are rows
 1000:1200 of the exported ``u0``), so no new export is needed.
@@ -862,34 +864,58 @@ def trajectory_field_name(cfg: VIHMCRunConfig, use_gram=None) -> str:
 def run_stage3(device="cuda", variant: str = "stride", draws: int = 450, burn=None,
                chains: int = 16, L: int = 31, segment: int = 90, thin: int = 3,
                use_gram=None, seed: int = 0, data=None, artifacts=None,
-               frozen_policy: str = "draw", **cfg_kw):
+               frozen_policy: str = "draw", model: Optional[DeepONetConfig] = None,
+               grid: Optional[dict] = None, store: Optional[RunStore] = None,
+               checkpoint_dir=None, progress=None, evaluate: bool = True, **cfg_kw):
     """Run the stage-3 configuration of ``variant`` and return ``(summary,
     out)``: the script's summary keys plus ``draws_per_s``, ``phases_s`` and
     the trajectory field; ``out`` is :func:`run_operator`'s result.
     ``cfg_kw`` are :func:`stage3_config`'s other settings (the script's
     flags, and ``algorithm`` etc.). ``data`` and ``artifacts`` reuse already
-    loaded ones (default: the port's assets). The stride variant's field is
+    loaded ones (default: the port's assets); ``model`` is the DeepONet they
+    belong to (default ``DeepONetConfig()``) and ``grid`` their ``nx``,
+    ``nt`` and ``n_train`` (default: the exported inputs'). ``store``,
+    ``checkpoint_dir`` and ``progress`` go to :func:`run_operator`; without
+    ``evaluate`` the summary is the script's ``--no-eval`` one
+    (``acceptance_post_burn``, ``ess_median_head`` over the first 4096
+    subspace coordinates, ``wall_seconds``). The stride variant's field is
     the Gram field, which JAX builds by default for HMC only: under NUTS or
     ChEES it is asked for (``use_gram=True``) unless ``use_gram`` says
     otherwise."""
     dev = resolve_device(device)
     artifacts = load_stage12_artifacts() if artifacts is None else artifacts
-    grid = load_port_inputs()
+    grid = load_port_inputs() if grid is None else grid
+    model = DeepONetConfig() if model is None else model
     nx, nt = int(grid["nx"]), int(grid["nt"])
     cfg = stage3_config(len(artifacts["indices"]), int(grid["n_train"]) * nx * nt,
                         variant=variant, draws=draws, burn=burn, chains=chains, L=L,
                         frozen_policy=frozen_policy, **cfg_kw)
     if use_gram is None and variant == "stride" and cfg.algorithm in ("nuts", "chees"):
         use_gram = True
-    out = run_operator(cfg, DeepONetConfig(), artifacts, data=data, use_fused=True,
+    t0 = time.perf_counter()
+    out = run_operator(cfg, model, artifacts, data=data, use_fused=True,
                        use_gram=use_gram, segment_size=segment, sample_thin=thin,
-                       seed=seed, device=dev)
-    res, met, diag = out["result"], out["metrics"], out["diagnostics"]
+                       seed=seed, store=store, checkpoint_dir=checkpoint_dir,
+                       progress=progress, evaluate=evaluate, device=dev)
+    wall = time.perf_counter() - t0
+    res, phases = out["result"], out["phases_s"]
+    # a resumed run holds only the draws run in this call, the last ones of the
+    # chain (none after a finished checkpoint): burn counts from the chain's start
+    accept = np.asarray(res.accept_probs)
+    ran = accept[:, max(cfg.burn_ - (cfg.num_samples - accept.shape[1]), 0):]
+    acc_post = float(ran.mean()) if ran.size else float("nan")
+    if not evaluate:
+        kept = res.samples[:, cfg.burn_ // thin:, :min(4096, len(artifacts["indices"]))]
+        summary = {"acceptance_post_burn": acc_post,
+                   "ess_median_head": float(np.median(summarize_np(kept)["ess"])),
+                   "wall_seconds": wall, "draws_per_s": draws / phases["sampling_s"],
+                   "phases_s": phases}
+        return summary, out
+    met, diag = out["metrics"], out["diagnostics"]
     truth = out["data"][1]["solution"].cpu().numpy()
     preds = np.asarray(out["predictions"]).reshape(-1, *truth.shape)
     rep = error_report(preds, truth, log_probs=np.asarray(met["expected_log_prob"])[None])
     corr = error_sigma_correlation(preds, truth, nt=nt, nx=nx)
-    phases = out["phases_s"]
     jitter = "l" if cfg.jitter_l else ("eps" if cfg.jitter_eps else "none")
     summary = {
         "variant": variant,
@@ -900,9 +926,10 @@ def run_stage3(device="cuda", variant: str = "stride", draws: int = 450, burn=No
         "chains": chains, "draws": draws, "thin": thin, "burn": int(cfg.burn_),
         "L": cfg.L, "step": float(cfg.step_size), "adapt": cfg.adapt_step_size,
         "da_axis": cfg.da_axis == "chains", "jitter": jitter,
-        "step_final_median": float(np.median(np.asarray(res.step_sizes)[..., -1])),
+        "step_final_median": (float(np.median(np.asarray(res.step_sizes)[..., -1]))
+                              if np.asarray(res.step_sizes).size else float("nan")),
         "acceptance": float(met["acceptance_rate"]),
-        "acceptance_post_burn": float(np.mean(res.accept_probs[:, cfg.burn_:])),
+        "acceptance_post_burn": acc_post,
         "expected_mse_of_mean": float(met["expected_mse_of_mean"]),
         "mean_relative_l2": rep["mean_relative_l2"],
         "mean_error_sigma_correlation": corr["mean_correlation"],
@@ -928,24 +955,20 @@ def run_stage3(device="cuda", variant: str = "stride", draws: int = 450, burn=No
     return summary, out
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description="stage-3 operator VI-HMC (fused merge-NLL)")
+def add_stage3_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The flags this module's entry point shares with
+    ``python -m vihmc_torch.scripts.run_operator_stage3`` (the script's
+    names and defaults, plus ``--device``)."""
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--variant", default="stride", choices=STAGE3_VARIANTS,
                     help="trajectory field: dual-stride Gram surrogate (default), "
                          "VI-Gaussian score, or the full-grid field")
-    ap.add_argument("--algorithm", default="hmc", choices=ALGORITHMS,
-                    help="sampler: HMC, NUTS, ChEES-HMC, or the stiffness probe's choice")
-    ap.add_argument("--nuts-max-depth", type=int, default=6,
-                    help="NUTS tree depth (2^depth - 1 density evaluations per draw)")
     ap.add_argument("--stride", type=int, default=3)
     ap.add_argument("--fn-stride", type=int, default=3)
     ap.add_argument("--draws", type=int, default=450)
     ap.add_argument("--burn", type=int, default=None, help="default draws // 5")
     ap.add_argument("--chains", type=int, default=16)
     ap.add_argument("--L", type=int, default=31)
-    ap.add_argument("--step", type=float, default=None,
-                    help="initial step (default 1e-4; gauss: 0.8 d^-1/4)")
     ap.add_argument("--adapt", action="store_true", help="dual-averaging step adaptation")
     ap.add_argument("--da-axis", action="store_true",
                     help="couple dual averaging across chains")
@@ -954,32 +977,49 @@ def main(argv=None):
     ap.add_argument("--target-accept", type=float, default=0.65)
     ap.add_argument("--max-step", type=float, default=None)
     ap.add_argument("--jitter", choices=("l", "eps", "none"), default="eps")
-    ap.add_argument("--laplace-mass", action="store_true",
-                    help="conditional-Laplace kinetic metric instead of VI sigma^2")
+    ap.add_argument("--frozen-policy", default="draw", choices=("draw", "refresh", "mean"))
     ap.add_argument("--init-optimize", type=int, default=0,
                     help="warm-start Adam steps on the conditional before sampling")
+    ap.add_argument("--laplace-mass", action="store_true",
+                    help="conditional-Laplace kinetic metric instead of VI sigma^2")
     ap.add_argument("--clip-scale", type=float, default=STAGE3_CLIP_SCALE,
                     help="clip = scale * sqrt(subspace dim); 0 disables")
     ap.add_argument("--segment", type=int, default=90)
-    ap.add_argument("--thin", type=int, default=3)
+    ap.add_argument("--thin", type=int, default=3,
+                    help="keep every thin-th draw (must divide --segment)")
+    return ap
+
+
+def stage3_kwargs(args) -> dict:
+    """:func:`run_stage3`'s keywords from the flags of :func:`add_stage3_flags`."""
+    return dict(device=args.device, variant=args.variant, draws=args.draws, burn=args.burn,
+                chains=args.chains, L=args.L, segment=args.segment, thin=args.thin,
+                frozen_policy=args.frozen_policy, stride=args.stride,
+                fn_stride=args.fn_stride, adapt=args.adapt, da_axis=args.da_axis,
+                adapt_forever=args.adapt_forever, target_accept=args.target_accept,
+                max_step=args.max_step, jitter=args.jitter, laplace_mass=args.laplace_mass,
+                init_optimize=args.init_optimize, clip_scale=args.clip_scale)
+
+
+def main(argv=None):
+    ap = add_stage3_flags(argparse.ArgumentParser(
+        description="stage-3 operator VI-HMC (fused merge-NLL)"))
+    ap.add_argument("--algorithm", default="hmc", choices=ALGORITHMS,
+                    help="sampler: HMC, NUTS, ChEES-HMC, or the stiffness probe's choice")
+    ap.add_argument("--nuts-max-depth", type=int, default=6,
+                    help="NUTS tree depth (2^depth - 1 density evaluations per draw)")
+    ap.add_argument("--step", type=float, default=None,
+                    help="initial step (default 1e-4; gauss: 0.8 d^-1/4)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--frozen-policy", default="draw", choices=("draw", "refresh", "mean"))
     field = ap.add_mutually_exclusive_group()
     field.add_argument("--use-gram", dest="use_gram", action="store_const", const=True,
                        help="Gram trajectory gradient (the default when eligible)")
     field.add_argument("--no-gram", dest="use_gram", action="store_const", const=False,
                        help="autograd trajectory gradient through the fused density")
     args = ap.parse_args(argv)
-    summary, _ = run_stage3(
-        device=args.device, variant=args.variant, draws=args.draws, burn=args.burn,
-        chains=args.chains, L=args.L, segment=args.segment, thin=args.thin,
-        use_gram=args.use_gram, seed=args.seed, frozen_policy=args.frozen_policy,
-        step=args.step, stride=args.stride, fn_stride=args.fn_stride, adapt=args.adapt,
-        da_axis=args.da_axis, adapt_forever=args.adapt_forever,
-        target_accept=args.target_accept, max_step=args.max_step, jitter=args.jitter,
-        laplace_mass=args.laplace_mass, init_optimize=args.init_optimize,
-        clip_scale=args.clip_scale, algorithm=args.algorithm,
-        nuts_max_depth=args.nuts_max_depth)
+    summary, _ = run_stage3(**stage3_kwargs(args), use_gram=args.use_gram, seed=args.seed,
+                            step=args.step, algorithm=args.algorithm,
+                            nuts_max_depth=args.nuts_max_depth)
     print(json.dumps(summary))
 
 

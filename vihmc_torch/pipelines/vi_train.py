@@ -38,6 +38,7 @@ sensitivity on the validation functions with 100 trunk points each, chunks of
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -233,28 +234,48 @@ def run_operator(cfg: OperatorVIRunConfig = OperatorVIRunConfig(), seed: int = 0
 # ---------------------------------------------------------------------------
 
 def stage12_config(epochs: int = 400, p: int = 512, patience: int = 200,
-                   n_train: int = 1000, n_valid: int = 200) -> OperatorVIRunConfig:
-    """The VI configuration of ``run_operator_stage12.py`` (reference scale)."""
+                   n_train: int = 1000, n_valid: int = 200,
+                   model: Optional[DeepONetConfig] = None) -> OperatorVIRunConfig:
+    """The VI configuration of ``run_operator_stage12.py`` (reference scale
+    unless ``model`` says otherwise)."""
     return OperatorVIRunConfig(
-        model=DeepONetConfig(), n_train=n_train, n_valid=n_valid, batch_size=128, p=p,
+        model=DeepONetConfig() if model is None else model, n_train=n_train,
+        n_valid=n_valid, batch_size=128, p=p,
         vi=VIConfig(epochs=epochs, lr_start=1e-3, patience=patience, num_ens=3,
                     prior_sigma=0.1,
                     elbo=ELBOConfig(reduction="mean_x_n", fixed_noise_var=1.0)))
 
 
+#: the keys of the run store's ``stage12_summary.json``, the JAX script's
+#: (with its ``vi_path_compare``)
+STORE_SUMMARY_KEYS = ("valid_mse_first", "valid_mse_last", "valid_mse_best", "vi_seconds",
+                      "sensitivity_seconds", "num_sensitive", "subspace_frac")
+
+
 def run_stage12(device="cuda", epochs: int = 400, p: int = 512, patience: int = 200,
-                seed: int = 0, out: Optional[str] = None, progress=None) -> dict:
-    """Stage 1 and stage 2 at full scale; returns the summary, and with
-    ``out`` writes ``<out>/stage12/`` (the run store) and
-    ``<out>/burgers_stage12.npz`` with the keys of the committed asset."""
+                seed: int = 0, out: Optional[str] = None, progress=None,
+                model: Optional[DeepONetConfig] = None, data=None, meta: Optional[dict] = None,
+                assets: Optional[str] = None, vi_path_compare: Optional[dict] = None) -> dict:
+    """Stage 1 and stage 2; returns the summary, and with ``out`` writes
+    ``<out>/stage12/`` (the run store, with ``stage12_summary.json``, the
+    ``STORE_SUMMARY_KEYS`` of the summary and ``vi_path_compare``, and the
+    data's ``meta`` and the model as ``stage12_data.json``) and the bundle
+    with the keys of the committed asset at ``assets`` (default
+    ``<out>/burgers_stage12.npz``).
+
+    By default the reference DeepONet on the exported Burgers inputs (1000 +
+    200 functions, 101 x 101); ``model`` with ``data`` ``(train, valid)`` and
+    its ``meta`` (``data_seed``, ``n_train``, ``n_valid``, ``nx``, ``nt``)
+    run another size."""
     dev = resolve_device(device)
-    grid = load_port_inputs()
-    n_train, n_valid = int(grid["n_train"]), int(grid["n_valid"])
-    nx, nt = int(grid["nx"]), int(grid["nt"])
+    if meta is None:
+        grid = load_port_inputs()
+        meta = {"data_seed": 0, **{k: int(grid[k]) for k in ("n_train", "n_valid", "nx", "nt")}}
+    n_train, n_valid, nx, nt = (int(meta[k]) for k in ("n_train", "n_valid", "nx", "nt"))
     store = RunStore(out, uid="stage12") if out else None
-    cfg = stage12_config(epochs, p, patience, n_train, n_valid)
+    cfg = stage12_config(epochs, p, patience, n_train, n_valid, model)
     t0 = time.perf_counter()
-    data = get_burgers(dev, n_train, n_valid)
+    data = get_burgers(dev, n_train, n_valid) if data is None else data
     t_data = time.perf_counter() - t0
     epoch_walls = []
     t_last = [time.perf_counter()]
@@ -293,15 +314,21 @@ def run_stage12(device="cuda", epochs: int = 400, p: int = 512, patience: int = 
         "subspace_frac": sens["num_sensitive"] / len(sens["scores"]),
     }
     if out:
+        assets = os.path.join(out, "burgers_stage12.npz") if assets is None else assets
+        os.makedirs(os.path.dirname(os.path.abspath(assets)), exist_ok=True)
         np.savez_compressed(
-            os.path.join(out, "burgers_stage12.npz"),
+            assets,
             mu=np.asarray(sens["mu"], np.float32), sigma=np.asarray(sens["sigma"], np.float32),
             indices=np.asarray(sens["indices"], np.int32),
             scores=np.asarray(sens["scores"], np.float32),
-            data_seed=0, n_train=n_train, n_valid=n_valid, nx=nx, nt=nt,
+            data_seed=int(meta["data_seed"]), n_train=n_train, n_valid=n_valid, nx=nx, nt=nt,
             vi_epochs=epochs, vi_p=p, vi_valid_mse=np.asarray(m[:, 3], np.float32))
-        store.save_config(summary, name="stage12_summary")
-    return {"summary": summary, "vi": vi_out, "sensitivity": sens}
+        store.save_config({**{k: summary[k] for k in STORE_SUMMARY_KEYS},
+                           "vi_path_compare": vi_path_compare}, name="stage12_summary")
+        store.save_config({**meta, "model": dataclasses.asdict(cfg.model)},
+                          name="stage12_data")
+    return {"summary": summary, "vi": vi_out, "sensitivity": sens, "data": data,
+            "store": store, "assets": assets}
 
 
 def main(argv=None):
