@@ -9,12 +9,14 @@ Phases, each printed with its wall time:
    started together);
 2. ``paired_sums`` against its plain PyTorch version on the card, at a ragged
    shape, at the operator row's shape and at one chain of it (the unbatched
-   form, C = 1), on real features at q0 and at q1
+   form, C = 1, on the small kernel; also the small kernel at C = 3, B = 100
+   and at K = 13), on real features at q0 and at q1
    one leapfrog trajectory away, with a float64 evaluation as a third
-   reference (at the main shape the kernel's Delta ll error against float64
+   reference (at the main shapes the kernel's Delta ll error against float64
    may be at most twice the plain version's plus 1e-3 nats); the kernel's
    time beside both bounds (f32 FMA, and the split tensor-core one of six
-   bf16 products) and the plain version's;
+   bf16 products) and the plain version's; at C = 1 the small and the tiled
+   kernel timed in turns (small, tiled, tiled, small);
 3. the operator row at full width through ``bench_operator`` at the recipe
    ``python -m vihmc_torch.bench`` resolves for key 2 (reference
    DeepONet, B = 1000 x P = 10,201, 2048-dim subspace, 48 chains, L = 4,
@@ -30,7 +32,8 @@ Phases, each printed with its wall time:
    L = 31 trajectory from it, with a float64 evaluation; the ll of
    ``fused_merge_nll`` and its gradient against autograd of the plain f32
    ``merge_nll_reference`` (at the stage-3 shape the ll's error against
-   float64 may be at most twice the plain version's plus 1e-3 nats);
+   float64 may be at most twice the plain version's plus 1e-3 nats), and the
+   small kernel at C = 3, B = 100 and at K = 13;
    ``fused_leapfrog_update`` at (16, 81,131); each kernel's time beside its
    bounds and its plain version's;
 6. the stage-3 operator pipeline at full width through ``run_stage3``
@@ -71,8 +74,10 @@ Phases, each printed with its wall time:
 15. ``hmc_nuts`` at ``OperatorHMCRunConfig`` (full-parameter reference
     DeepONet, 10 training functions, L = 7, dual averaging per chain, the
     fused density): ``merge_sums`` held against its plain version at that
-    shape (B = 10), then 1 + 2 x draws launches, and every chain's step after
-    burn constant at ``exp(log_step_avg)``;
+    shape (B = 10, the small kernel, timed in turns with the tiled one), then
+    at the config's one chain and at 4: 1 + 2 x draws launches, all on the
+    small kernel, and every chain's step after burn constant at
+    ``exp(log_step_avg)``;
 16. ``hmc_split`` at ``SplitHMCRunConfig`` (1000 functions in 2 shards, L =
     2, composed autograd: no kernel launch), depth cut; at the config's step
     every proposal from the random start diverges (as in JAX), so one split
@@ -140,8 +145,11 @@ Phases, each printed with its wall time:
     ``paired_sums`` at C = 32 against its plain version and float64, timed
     beside its bounds; (c) ``--extras``' gradient of the full log posterior:
     ``merge_sums`` at C = 1 once per fused gradient, the fused gradient's
-    cosine with the composed one, both rates, and ``merge_sums`` at C = 1
-    against its plain version and float64, timed; (d) ``--coupled --stride 5
+    cosine with the composed one, both rates (every launch on the small
+    kernel), and ``merge_sums`` at C = 1 against its plain version and
+    float64; then both kernels timed in turns at C in {1, 2, 4, 8} x B in
+    {10, 1000}, beside both bounds: the wrapper's (C, B) rule must pick the
+    faster one (or one within 5 %) in every cell; (d) ``--coupled --stride 5
     --fn-stride 5``, ``--gauss-field``, ``--adaptive``, ``--no-gram``,
     ``--composed-delta`` and ``--no-paired-delta``, a few draws each, finite,
     ``paired_sums`` launched only where the delta is the fused one;
@@ -162,7 +170,8 @@ row's, with its CPU baseline (``vs_baseline``): both blocks present with 0 <
 ``mfu`` <= 1. Before each driven path (3, 6, 7, 8, 9, 10, 11, 12-29) every
 kernel count is set to 0, and it is read just after (stages 1 and 2,
 ``hmc_split``, ``hmc_full``, the NN paths of 18 and 21 and phases 25-26 run
-no kernel of the port). Every depth cut is printed. The second-to-last line is a JSON object describing every
+no kernel of the port; stage 3, the row and the 90 % row never take a
+small kernel). Every depth cut is printed. The second-to-last line is a JSON object describing every
 kernel; the last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result. It needs a CUDA
 device and the rest of the repository; it imports nothing of JAX.
@@ -212,7 +221,8 @@ from vihmc_torch.hmc.subspace import make_subspace_grad
 from vihmc_torch.models.deeponet import (DeepONetConfig, deeponet_features,
                                          unravel_deeponet)
 from vihmc_torch.ops import cuda_build
-from vihmc_torch.ops.deeponet_merge import (close_paired_sums, fused_merge_nll,
+from vihmc_torch.ops.deeponet_merge import (_merge_launch, _paired_launch, _sums_path,
+                                            close_paired_sums, fused_merge_nll,
                                             merge_nll_reference, merge_sums,
                                             merge_sums_reference, paired_sums,
                                             paired_sums_reference, y_sums)
@@ -307,24 +317,30 @@ NN_SCRIPT_EPOCHS, NN_SCRIPT_HMC_DRAWS = 300, 8      # (f)
 NN_SCRIPT_VIHMC_DRAWS, NN_SCRIPT_CONV_DRAWS = 20, 40
 
 KERNELS = {
+    # the tiled kernels (every launch is counted in `launches`; on the paths
+    # that hold them, none takes the small kernel)
     "paired_sums": {"route": "cuda", "source": "vihmc_torch/csrc/paired_sums.cu",
                     "replaces": "vihmc_tpu/ops/deeponet_merge.py:349"},
-    # the same kernel unbatched (C = 1), counted apart by its wrapper
-    "paired_sums_c1": {"route": "cuda", "source": "vihmc_torch/csrc/paired_sums.cu",
-                       "replaces": "vihmc_tpu/ops/deeponet_merge.py:304"},
+    # the small-problem kernel of the same source (C <= 2, or B < 128), counted
+    # apart by its wrapper
+    "paired_sums_small": {"route": "cuda", "source": "vihmc_torch/csrc/paired_sums.cu",
+                          "replaces": "vihmc_tpu/ops/deeponet_merge.py:304"},
     "merge_sums": {"route": "cuda", "source": "vihmc_torch/csrc/merge_sums.cu",
                    "replaces": "vihmc_tpu/ops/deeponet_merge.py:108"},
-    # the same kernel unbatched (C = 1), on --extras' fused gradient
-    "merge_sums_c1": {"route": "cuda", "source": "vihmc_torch/csrc/merge_sums.cu",
-                      "replaces": "vihmc_tpu/ops/deeponet_merge.py:72"},
+    # the small-problem kernel, on --extras' fused gradient (C = 1) and hmc_nuts (B = 10)
+    "merge_sums_small": {"route": "cuda", "source": "vihmc_torch/csrc/merge_sums.cu",
+                         "replaces": "vihmc_tpu/ops/deeponet_merge.py:72"},
     "leapfrog_update": {"route": "cuda", "source": "vihmc_torch/csrc/leapfrog_update.cu",
                         "replaces": "vihmc_tpu/ops/leapfrog.py:46"},
 }
-# (wrapper, attribute): each wrapper counts its launches, and those at C = 1 apart
+# (wrapper, attribute): each wrapper counts its launches, those at C = 1 and
+# those of the small kernel apart
 COUNTERS = {"paired_sums": (paired_sums, "launches"),
             "paired_sums_c1": (paired_sums, "launches_c1"),
+            "paired_sums_small": (paired_sums, "launches_small"),
             "merge_sums": (merge_sums, "launches"),
             "merge_sums_c1": (merge_sums, "launches_c1"),
+            "merge_sums_small": (merge_sums, "launches_small"),
             "leapfrog_update": (fused_leapfrog_update, "launches")}
 
 
@@ -554,6 +570,48 @@ def compare_merge(label, bout, tout, bias, y, tau=1.0, main=False):
     return err_p
 
 
+def paths_in_turns(label, launch, args, reps, bounds) -> dict:
+    """Device ms of the small and the tiled kernel on the same inputs, timed
+    in turns (small, tiled, tiled, small) through the wrapper's launch
+    ``launch(path, *args)``; prints both beside the f32-FMA and split
+    tensor-core bounds. Returns ``{'small': ms, 'tiled': ms}``, each the mean
+    of its two timings, and the spread of each."""
+    times = {"small": [], "tiled": []}
+    for path in ("small", "tiled", "tiled", "small"):
+        times[path].append(time_device(f"{label} {path}", lambda: launch(path, *args), reps))
+    f32_ms, by, tc_ms = bounds
+    ms = {k: sum(v) / 2 for k, v in times.items()}
+    print(f"  {label}: small {times['small'][0]:.4f}/{times['small'][1]:.4f} ms, tiled "
+          f"{times['tiled'][0]:.4f}/{times['tiled'][1]:.4f} ms (in turns, {reps} queued "
+          f"launches each); tiled/small {ms['tiled'] / ms['small']:.2f}x; bounds: f32 FMA "
+          f"{f32_ms:.4f} ms ({by}; small {100 * f32_ms / ms['small']:.1f} %, tiled "
+          f"{100 * f32_ms / ms['tiled']:.1f} %), split tensor core {tc_ms:.4f} ms (small "
+          f"{100 * tc_ms / ms['small']:.1f} %, tiled {100 * tc_ms / ms['tiled']:.1f} %)")
+    return dict(ms, spread={k: abs(v[0] - v[1]) for k, v in times.items()})
+
+
+def merge_paths_grid(bo, to, y, reps) -> dict:
+    """``merge_sums`` on both kernels at C in {1, 2, 4, 8} x B in {10, 1000}
+    (the B rows are the first of ``bo`` and ``y``; chains past the first are
+    the features moved by 1e-3 of a normal draw), P and K of ``to``, timed in
+    turns. The wrapper's (C, B) rule rests on this table."""
+    gen = torch.Generator(device=bo.device)
+    gen.manual_seed(21)
+    table = {}
+    for c in (1, 2, 4, 8):
+        boc = bo[:1] + 1e-3 * torch.randn((c, *bo.shape[1:]), generator=gen, device=bo.device)
+        toc = to[:1] + 1e-3 * torch.randn((c, *to.shape[1:]), generator=gen, device=bo.device)
+        boc[0], toc[0] = bo[0], to[0]
+        for b in (10, 1000):
+            args = (boc[:, :b].contiguous(), toc, y[:b].contiguous())
+            key = f"C={c} B={b}"
+            table[key] = paths_in_turns(f"merge_sums {key} P={to.shape[1]} K={to.shape[2]}",
+                                        _merge_launch, args, reps,
+                                        merge_sums_bound_ms(c, b, to.shape[1], to.shape[2]))
+            table[key]["rule"] = _sums_path(c, b)
+    return table
+
+
 def stage3_kernels(dev, train, arts, reps):
     """Phase 5: merge_sums, fused_merge_nll and the leapfrog kernel on the
     card against their plain versions; returns the kernel rows' numbers."""
@@ -589,6 +647,15 @@ def stage3_kernels(dev, train, arts, reps):
         if name == "VI mean":
             compare_merge("ragged C=3 B=130 P=301 K=12", bo[:3, :130, :12].contiguous(),
                           to[:3, :301, :12].contiguous(), b[:3], y[:130, :301].contiguous())
+            n_small = merge_sums.launches_small
+            compare_merge("small C=3 B=100 P=301 K=12", bo[:3, :100, :12].contiguous(),
+                          to[:3, :301, :12].contiguous(), b[:3], y[:100, :301].contiguous())
+            compare_merge("small C=1 B=130 P=301 K=13", bo[:1, :130, :13].contiguous(),
+                          to[:1, :301, :13].contiguous(), b[:1], y[:130, :301].contiguous())
+            # each compare_merge runs merge_sums twice (the sums, then fused_merge_nll)
+            check(merge_sums.launches_small == n_small + 4,
+                  f"merge_sums took the small kernel {merge_sums.launches_small - n_small} "
+                  f"of 4 times")
         err = max(err, compare_merge(f"{name} C={c} B={bo.shape[1]} P={to.shape[1]} "
                                      f"K={bo.shape[2]}", bo, to, b, y, main=True))
     # the gradient against autograd of the plain f32 reference, at q1
@@ -789,6 +856,13 @@ def spearman(x, y) -> float:
     rx[np.argsort(x, kind="stable")] = np.arange(len(x))
     ry[np.argsort(y, kind="stable")] = np.arange(len(y))
     return float(np.corrcoef(rx, ry)[0, 1])
+
+
+def expect_tiled_only(label: str, counts: dict):
+    """The paths at C >= 16 (stage 3, the row, the 90 % row) never take the
+    small kernels."""
+    check(counts["merge_sums_small"] == 0 and counts["paired_sums_small"] == 0,
+          f"{label}: small-kernel launches {counts}")
 
 
 def expect_no_launches(label: str):
@@ -1845,6 +1919,7 @@ def bench_row_phase(dev, reps: int) -> dict:
     check(counts["paired_sums"] == 3 * ROW_DRAWS + 1,
           f"(a) paired_sums {counts['paired_sums']} != 3 x {ROW_DRAWS} + 1")
     check(counts["merge_sums"] == 0 and counts["leapfrog_update"] == 0, f"(a) {counts}")
+    expect_tiled_only("(a) the row (C = 48)", counts)
     check_mfu("(a) bench row", ex)
     out["row_paired_sums"] = counts["paired_sums"]
     args = tbench.parse_args(a_argv)
@@ -1879,6 +1954,7 @@ def bench_row_phase(dev, reps: int) -> dict:
     check(d == 81131 and c == 32, f"(b) {d} dims, {c} chains")
     check(st["samples_finite"], "(b) non-finite samples")
     check(counts["paired_sums"] == NINETY_DRAWS + 1, f"(b) paired_sums {counts}")
+    expect_tiled_only("(b) the 90 % row (C = 32)", counts)
     check_mfu("(b) 90 % row", st)
     out["ninety_draws_per_s"] = st["draws_per_s"]
     # paired_sums at C = 32 on the 90 % problem, held like phase 2's C = 48
@@ -1950,9 +2026,9 @@ def bench_row_phase(dev, reps: int) -> dict:
           f"{json.dumps(rates)}; launches {counts}")
     check(counts["merge_sums"] == GRAD_ITERS + 1 and counts["paired_sums"] == 0,
           f"(c) merge_sums {counts} for {GRAD_ITERS} + 1 fused gradients")
-    check(counts["merge_sums_c1"] == counts["merge_sums"],
-          f"(c) the fused gradient runs merge_sums at C = 1: {counts}")
-    out["grad_merge_sums_c1"] = counts["merge_sums_c1"]
+    check(counts["merge_sums_c1"] == counts["merge_sums"] == counts["merge_sums_small"],
+          f"(c) the fused gradient runs merge_sums at C = 1 on the small kernel: {counts}")
+    out["grad_merge_sums_small"] = counts["merge_sums_small"]
     gc = log_posterior_grad(composed, flat0).double().flatten()
     gf = log_posterior_grad(fused, flat0).double().flatten()
     cos = torch.nn.functional.cosine_similarity(gf, gc, dim=0).item()
@@ -1967,15 +2043,27 @@ def bench_row_phase(dev, reps: int) -> dict:
     p1 = to.shape[1]
     err = compare_merge(f"--extras C={c1} B={b1} P={p1} K={k1}", bo, to, bias, prob.y,
                         main=True)
-    ms = time_device("merge_sums C=1", lambda: merge_sums(bo, to, prob.y), reps)
+    a_, b_ = merge_sums(bo, to, prob.y), merge_sums(bo, to, prob.y)
+    torch.cuda.synchronize()
+    check(torch.equal(a_, b_), "small merge_sums: two launches differ")
     plain_ms = time_device("merge_sums C=1 plain",
                            lambda: merge_sums_reference(bo, to, prob.y), SPLIT_REPS, warmup=1)
     bound_ms, bound_by, tc_ms = merge_sums_bound_ms(c1, b1, p1, k1)
-    print(f"  merge_sums at C={c1} B={b1} P={p1} K={k1}: kernel {ms:.3f} ms (mean of {reps} "
-          f"queued launches); {bound_line(ms, bound_ms, tc_ms)}; plain {plain_ms:.3f} ms, "
-          f"library_ms n/a (no single PyTorch call computes S1 and S2)")
-    out["merge_sums_c1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by, bound_tc_ms=tc_ms)
+    # both kernels over C in {1, 2, 4, 8} x B in {10, 1000}, in turns
+    grid = merge_paths_grid(bo, to, prob.y, reps)
+    t1 = grid[f"C=1 B={b1}"]
+    print(f"  merge_sums small at C={c1} B={b1} P={p1} K={k1}: {t1['small']:.4f} ms; "
+          f"{bound_line(t1['small'], bound_ms, tc_ms)}; plain {plain_ms:.3f} ms, library_ms "
+          f"n/a (no single PyTorch call computes S1 and S2)")
+    print("  (C, B) grid, ms (small, tiled; the wrapper's rule): " + json.dumps(
+        {k_: [round(v["small"], 4), round(v["tiled"], 4), v["rule"]] for k_, v in grid.items()}))
+    for k_, v in grid.items():
+        faster = "small" if v["small"] < v["tiled"] else "tiled"
+        check(v["rule"] == faster or abs(v["small"] - v["tiled"]) <= 0.05 * v["tiled"],
+              f"(C, B) rule picks {v['rule']} at {k_}, where {faster} is faster: {v}")
+    out["merge_sums_small"] = dict(max_abs_err=err, ms=t1["small"], plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by, bound_tc_ms=tc_ms,
+                                   tiled_ms=t1["tiled"])
     del prob, composed, fused, flat0, bo, to, gc, gf
     torch.cuda.empty_cache()
 
@@ -2242,18 +2330,35 @@ def main(argv=None) -> int:
     kernel_rows = {"paired_sums": dict(max_abs_err=err_main, ms=ms, plain_ms=plain_ms,
                                        bound_ms=bound_ms, bound_by=bound_by,
                                        bound_tc_ms=tc_ms)}
-    # the unbatched form (_paired_sums_pallas): the same kernel at C = 1
+    # the unbatched form (_paired_sums_pallas): the small kernel at C = 1, at
+    # small B (C = 3), and with K % 4 != 0 (4-byte loads)
+    n_small = paired_sums.launches_small
     feats1 = [t[:1].contiguous() for t in feats]
-    err_c1 = compare_paired(f"C=1 B={b} P={p} K={k}", feats1, (biases[0][:1], biases[1][:1]),
-                            y, main=True)
-    ms1 = time_device("paired_sums C=1", lambda: paired_sums(*feats1, y), args.timing_reps)
+    err_c1 = compare_paired(f"small C=1 B={b} P={p} K={k}", feats1,
+                            (biases[0][:1], biases[1][:1]), y, main=True)
+    compare_paired("small C=3 B=100 P=301 K=12", [t[:3, :n, :12].contiguous() for t, n in
+                                                  ((bout1, 100), (tout1, 301), (bout0, 100),
+                                                   (tout0, 301))],
+                   (biases[0][:3], biases[1][:3]), y[:100, :301].contiguous())
+    compare_paired("small C=1 B=130 P=301 K=13", [t[:1, :n, :13].contiguous() for t, n in
+                                                  ((bout1, 130), (tout1, 301), (bout0, 130),
+                                                   (tout0, 301))],
+                   (biases[0][:1], biases[1][:1]), y[:130, :301].contiguous())
+    check(paired_sums.launches_small == n_small + 3,
+          f"paired_sums took the small kernel {paired_sums.launches_small - n_small} of 3 times")
+    a_, b_ = paired_sums(*feats1, y), paired_sums(*feats1, y)
+    torch.cuda.synchronize()
+    check(torch.equal(a_, b_), "small paired_sums: two launches differ")
+    t1 = paths_in_turns(f"paired_sums C=1 B={b} P={p} K={k}", _paired_launch, (*feats1, y),
+                        args.timing_reps, paired_sums_bound_ms(1, b, p, k))
     plain1 = time_device("paired_sums C=1 plain", lambda: paired_sums_reference(*feats1, y), 2,
                          warmup=1)
     b1_ms, b1_by, tc1_ms = paired_sums_bound_ms(1, b, p, k)
-    print(f"  paired_sums at C=1: kernel {ms1:.3f} ms; {bound_line(ms1, b1_ms, tc1_ms)}; plain "
+    print(f"  paired_sums small at C=1: {bound_line(t1['small'], b1_ms, tc1_ms)}; plain "
           f"{plain1:.3f} ms")
-    kernel_rows["paired_sums_c1"] = dict(max_abs_err=err_c1, ms=ms1, plain_ms=plain1,
-                                         bound_ms=b1_ms, bound_by=b1_by, bound_tc_ms=tc1_ms)
+    kernel_rows["paired_sums_small"] = dict(max_abs_err=err_c1, ms=t1["small"], plain_ms=plain1,
+                                            bound_ms=b1_ms, bound_by=b1_by, bound_tc_ms=tc1_ms,
+                                            tiled_ms=t1["tiled"])
     del feats, feats1, ragged, bout1, tout1, bout0, tout0
     phase("2 paired_sums vs plain", t0)
 
@@ -2279,6 +2384,7 @@ def main(argv=None) -> int:
           f"+ the FLOP count's transition")
     check(row_counts["merge_sums"] == 0 and row_counts["leapfrog_update"] == 0,
           f"unexpected launches in the row: {row_counts}")
+    expect_tiled_only("operator row (C = 48)", row_counts)
     acc = stats["acceptance"]
     steps = stats["step_quartiles"]
     check(math.isfinite(acc) and acc > 0.0, f"acceptance {acc}")
@@ -2342,6 +2448,7 @@ def main(argv=None) -> int:
     # 1 density at init, then lp0 (recomputed) and lp1 per draw
     summary, out, s3_counts = run_stage3_path("stage 3", dev, data, arts,
                                               1 + 2 * s3["draws"], **s3)
+    expect_tiled_only("stage 3 (C = 16)", s3_counts)
     n_lf = s3["L"]
     q, aux = out["result"].final_state.position, out["frozen"]
     grad_ms = time_device("stage-3 Gram field", lambda: out["grad_fn"](q, aux), SPLIT_REPS)
@@ -2506,20 +2613,29 @@ def main(argv=None) -> int:
                                    n_train["branch_in"], n_train["trunk_in"])
     bo, to = bo.contiguous(), to.contiguous()
     y_n = n_train["solution"]
+    # at B = 10 the small kernel (row 4's B = 10 line), held and timed against the tiled one
+    n_small = merge_sums.launches_small
     compare_merge(f"hmc_nuts shape C={args.nuts_chains} B={bo.shape[1]} P={to.shape[1]} "
-                  f"K={bo.shape[2]}", bo, to, flat_n[:, 0].contiguous(), y_n, ncfg.tau_out)
-    n_ms = time_device("merge_sums at B=10", lambda: merge_sums(bo, to, y_n), args.timing_reps)
+                  f"K={bo.shape[2]}", bo, to, flat_n[:, 0].contiguous(), y_n, ncfg.tau_out,
+                  main=True)
+    check(merge_sums.launches_small == n_small + 2, "hmc_nuts shape: not the small kernel")
+    n_t = paths_in_turns(f"merge_sums C={bo.shape[0]} B={bo.shape[1]} P={to.shape[1]} "
+                         f"K={bo.shape[2]}", _merge_launch, (bo, to, y_n), args.timing_reps,
+                         merge_sums_bound_ms(*bo.shape[:2], to.shape[1], bo.shape[2]))
     n_plain = time_device("merge_sums plain at B=10", lambda: merge_sums_reference(bo, to, y_n),
                           SPLIT_REPS, warmup=1)
-    n_bound, n_by, n_tc = merge_sums_bound_ms(*bo.shape[:2], to.shape[1], bo.shape[2])
-    print(f"  merge_sums at C={bo.shape[0]} B={bo.shape[1]} P={to.shape[1]} K={bo.shape[2]}: "
-          f"kernel {n_ms:.4f} ms; {bound_line(n_ms, n_bound, n_tc)} ({n_by}); plain "
-          f"{n_plain:.4f} ms")
+    print(f"  merge_sums plain at C={bo.shape[0]} B={bo.shape[1]}: {n_plain:.4f} ms")
     del bo, to
-    reset_counts()
-    n_out = hmc_nuts.run(ncfg, data=(n_train, n_valid), num_chains=args.nuts_chains,
-                         use_fused=True, seed=0, device=dev)
-    baseline_checks("hmc_nuts", n_out, read_counts(), 1 + 2 * ncfg.num_samples)
+    # the config's one chain, then phase 15's chains: every density on the small kernel
+    for chains in dict.fromkeys((1, args.nuts_chains)):
+        reset_counts()
+        n_out = hmc_nuts.run(ncfg, data=(n_train, n_valid), num_chains=chains,
+                             use_fused=True, seed=0, device=dev)
+        n_counts = read_counts()
+        baseline_checks(f"hmc_nuts ({chains} chains)", n_out, n_counts,
+                        1 + 2 * ncfg.num_samples)
+        check(n_counts["merge_sums_small"] == n_counts["merge_sums"],
+              f"hmc_nuts ({chains} chains): merge_sums off the small kernel {n_counts}")
     res = n_out["result"]
     post = res.step_sizes[:, ncfg.burn:]
     frozen_step = torch.exp(res.final_state.da.log_step_avg).cpu().numpy()
@@ -2639,7 +2755,7 @@ def main(argv=None) -> int:
     # ---- phase 28: bench.py's row through python -m vihmc_torch.bench ----
     t0 = time.perf_counter()
     row28 = bench_row_phase(dev, args.timing_reps)
-    kernel_rows["merge_sums_c1"] = row28["merge_sums_c1"]
+    kernel_rows["merge_sums_small"] = row28["merge_sums_small"]
     phase("28 bench.py row", t0)
 
     # ---- phase 29: the result scripts ----
@@ -2650,14 +2766,14 @@ def main(argv=None) -> int:
     phase("29 result scripts", t0)
 
     launches = {"paired_sums": row_counts["paired_sums"],
-                "paired_sums_c1": row_counts["paired_sums_c1"],
+                "paired_sums_small": row_counts["paired_sums_small"],
                 "merge_sums": s3_counts["merge_sums"],
                 "leapfrog_update": s3_counts["leapfrog_update"],
-                "merge_sums_c1": row28["grad_merge_sums_c1"]}
-    print("  launches per kernel on its main path: paired_sums and paired_sums at C = 1 in "
-          "the operator row (phase 3), merge_sums and leapfrog_update in stage 3 (phase 4), "
-          "merge_sums at C = 1 in --extras' fused gradient (phase 28 (c)); each counted by "
-          "its wrapper where it launches: " + json.dumps(launches))
+                "merge_sums_small": row28["grad_merge_sums_small"]}
+    print("  launches per kernel on its main path: paired_sums and its small kernel in "
+          "the operator row (phase 3), merge_sums and leapfrog_update in stage 3 (phase 6), "
+          "merge_sums' small kernel in --extras' fused gradient (phase 28 (c)); each counted "
+          "by its wrapper where it launches: " + json.dumps(launches))
     print(f"  merge_sums in the stage-3 script (phase 29 (b)): "
           f"{scripts['stage3_merge_sums']} launches")
     print(f"  paired_sums on bench.py's row (phase 28): {row28['row_paired_sums']} launches in "

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from vihmc_torch.ops.deeponet_merge import (close_paired_sums, fused_merge_nll,
+from vihmc_torch.ops.deeponet_merge import (_merge_launch, _paired_launch, _sums_path,
+                                            close_paired_sums, fused_merge_nll,
                                             fused_paired_delta, merge_nll_reference,
                                             merge_sums, merge_sums_reference,
                                             paired_sums, paired_sums_reference,
@@ -587,3 +588,110 @@ def test_kernel_flops_counted_with_the_launches(cuda_device):
     assert flops == 4 * c * b * p * k + 2 * 5 * 7 * 5
     flops, _ = count_flops(lambda: merge_sums(feats[0], feats[1], feats[4]))
     assert flops == 2 * c * b * p * k
+
+
+# The small-problem kernels (one chain and 64 P rows x 16-64 B rows per
+# block, one launch): ragged B, P and K, K % 4 != 0 (4-byte loads), several
+# chains, more chains than the wrapper's first counter buffer (64), and B past
+# one 64-row tile.
+SMALL_SHAPES = [(1, 1000, 1021, 100), (3, 10, 515, 100), (2, 63, 301, 13), (1, 130, 129, 33),
+                (4, 1, 1, 1), (1, 17, 64, 7), (2, 127, 700, 200), (65, 10, 130, 16)]
+
+
+@pytest.mark.parametrize("c,b,p,k", SMALL_SHAPES)
+def test_small_merge_kernel_matches_plain_and_float64(cuda_device, c, b, p, k):
+    """Each sum within 1e-5 of its terms' magnitudes of float64 and of the
+    plain version (as the tiled kernel's test); two launches bit for bit
+    equal; each launch counted in ``launches`` and ``launches_small``."""
+    feats = _merge_features(31, c, b, p, k, cuda_device)
+    n, n_small = merge_sums.launches, merge_sums.launches_small
+    got = _merge_launch("small", *feats)
+    again = _merge_launch("small", *feats)
+    torch.cuda.synchronize()
+    assert merge_sums.launches == n + 2 and merge_sums.launches_small == n_small + 2
+    assert torch.equal(got, again)
+    want, mag = _merge_sums_f64(*feats)
+    for ref in (want, merge_sums_reference(*feats)):
+        err = ((got - ref).abs() / mag.clamp(min=1e-30)).max().item()
+        assert err < 1e-5, err
+
+
+@pytest.mark.parametrize("c,b,p,k", SMALL_SHAPES)
+def test_small_paired_kernel_matches_float64(cuda_device, c, b, p, k):
+    """The five sums within 1e-5 of their terms' operand magnitudes of
+    float64 (as the tiled kernel's test), two launches bit for bit equal, and
+    D = Bd = 0 exactly at q1 = q0."""
+    feats = _features(32, c, b, p, k, cuda_device)
+    n_small = paired_sums.launches_small
+    got = _paired_launch("small", *feats)
+    again = _paired_launch("small", *feats)
+    same = _paired_launch("small", feats[0], feats[1], feats[0].clone(), feats[1].clone(),
+                          feats[4])
+    torch.cuda.synchronize()
+    assert paired_sums.launches_small == n_small + 3
+    assert torch.equal(got, again)
+    assert bool((same[:, :2] == 0).all()), same[:, :2]
+    want, mag = _sums_f64(*feats)
+    err = ((got.double() - want).abs() / mag.clamp(min=1e-30)).max().item()
+    assert err < 1e-5, err
+
+
+def test_wrappers_take_the_small_kernels_by_the_rule(cuda_device):
+    """``merge_sums`` and ``paired_sums`` launch the small kernel where
+    ``_sums_path`` says so (C <= 2, or B < 128) and the tiled one elsewhere,
+    and both give the same sums within 1e-5 of the terms' magnitudes."""
+    for c, b in [(1, 1000), (2, 200), (4, 10), (3, 127), (3, 130), (16, 128)]:
+        feats = _features(33, c, b, 70, 20, cuda_device)
+        small = _sums_path(c, b) == "small"
+        n_m, n_p = merge_sums.launches_small, paired_sums.launches_small
+        got_m = merge_sums(feats[0], feats[1], feats[4])
+        got_p = paired_sums(*feats)
+        assert merge_sums.launches_small - n_m == int(small)
+        assert paired_sums.launches_small - n_p == int(small)
+        other = "tiled" if small else "small"
+        alt_m = _merge_launch(other, feats[0], feats[1], feats[4])
+        alt_p = _paired_launch(other, *feats)
+        torch.cuda.synchronize()
+        _, mag_m = _merge_sums_f64(feats[0], feats[1], feats[4])
+        _, mag_p = _sums_f64(*feats)
+        assert ((got_m - alt_m).abs() / mag_m).max().item() < 1e-5
+        assert ((got_p.double() - alt_p.double()).abs() / mag_p).max().item() < 1e-5
+    assert _sums_path(3, 130) == "tiled" and _sums_path(2, 1000) == "small"
+
+
+def test_small_kernels_at_reference_scale(cuda_device):
+    """|m| ~ 10 over a y of the data's scale at one chain of the operator
+    shape's B: merge sums within 1e-7 of their terms' magnitudes of float64
+    (the stage-3 check), the paired Delta ll's error against float64 at most
+    twice the plain version's plus 1e-3 nats, and 4-byte-offset features
+    give the aligned features' sums bit for bit."""
+    c, b, p, k = 1, 1000, 1021, 100
+    rng = np.random.default_rng(34)
+    bout0 = rng.normal(scale=0.7, size=(c, b, k)).astype(np.float32)
+    tout0 = rng.normal(scale=0.7, size=(c, p, k)).astype(np.float32)
+    bout1 = (bout0 + 1e-3 * rng.normal(size=bout0.shape)).astype(np.float32)
+    tout1 = (tout0 + 1e-3 * rng.normal(size=tout0.shape)).astype(np.float32)
+    y = rng.normal(scale=1.3, size=(b, p)).astype(np.float32)
+    feats = [torch.as_tensor(a, device=cuda_device) for a in (bout1, tout1, bout0, tout0, y)]
+    views = []
+    for t in feats[:4]:
+        buf = torch.empty(t.numel() + 1, device=cuda_device)
+        buf[1:] = t.flatten()
+        views.append(buf[1:].view(t.shape))
+    got_m = _merge_launch("small", feats[0], feats[1], feats[4])
+    got_mu = _merge_launch("small", views[0], views[1], feats[4])
+    got_p = _paired_launch("small", *feats)
+    got_pu = _paired_launch("small", *views, feats[4])
+    torch.cuda.synchronize()
+    assert torch.equal(got_m, got_mu) and torch.equal(got_p, got_pu)
+    want_m, mag_m = _merge_sums_f64(feats[0], feats[1], feats[4])
+    assert ((got_m - want_m).abs() / mag_m).max().item() < 1e-7
+    want_p, _ = _sums_f64(*feats)
+    bias = torch.zeros(c, device=cuda_device)
+    sy = y_sums(feats[4])
+    d_k, _ = close_paired_sums(got_p, bias, bias, b * p, 1.0, *sy)
+    d_p, _ = close_paired_sums(paired_sums_reference(*feats), bias, bias, b * p, 1.0, *sy)
+    d_64, _ = close_paired_sums(want_p, bias, bias, b * p, 1.0, *sy)
+    err_k = (d_k.double() - d_64.double()).abs().max().item()
+    err_p = (d_p.double() - d_64.double()).abs().max().item()
+    assert err_k <= 2 * err_p + 1e-3, (err_k, err_p)

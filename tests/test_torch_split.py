@@ -69,14 +69,17 @@ def _unbias(t: torch.Tensor) -> torch.Tensor:
     return (bits + (bits & 1)).view(torch.float32)
 
 
-def split_product(a, b, split, rounding, fresh_chunks=True, unbias=True) -> torch.Tensor:
+def split_product(a, b, split, rounding, fresh_chunks=True, unbias=True,
+                  order=None) -> torch.Tensor:
     """``a @ b.T`` as the kernel forms it: per K chunk, every part product of
     the chunk (exact in float64: part products are short) is added to the
     chunk's accumulator, which rounds to f32 after each; the chunk's sum,
     with ``unbias`` given one unit in its last place when that place is odd,
     is then added to the running f32 sum to nearest. ``fresh_chunks=False``
-    chains every part product into one accumulator instead."""
-    order, kc = SPLITS[split]
+    chains every part product into one accumulator instead; ``order`` (pairs
+    of a part and b part) replaces the split's order of part products."""
+    default, kc = SPLITS[split]
+    order = default if order is None else order
     parts = bf16_parts if split == "bf16x3" else tf32_parts
     pa = [p.double() for p in parts(a)]
     pb = [p.double() for p in parts(b)]
@@ -178,3 +181,18 @@ def test_odd_place_unit_removes_the_chunk_drift():
     drift = [((split_product(a, b, "bf16x3", "toward_zero", unbias=u).double() - ref) / ref)
              .mean().item() for u in (False, True)]
     assert drift[0] < 0 and abs(drift[1]) * 4 < abs(drift[0]), drift
+
+
+@pytest.mark.parametrize("rounding", list(ROUNDINGS))
+@pytest.mark.parametrize("source", ["normal", "deeponet"])
+def test_swapped_roles_form_each_product_alike(source, rounding):
+    """The small kernels put tout on wgmma's A side and bout on its B side
+    and run the six part products in the mirror order (tout part j times
+    bout part i where the tiled kernels run bout part i times tout part j):
+    modelled, every product comes out bit for bit as the tiled order forms
+    it."""
+    bout, tout = _inputs(source)
+    mirrored = [(j, i) for i, j in SPLITS["bf16x3"][0]]
+    tiled = split_product(bout, tout, "bf16x3", rounding)
+    small = split_product(tout, bout, "bf16x3", rounding, order=mirrored).T
+    assert torch.equal(small, tiled)

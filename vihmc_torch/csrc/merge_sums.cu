@@ -53,6 +53,38 @@
 // each chain's slots in a FIXED order (no atomics), so two launches on the same
 // inputs agree bit for bit and no MH decision depends on the block schedule.
 
+// The small-problem kernel (merge_small, the wrapper's path at C <= 2 and at
+// B < 128; its design is in split_mma.cuh, namespace small) replaces the
+// unbatched `_merge_sums_pallas` (vihmc_tpu/ops/deeponet_merge.py:72) and
+// the batched one at B < 128. Its bounds on an H100 SXM at 700 W:
+//   - C = 1, B = 1000 (--extras' fused gradient), P = 10201, K = 100:
+//     2.081e9 flop, 0.031 ms at the f32-FMA peak; six bf16 part products
+//     0.0124 ms at the bf16 peak, below the 45 MB of inputs at 3.35 TB/s,
+//     0.0135 ms: the split tensor-core bound is the byte bound;
+//   - C = 1, B = 10 (hmc_nuts, num_chains=1): 2.08e7 flop (0.0003 ms) against
+//     4.5 MB of inputs, 0.0013 ms: bytes, and a launch's own latency, bound it.
+// What it does about the tiled path's limits at these shapes:
+//   - 640 blocks of one 169 KB block per SM ran about 4.85 bare waves at
+//     C = 1: here 2560 blocks of 128 threads and 30 KB (12 KB of part tiles,
+//     16 KB of y), five on each SM, whose loads, splits and epilogues overlap
+//     each other's products;
+//   - 118 of 128 rows were zeros at B = 10: here P is wgmma's M side and B
+//     pads only to 16, so the ceil(P / 64) = 160 blocks all do useful rows;
+//   - the staged y tile and its up-front load: each thread's y cells are
+//     copied once, asynchronously, while the block multiplies;
+//   - the fixed-order reduction's second launch (one 256-thread block at
+//     C = 1): the last block of each chain adds the chain's slots itself, in
+//     a fixed order.
+// What holds it back (found on an NVIDIA H100 80GB HBM3 at 700 W): each
+// block runs its 7 chunks as a chain of dependent steps (load, split,
+// barrier, six wgmmas, wait, fold), so instruction dispatch and latency
+// bound it more than the tensor cores or bytes do; each bout row is split
+// again by all 160 blocks of its B tile, each tout row by the 16 B tiles.
+// Loading two chunks ahead, or splitting chunk c + 1 while chunk c's batch ran, took more
+// registers and so fewer blocks per SM, and was slower; so was a pre-pass
+// that split bout once per call into an image the blocks copied (its launch
+// cost more than the per-block split it saved).
+
 #include "split_mma.cuh"
 
 namespace {
@@ -139,6 +171,51 @@ cudaError_t launch_tiles(const TmaMaps<2>& maps, const float* bout, const float*
   return cudaGetLastError();
 }
 
+// The small path: one chain and 64 P rows x NB B rows per block (split_mma.cuh).
+// At NB = 64 its registers are capped so that 5 blocks share an SM: the
+// card measured this faster than leaving the compiler its registers
+// (more blocks hide more of each block's load and wgmma latency).
+constexpr int SMALL_BLOCKS_PER_SM = 5;
+template <int NB>
+__global__ void __launch_bounds__(small::THREADS, NB == 64 ? SMALL_BLOCKS_PER_SM : 1)
+merge_small(const float* __restrict__ bout, const float* __restrict__ tout,
+            const float* __restrict__ y, double* __restrict__ slots,
+            unsigned* __restrict__ tickets, double* __restrict__ out, int B, int P, int K,
+            int vec) {
+  extern __shared__ __align__(16) char smem[];
+  const int c = blockIdx.z, p0 = blockIdx.x * small::MP, b0 = blockIdx.y * NB;
+  const int nblk = gridDim.x * gridDim.y, blk = blockIdx.y * gridDim.x + blockIdx.x;
+  const float* const fb[1] = {bout + ((size_t)c * B + b0) * K};
+  const float* const fp[1] = {tout + ((size_t)c * P + p0) * K};
+  float acc[1][NB / 2];
+  float* ys = reinterpret_cast<float*>(smem + small::parts_bytes(1, NB));
+  small::prefetch_y<NB>(ys, y + (size_t)b0 * P + p0, P, B - b0, P - p0, threadIdx.x);
+  small::products<1, NB>(smem, fb, fp, B - b0, P - p0, K, vec != 0, acc);
+  small::wait_y();
+  double s[NSUM] = {0.0, 0.0};
+#pragma unroll
+  for (int i = 0; i < NB / 2; ++i) {
+    const float x = acc[0][i], yv = ys[i * small::THREADS + threadIdx.x];
+    s[0] += (double)(x * (x - 2.f * yv));
+    s[1] += (double)x;
+  }
+  small::fold<NSUM>(s, slots + (size_t)c * nblk * NSUM, tickets + c, out + (size_t)c * NSUM,
+                    blk, nblk);
+}
+
+template <int NB>
+cudaError_t launch_small(const float* bout, const float* tout, const float* y, double* slots,
+                         unsigned* tickets, double* out, int C, int B, int P, int K, int vec,
+                         cudaStream_t st) {
+  const int bytes = small::smem_bytes(1, NB);
+  cudaError_t err = cudaFuncSetAttribute(merge_small<NB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  merge_small<NB><<<small::grid(C, B, P), small::THREADS, bytes, st>>>(
+      bout, tout, y, slots, tickets, out, B, P, K, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -164,6 +241,23 @@ int vihmc_merge_sums(const float* bout, const float* tout, const float* y,
   if (err != cudaSuccess) return (int)err;
   reduce_partials<<<C, REDUCE_THREADS, 0, st>>>(partials, out, num_tiles(B, P) * WARPS);
   return (int)cudaGetLastError();
+}
+
+// The small path in one launch; returns a CUDA error code (0 = ok). Inputs
+// as vihmc_merge_sums; slots (C, nblk, 2) f64 scratch, where nblk must be the
+// kernel's blocks per chain (the wrapper's count, checked here); tickets (C)
+// u32 counters that are 0 before the launch and are left at 0; out (C, 2).
+int vihmc_merge_sums_small(const float* bout, const float* tout, const float* y,
+                           double* slots, unsigned* tickets, double* out, int C, int B, int P,
+                           int K, int nblk, void* stream) {
+  if (nblk != small::blocks(B, P)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vec = K % 4 == 0 && aligned16(bout) && aligned16(tout);
+  switch (small::tile_n(B)) {
+    case 16: return (int)launch_small<16>(bout, tout, y, slots, tickets, out, C, B, P, K, vec, st);
+    case 32: return (int)launch_small<32>(bout, tout, y, slots, tickets, out, C, B, P, K, vec, st);
+    default: return (int)launch_small<64>(bout, tout, y, slots, tickets, out, C, B, P, K, vec, st);
+  }
 }
 
 }  // extern "C"

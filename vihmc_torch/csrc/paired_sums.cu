@@ -55,6 +55,26 @@
 // scratch array, and a second kernel adds each chain's slots in a FIXED order
 // in f64 (no atomics), so two launches agree bit for bit.
 
+// The small-problem kernel (paired_small, the wrapper's path at C <= 2 and at
+// B < 128; its design is in split_mma.cuh, namespace small) replaces the
+// unbatched `_paired_sums_pallas` (vihmc_tpu/ops/deeponet_merge.py:304).
+// Its bounds on an H100 SXM at 700 W:
+//   - C = 1, B = 1000, P = 10201, K = 100: 4.203e9 flop with the epilogue,
+//     0.063 ms at the f32-FMA peak; twelve bf16 part products 0.0248 ms at
+//     the bf16 peak (the 50 MB of inputs take 0.0149 ms at 3.35 TB/s);
+//   - C = 1, B = 10: 4.2e7 flop (0.0006 ms) against 8.6 MB of inputs,
+//     0.0026 ms: bytes, and a launch's own latency, bound it.
+// What it does about the tiled path's limits at these shapes: 2560 blocks of
+// 128 threads and 45 KB instead of 640 blocks of 209 KB, three on each SM
+// (its registers capped so), so one block's loads, splits and epilogue
+// overlap another's products; P on wgmma's M side, so at small B the
+// padding is at most 15 rows of 16, not 118 of 128; y copied once,
+// asynchronously, while the block multiplies; no second launch: the last
+// block of each chain adds the chain's slots in a fixed order. The sums per
+// thread stay f32 (32 cells each, not 64) and the slots are added in f64.
+// What holds it back: as merge_small (merge_sums.cu), with two products in
+// each chunk's chain and 162 registers a thread, so three blocks an SM.
+
 #include "split_mma.cuh"
 
 namespace {
@@ -148,6 +168,60 @@ cudaError_t launch_tiles(const TmaMaps<4>& maps, const float* bout1, const float
   return cudaGetLastError();
 }
 
+// The small path: one chain and 64 P rows x NB B rows per block (split_mma.cuh).
+// At NB = 64 its registers are capped so that 3 blocks share an SM: the
+// card measured this faster than leaving the compiler its registers
+// (more blocks hide more of each block's load and wgmma latency).
+constexpr int SMALL_BLOCKS_PER_SM = 3;
+template <int NB>
+__global__ void __launch_bounds__(small::THREADS, NB == 64 ? SMALL_BLOCKS_PER_SM : 1)
+paired_small(const float* __restrict__ bout1, const float* __restrict__ tout1,
+             const float* __restrict__ bout0, const float* __restrict__ tout0,
+             const float* __restrict__ y, double* __restrict__ slots,
+             unsigned* __restrict__ tickets, float* __restrict__ out, int B, int P, int K,
+             int vec) {
+  extern __shared__ __align__(16) char smem[];
+  const int c = blockIdx.z, p0 = blockIdx.x * small::MP, b0 = blockIdx.y * NB;
+  const int nblk = gridDim.x * gridDim.y, blk = blockIdx.y * gridDim.x + blockIdx.x;
+  const size_t ob = ((size_t)c * B + b0) * K, op = ((size_t)c * P + p0) * K;
+  const float* const fb[2] = {bout1 + ob, bout0 + ob};  // product 0 is m1, product 1 is m0
+  const float* const fp[2] = {tout1 + op, tout0 + op};
+  float acc[2][NB / 2];
+  float* ys = reinterpret_cast<float*>(smem + small::parts_bytes(2, NB));
+  small::prefetch_y<NB>(ys, y + (size_t)b0 * P + p0, P, B - b0, P - p0, threadIdx.x);
+  small::products<2, NB>(smem, fb, fp, B - b0, P - p0, K, vec != 0, acc);
+  small::wait_y();
+  float s[NSUM] = {0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < NB / 2; ++i) {
+    const float x1 = acc[0][i];
+    const float x0 = acc[1][i];
+    const float dm = x1 - x0;
+    const float sm = x1 + x0;
+    const float yv = ys[i * small::THREADS + threadIdx.x];
+    s[0] += dm * (sm - 2.f * yv);
+    s[1] += dm;
+    s[2] += sm;
+    s[3] += x1 * x1;
+    s[4] += x1 * yv;
+  }
+  small::fold<NSUM>(s, slots + (size_t)c * nblk * NSUM, tickets + c, out + (size_t)c * NSUM,
+                    blk, nblk);
+}
+
+template <int NB>
+cudaError_t launch_small(const float* bout1, const float* tout1, const float* bout0,
+                         const float* tout0, const float* y, double* slots, unsigned* tickets,
+                         float* out, int C, int B, int P, int K, int vec, cudaStream_t st) {
+  const int bytes = small::smem_bytes(2, NB);
+  cudaError_t err = cudaFuncSetAttribute(paired_small<NB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  paired_small<NB><<<small::grid(C, B, P), small::THREADS, bytes, st>>>(
+      bout1, tout1, bout0, tout0, y, slots, tickets, out, B, P, K, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -177,6 +251,31 @@ int vihmc_paired_sums(const float* bout1, const float* tout1,
   if (err != cudaSuccess) return (int)err;
   reduce_partials<<<C, REDUCE_THREADS, 0, st>>>(partials, out, num_tiles(B, P) * WARPS);
   return (int)cudaGetLastError();
+}
+
+// The small path in one launch; returns a CUDA error code (0 = ok). Inputs
+// as vihmc_paired_sums; slots (C, nblk, 5) f64 scratch, where nblk must be
+// the kernel's blocks per chain (the wrapper's count, checked here); tickets
+// (C) u32 counters that are 0 before the launch and are left at 0; out (C, 5).
+int vihmc_paired_sums_small(const float* bout1, const float* tout1, const float* bout0,
+                            const float* tout0, const float* y, double* slots,
+                            unsigned* tickets, float* out, int C, int B, int P, int K, int nblk,
+                            void* stream) {
+  if (nblk != small::blocks(B, P)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vec = K % 4 == 0 && aligned16(bout1) && aligned16(tout1) && aligned16(bout0) &&
+                  aligned16(tout0);
+  switch (small::tile_n(B)) {
+    case 16:
+      return (int)launch_small<16>(bout1, tout1, bout0, tout0, y, slots, tickets, out, C, B, P,
+                                   K, vec, st);
+    case 32:
+      return (int)launch_small<32>(bout1, tout1, bout0, tout0, y, slots, tickets, out, C, B, P,
+                                   K, vec, st);
+    default:
+      return (int)launch_small<64>(bout1, tout1, bout0, tout0, y, slots, tickets, out, C, B, P,
+                                   K, vec, st);
+  }
 }
 
 }  // extern "C"

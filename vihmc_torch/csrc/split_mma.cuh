@@ -279,15 +279,16 @@ __device__ __forceinline__ void start_batch(float (&t)[NACC], const uint32_t (&a
 }
 
 // wait for the batch and add it to the running sum acc with IEEE adds
-__device__ __forceinline__ void finish_batch(float (&acc)[NACC], float (&t)[NACC]) {
+template <int N>
+__device__ __forceinline__ void finish_batch(float (&acc)[N], float (&t)[N]) {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(t[i]) :: "memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(t[i]) :: "memory");
   // t was rounded toward zero: raising its magnitude by one unit in the last
   // place when that place is odd adds half a unit on average, the mean of the
   // truncation, so the chunk sums add up without a drift toward zero
 #pragma unroll
-  for (int i = 0; i < NACC; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int bits = __float_as_int(t[i]);
     acc[i] = __fadd_rn(acc[i], __int_as_float(bits + (bits & 1)));
   }
@@ -517,5 +518,314 @@ inline int encode_maps(TmaMaps<N>& maps, const float* const (&ptr)[N], const int
 }
 
 inline int num_tiles(int B, int P) { return ((B + BM - 1) / BM) * ((P + BN - 1) / BN); }
+
+// ---- the small-problem path: one chain and one tile per block ----
+//
+// At one chain, or at B < 128, the tiled walk above has nothing to overlap:
+// a block runs K / 16 = 7 chunks, so its y-tile load, the first copies and
+// its epilogue stand bare, one 169-209 KB block fills an SM, and at B = 10 a
+// 128-row tile is 92 % zeros. Here a block is one warpgroup (128 threads)
+// that owns 64 P rows and NB B columns of one chain, with no producer, no
+// ring and no mbarrier:
+//   - the roles swap: tout is wgmma's A side (m64) and bout the B side
+//     (n = NB = 16, 32 or 64 by B), so at B = 10 every one of the
+//     ceil(P / 64) blocks computes useful rows;
+//   - both stream by K chunk from device memory into registers, one chunk
+//     ahead of their use; tout values are split into wgmma fragments in
+//     registers, bout values into a double-buffered part tile in shared
+//     memory (12 KB per product at NB = 64), so 3-5 blocks share an SM;
+//   - each chunk's six part products run into a fresh accumulator and are
+//     added with the truncation's mean, as in the tiled path, in the mirror
+//     order of its terms (tout part i times bout part j for the tiled path's
+//     bout part j times tout part i), so each cell is formed alike;
+//   - y is read once: each thread's cells are copied into shared memory with
+//     cp.async when the block starts (eight lanes read 32 consecutive bytes
+//     of a row of y) and wait there for the epilogue, with no staged tile;
+//   - the block folds its sums into one slot, and the last block of a chain
+//     to take a ticket (an atomic counter) adds the chain's slots in a fixed
+//     order and resets the counter: one launch, and the result does not
+//     depend on which block finished last.
+namespace small {
+
+constexpr int THREADS = 128;  // one warpgroup: it loads, splits, multiplies and folds
+constexpr int MP = 64;        // P rows of a block: wgmma's M
+constexpr int BATCH = 4;      // slots each thread of the last block keeps in flight
+
+// the width (wgmma's N) of a block's B-side tile for B rows
+__host__ __device__ constexpr int tile_n(int B) { return B <= 16 ? 16 : B <= 32 ? 32 : 64; }
+__host__ __device__ constexpr int chunks(int K) { return (K + KC - 1) / KC; }
+// shared memory: two buffers of each product's three bf16 part tiles of one
+// chunk, then each thread's y values
+__host__ __device__ constexpr int parts_bytes(int nprod, int nb) {
+  return 2 * nprod * 3 * nb * KC * 2;
+}
+__host__ __device__ constexpr int smem_bytes(int nprod, int nb) {
+  return parts_bytes(nprod, nb) + THREADS * (nb / 2) * 4;
+}
+// blocks per chain: P tiles along x (fastest, so neighbouring blocks share B rows), B tiles along y
+inline dim3 grid(int C, int B, int P) {
+  return dim3((P + MP - 1) / MP, (B + tile_n(B) - 1) / tile_n(B), C);
+}
+inline int blocks(int B, int P) { const dim3 g = grid(1, B, P); return (int)(g.x * g.y); }
+
+#define VIHMC_D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+                    "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+// d (64 x N, f32) = A (64 x 16, registers) B (N x 16, shared)^T + (accumulate ? d : 0)
+template <int N>
+__device__ __forceinline__ void wgmma_64xn(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate) {
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7}, {%8,%9,%10,%11}, %12, p, 1, 1, 0;\n}\n"
+        : VIHMC_D8(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, {%16,%17,%18,%19}, %20, "
+        "p, 1, 1, 0;\n}\n"
+        : VIHMC_D8(0), VIHMC_D8(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else {
+    static_assert(N == 64, "tile widths 16, 32, 64");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,"
+        "%23,%24,%25,%26,%27,%28,%29,%30,%31}, {%32,%33,%34,%35}, %36, p, 1, 1, 0;\n}\n"
+        : VIHMC_D8(0), VIHMC_D8(8), VIHMC_D8(16), VIHMC_D8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+}
+#undef VIHMC_D8
+
+// One batch: the six part products of one K chunk into the fresh
+// accumulator t, smallest first; A (tout) parts a, B (bout) part tiles at sb,
+// sb + ps, sb + 2 ps. The tiled path's order with the roles swapped.
+template <int N>
+__device__ __forceinline__ void start_batch(float (&t)[N / 2], const uint32_t (&a)[3][4],
+                                            const char* sb, int ps) {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  wgmma_64xn<N>(t, a[0], part_desc(sb + 2 * ps), 0);
+  wgmma_64xn<N>(t, a[1], part_desc(sb + ps), 1);
+  wgmma_64xn<N>(t, a[2], part_desc(sb), 1);
+  wgmma_64xn<N>(t, a[0], part_desc(sb + ps), 1);
+  wgmma_64xn<N>(t, a[1], part_desc(sb), 1);
+  wgmma_64xn<N>(t, a[0], part_desc(sb), 1);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// f32 values of row `row`, k .. k + 1 (k + 3) of a (rows, K) matrix whose
+// first row is src; zeros past the rows and past K. vec: K % 4 == 0 and src
+// 16-byte aligned, so a whole vector is in or out.
+__device__ __forceinline__ float2 load_row2(const float* __restrict__ src, int row, int nrows,
+                                            int K, int k, bool vec) {
+  float2 v = make_float2(0.f, 0.f);
+  if (row >= nrows) return v;
+  const float* p = src + (size_t)row * K + k;
+  if (vec) {
+    if (k < K) v = __ldg(reinterpret_cast<const float2*>(p));
+  } else {
+    if (k < K) v.x = __ldg(p);
+    if (k + 1 < K) v.y = __ldg(p + 1);
+  }
+  return v;
+}
+
+__device__ __forceinline__ float4 load_row4(const float* __restrict__ src, int row, int nrows,
+                                            int K, int k, bool vec) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (row >= nrows) return v;
+  const float* p = src + (size_t)row * K + k;
+  if (vec) {
+    if (k < K) v = __ldg(reinterpret_cast<const float4*>(p));
+  } else {
+    if (k < K) v.x = __ldg(p);
+    if (k + 1 < K) v.y = __ldg(p + 1);
+    if (k + 2 < K) v.z = __ldg(p + 2);
+    if (k + 3 < K) v.w = __ldg(p + 3);
+  }
+  return v;
+}
+
+// this thread's A-fragment values of the chunk at k0 of a 64-row tout tile:
+// rows g, g + 8 and k 2 (lane % 4) + {0, 1}, + 8 (t = thread, g = 16 warp + lane / 4)
+__device__ __forceinline__ void load_a(float2 (&r)[4], const float* __restrict__ src, int nrows,
+                                       int K, int k0, bool vec, int t) {
+  const int lane = t & 31, row = 16 * (t >> 5) + (lane >> 2), k = k0 + 2 * (lane & 3);
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    r[q] = load_row2(src, row + 8 * (q & 1), nrows, K, k + 8 * (q >> 1), vec);
+}
+
+// float4 units of one chunk's NB x 16 bout tile that each thread copies
+template <int NB>
+__host__ __device__ constexpr int b_units() { return (NB * 4 + THREADS - 1) / THREADS; }
+
+// This thread's float4 units of the chunk at k0 of an NB-row bout tile: unit
+// e = t + 128 j covers row 8 (e / 32) + e % 8 and k = k0 + 4 ((e / 8) % 4), so
+// a warp reads 8 rows x 64 bytes and later stores 256 contiguous bytes.
+template <int NB>
+__device__ __forceinline__ void load_b(float4 (&r)[b_units<NB>()], const float* __restrict__ src,
+                                       int nrows, int K, int k0, bool vec, int t) {
+#pragma unroll
+  for (int j = 0; j < b_units<NB>(); ++j) {
+    const int e = t + j * THREADS;
+    r[j] = e < NB * 4 ? load_row4(src, (e >> 5) * 8 + (e & 7), nrows, K, k0 + 4 * ((e >> 3) & 3),
+                                  vec)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Split this thread's units into the chunk's three bf16 part tiles at dst,
+// dst + NB x 32, dst + NB x 64 bytes, in wgmma's K-major layout of part_offset.
+template <int NB>
+__device__ __forceinline__ void split_b(char* dst, const float4 (&r)[b_units<NB>()], int t) {
+  constexpr int CB = NB * KC * 2;  // bytes of one part tile
+#pragma unroll
+  for (int j = 0; j < b_units<NB>(); ++j) {
+    const int e = t + j * THREADS, u = e & 31, q = u >> 3;
+    if (e >= NB * 4) break;
+    uint2 p0, p1, p2;
+    split3(make_float2(r[j].x, r[j].y), p0.x, p1.x, p2.x);
+    split3(make_float2(r[j].z, r[j].w), p0.y, p1.y, p2.y);
+    const int off = (e >> 5) * 256 + (q >> 1) * 128 + (u & 7) * 16 + (q & 1) * 8;
+    *reinterpret_cast<uint2*>(dst + off) = p0;
+    *reinterpret_cast<uint2*>(dst + CB + off) = p1;
+    *reinterpret_cast<uint2*>(dst + 2 * CB + off) = p2;
+  }
+}
+
+// The NPROD products of one block: acc[p] (64 x NB, this thread's cells) =
+// tout tile fp[p] (np valid rows) times the bout tile fb[p] (nb valid rows)^T.
+// Both operands stream by K chunk: chunk c + 1's f32 values are loaded into
+// registers while chunk c runs; then its bout values are split into part
+// buffer (c + 1) % 2 and its tout values into wgmma fragments, and its batch
+// runs. One barrier per chunk: buffer c % 2 was last read by chunk c - 2's
+// wgmmas, which every warp waited for before the barrier of chunk c - 1.
+// (Loading two chunks ahead, or splitting chunk c + 1 while chunk c's batch
+// runs, took 140-230 registers a thread, and the blocks an SM lost made
+// either slower on the card.)
+template <int NPROD, int NB>
+__device__ __forceinline__ void products(char* smem, const float* const (&fb)[NPROD],
+                                         const float* const (&fp)[NPROD], int nb, int np, int K,
+                                         bool vec, float (&acc)[NPROD][NB / 2]) {
+  constexpr int CB = NB * KC * 2;
+  const int t = threadIdx.x, nch = chunks(K);
+  float tb[NB / 2];
+  float2 ra[NPROD][4];
+  float4 rb[NPROD][b_units<NB>()];
+  uint32_t a[3][4];
+#pragma unroll
+  for (int p = 0; p < NPROD; ++p) {
+#pragma unroll
+    for (int i = 0; i < NB / 2; ++i) acc[p][i] = 0.f;
+    load_a(ra[p], fp[p], np, K, 0, vec, t);
+    load_b<NB>(rb[p], fb[p], nb, K, 0, vec, t);
+  }
+  for (int c = 0; c < nch; ++c) {
+    const int next = (c + 1) * KC;
+    char* buf = smem + (c & 1) * NPROD * 3 * CB;
+#pragma unroll
+    for (int p = 0; p < NPROD; ++p) {
+      split_b<NB>(buf + p * 3 * CB, rb[p], t);
+      load_b<NB>(rb[p], fb[p], nb, K, next, vec, t);
+    }
+    fence_proxy_async();
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < NPROD; ++p) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split3(ra[p][q], a[0][q], a[1][q], a[2][q]);
+      load_a(ra[p], fp[p], np, K, next, vec, t);
+      start_batch<NB>(tb, a, buf + p * 3 * CB, CB);
+      finish_batch(acc[p], tb);
+    }
+  }
+}
+
+// Copy y at this thread's cells of the block's tile into its own column of
+// ys (ys[i][t], so the epilogue's reads are free of bank conflicts) with
+// cp.async, at the start of the block; y points at the tile's corner, row b0
+// and column p0 of the (B, P) array. Accumulator i holds P row 16 warp +
+// lane / 4 (+ 8 for bit 1 of i) and B column 8 (i / 4) + 2 (lane % 4) + (i %
+// 2); past the edge the copy writes a zero, as the product is 0 there.
+template <int NB>
+__device__ __forceinline__ void prefetch_y(float* ys, const float* __restrict__ y, int P, int nb,
+                                           int np, int t) {
+  const int lane = t & 31, r0 = 16 * (t >> 5) + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < NB / 2; ++i) {
+    const int pr = r0 + 8 * ((i >> 1) & 1), bc = c0 + 8 * (i >> 2) + (i & 1);
+    const bool in = pr < np && bc < nb;
+    cp_async4(ys + i * THREADS + t, in ? y + (size_t)bc * P + pr : y, in ? 4 : 0);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait for this thread's y copies (no other thread reads them)
+__device__ __forceinline__ void wait_y() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Fold the block's per-thread sums s into its slot, slots[blk]; the chain's
+// last block to take a ticket adds the chain's nblk slots in a fixed order
+// into out (thread t adds slots t, t + 128, ... in turn, then a fixed tree
+// over the threads), and sets the ticket back to 0 for the next launch.
+template <int NSUM, class T, class Out>
+__device__ __forceinline__ void fold(T (&s)[NSUM], double* __restrict__ slots,
+                                     unsigned* ticket, Out* __restrict__ out, int blk,
+                                     int nblk) {
+  __shared__ double red[NSUM][THREADS];
+  __shared__ bool last;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+#pragma unroll
+  for (int v = 0; v < NSUM; ++v) s[v] = warp_sum(s[v]);
+  if (lane == 0)
+#pragma unroll
+    for (int v = 0; v < NSUM; ++v) red[v][warp] = (double)s[v];
+  __syncthreads();
+  if (t == 0) {
+#pragma unroll
+    for (int v = 0; v < NSUM; ++v)
+      slots[(size_t)blk * NSUM + v] = ((red[v][0] + red[v][1]) + red[v][2]) + red[v][3];
+    __threadfence();  // the slot is visible before the ticket is taken
+    last = atomicAdd(ticket, 1u) == (unsigned)(nblk - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  double acc[NSUM];
+#pragma unroll
+  for (int v = 0; v < NSUM; ++v) acc[v] = 0.0;
+  for (int i0 = t; i0 < nblk; i0 += BATCH * THREADS) {
+    double sv[BATCH][NSUM];
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j)
+#pragma unroll
+      for (int v = 0; v < NSUM; ++v) {
+        const int i = i0 + j * THREADS;
+        sv[j][v] = i < nblk ? __ldcg(slots + (size_t)i * NSUM + v) : 0.0;
+      }
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j)
+#pragma unroll
+      for (int v = 0; v < NSUM; ++v) acc[v] += sv[j][v];
+  }
+#pragma unroll
+  for (int v = 0; v < NSUM; ++v) red[v][t] = acc[v];
+  __syncthreads();
+  for (int h = THREADS / 2; h > 0; h >>= 1) {
+    if (t < h)
+#pragma unroll
+      for (int v = 0; v < NSUM; ++v) red[v][t] += red[v][t + h];
+    __syncthreads();
+  }
+  if (t < NSUM) out[t] = (Out)red[t][0];
+  if (t == 0) *ticket = 0u;
+}
+
+}  // namespace small
 
 }  // namespace split_mma

@@ -47,11 +47,15 @@ _SIGNATURES = {
         "vihmc_paired_sums_scratch": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
         "vihmc_paired_sums": (ctypes.c_int, [ctypes.c_void_p] * 7
                               + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+        "vihmc_paired_sums_small": (ctypes.c_int, [ctypes.c_void_p] * 8
+                                    + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     },
     "merge_sums": {
         "vihmc_merge_sums_scratch": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
         "vihmc_merge_sums": (ctypes.c_int, [ctypes.c_void_p] * 5
                              + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+        "vihmc_merge_sums_small": (ctypes.c_int, [ctypes.c_void_p] * 6
+                                   + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     },
     "leapfrog_update": {
         "vihmc_leapfrog_update": (ctypes.c_int, [ctypes.c_void_p] * 6

@@ -30,6 +30,13 @@ per-cell differences, so the f32 error stays far below a nat.
 :func:`paired_sums_reference` is the plain version: it materializes both
 products per chain. For both kernels, CPU tensors take the plain version;
 CUDA tensors launch the kernel or raise -- there is no fallback.
+
+**Two kernels per function.** Each source holds the chain-batched tiled
+kernel (128 x 128 tiles that walk every chain) and a small-problem kernel
+(one chain and 64 P rows x 16-64 B rows per block, one launch). The wrapper
+picks one by a plain rule on (C, B), :func:`_sums_path`: the small kernel at
+one or two chains and below 128 B rows, where the tiled one has little to
+overlap or pads its tile with zeros.
 """
 
 from __future__ import annotations
@@ -45,6 +52,45 @@ from vihmc_torch.ops import cuda_build
 GNLL_EPS = 1e-6
 N_SUMS = 5  # D, Bd, Sm, Q1, C1
 N_MERGE_SUMS = 2  # S1, S2
+SMALL_B = 128      # B rows below which the small kernel runs at any C (the tiled tile's rows)
+SMALL_MAX_C = 2    # chains up to which it runs at B >= SMALL_B
+SMALL_P_ROWS = 64  # P rows of a small-kernel block (wgmma's M)
+
+
+def _sums_path(c: int, b: int) -> str:
+    """``'small'`` or ``'tiled'``: the kernel both wrappers launch for C
+    chains of B rows. On an H100 at B = 1000, P = 10,201, K = 100 the small
+    kernel's time grows with C about as fast as the tiled one's work, while
+    the tiled one's falls per chain as its walk overlaps chains: the small
+    one is faster at C = 1 and 2, the tiled one from C = 4 (``chip_smoke.py``
+    phase 28 (c) prints the table and holds the rule to it). Below 128 rows
+    the tiled tile is mostly zeros, and the small kernel is faster at every
+    C measured (1 to 8)."""
+    return "small" if c <= SMALL_MAX_C or b < SMALL_B else "tiled"
+
+
+def _small_tile_n(b: int) -> int:
+    """B rows of a small-kernel block (wgmma's N): 16, 32 or 64."""
+    return 16 if b <= 16 else 32 if b <= 32 else 64
+
+
+def _small_blocks(b: int, p: int) -> int:
+    """Small-kernel blocks per chain, one slot of sums each."""
+    return -(-p // SMALL_P_ROWS) * -(-b // _small_tile_n(b))
+
+
+_tickets: dict = {}
+
+
+def _small_tickets(dev, stream: int, c: int) -> torch.Tensor:
+    """The small kernels' per-chain counters on (device, stream): zeroed once
+    here, and set back to 0 by the last block of each chain of every launch,
+    so launches on one stream share them in turn."""
+    t = _tickets.get((dev, stream))
+    if t is None or t.numel() < c:
+        t = torch.zeros(max(c, 64), dtype=torch.int32, device=dev)
+        _tickets[(dev, stream)] = t
+    return t
 
 
 def _check_merge_inputs(bout, tout, y):
@@ -85,39 +131,56 @@ def merge_sums_reference(bout, tout, y) -> torch.Tensor:
 def merge_sums(bout, tout, y) -> torch.Tensor:
     """``(C, 2)`` f64 sums ``[S1, S2]`` per chain (see module doc).
 
-    CUDA tensors: one launch of the hand-written kernel for all chains (plus
-    its fixed-order reduction), counted in ``merge_sums.launches`` (and at
-    C = 1 also in ``merge_sums.launches_c1``). CPU
-    tensors: :func:`merge_sums_reference`. Anything else raises. The result
-    is f64, not the f32 of JAX: ``S1`` is about ``-sum y^2`` (~1.7e6) at
-    reference scale, where rounding it to f32 alone moves ll by up to 0.03
-    nats, and f32 accumulation across tiles by more.
+    CUDA tensors: one launch of a hand-written kernel for all chains, the one
+    :func:`_sums_path` picks, counted in ``merge_sums.launches`` (at C = 1
+    also in ``launches_c1``, on the small kernel also in
+    ``launches_small``). CPU tensors: :func:`merge_sums_reference`. Anything
+    else raises. The result is f64, not the f32 of JAX: ``S1`` is about
+    ``-sum y^2`` (~1.7e6) at reference scale, where rounding it to f32 alone
+    moves ll by up to 0.03 nats, and f32 accumulation across tiles by more.
     """
     c, b, p, k = _check_merge_inputs(bout, tout, y)
-    dev = bout.device
-    if dev.type == "cpu":
+    if bout.device.type == "cpu":
         return merge_sums_reference(bout, tout, y)
+    return _merge_launch(_sums_path(c, b), bout, tout, y)
+
+
+def _merge_launch(path, bout, tout, y) -> torch.Tensor:
+    """One launch of the ``path`` kernel ('small' or 'tiled') on CUDA
+    tensors, counted on :func:`merge_sums`."""
+    c, b, p, k = _check_merge_inputs(bout, tout, y)
+    dev = bout.device
     if dev.type != "cuda":
         raise ValueError(f"merge_sums runs on CUDA or CPU tensors, not {dev}")
     lib = cuda_build.load("merge_sums")
     with torch.cuda.device(dev):
-        scratch = torch.empty((c, lib.vihmc_merge_sums_scratch(b, p)),
-                              dtype=torch.float64, device=dev)
         out = torch.empty((c, N_MERGE_SUMS), dtype=torch.float64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.vihmc_merge_sums(bout.data_ptr(), tout.data_ptr(), y.data_ptr(),
-                                   scratch.data_ptr(), out.data_ptr(), c, b, p, k,
-                                   ctypes.c_void_p(stream))
+        if path == "small":
+            nblk = _small_blocks(b, p)
+            slots = torch.empty((c, nblk * N_MERGE_SUMS), dtype=torch.float64, device=dev)
+            err = lib.vihmc_merge_sums_small(
+                bout.data_ptr(), tout.data_ptr(), y.data_ptr(), slots.data_ptr(),
+                _small_tickets(dev, stream, c).data_ptr(), out.data_ptr(), c, b, p, k, nblk,
+                ctypes.c_void_p(stream))
+        else:
+            scratch = torch.empty((c, lib.vihmc_merge_sums_scratch(b, p)),
+                                  dtype=torch.float64, device=dev)
+            err = lib.vihmc_merge_sums(bout.data_ptr(), tout.data_ptr(), y.data_ptr(),
+                                       scratch.data_ptr(), out.data_ptr(), c, b, p, k,
+                                       ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"merge_sums kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"merge_sums {path} kernel launch failed: CUDA error {err}")
     merge_sums.launches += 1
     merge_sums.launches_c1 += int(c == 1)   # the unbatched form's launches
+    merge_sums.launches_small += int(path == "small")
     merge_sums.flops += 2 * c * b * p * k
     return out
 
 
 merge_sums.launches = 0
 merge_sums.launches_c1 = 0
+merge_sums.launches_small = 0
 merge_sums.flops = 0   # matmul FLOPs of the launches (core.profiling.count_flops)
 
 
@@ -224,37 +287,53 @@ def paired_sums_reference(bout1, tout1, bout0, tout0, y) -> torch.Tensor:
 def paired_sums(bout1, tout1, bout0, tout0, y) -> torch.Tensor:
     """``(C, 5)`` f32 sums ``[D, Bd, Sm, Q1, C1]`` per chain (see module doc).
 
-    CUDA tensors: one launch of the hand-written kernel for all chains (plus
-    its fixed-order reduction), counted in ``paired_sums.launches`` (and at
-    C = 1 also in ``paired_sums.launches_c1``). CPU
-    tensors: :func:`paired_sums_reference`. Anything else raises.
+    CUDA tensors: one launch of a hand-written kernel for all chains, the one
+    :func:`_sums_path` picks, counted in ``paired_sums.launches`` (at C = 1
+    also in ``launches_c1``, on the small kernel also in
+    ``launches_small``). CPU tensors: :func:`paired_sums_reference`.
+    Anything else raises.
     """
     c, b, p, k = _check_inputs(bout1, tout1, bout0, tout0, y)
-    dev = bout1.device
-    if dev.type == "cpu":
+    if bout1.device.type == "cpu":
         return paired_sums_reference(bout1, tout1, bout0, tout0, y)
+    return _paired_launch(_sums_path(c, b), bout1, tout1, bout0, tout0, y)
+
+
+def _paired_launch(path, bout1, tout1, bout0, tout0, y) -> torch.Tensor:
+    """One launch of the ``path`` kernel ('small' or 'tiled') on CUDA
+    tensors, counted on :func:`paired_sums`."""
+    c, b, p, k = _check_inputs(bout1, tout1, bout0, tout0, y)
+    dev = bout1.device
     if dev.type != "cuda":
         raise ValueError(f"paired_sums runs on CUDA or CPU tensors, not {dev}")
     lib = cuda_build.load("paired_sums")
+    feats = [t.data_ptr() for t in (bout1, tout1, bout0, tout0, y)]
     with torch.cuda.device(dev):
-        scratch = torch.empty((c, lib.vihmc_paired_sums_scratch(b, p)),
-                              dtype=torch.float32, device=dev)
         out = torch.empty((c, N_SUMS), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.vihmc_paired_sums(
-            bout1.data_ptr(), tout1.data_ptr(), bout0.data_ptr(),
-            tout0.data_ptr(), y.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            c, b, p, k, ctypes.c_void_p(stream))
+        if path == "small":
+            nblk = _small_blocks(b, p)
+            slots = torch.empty((c, nblk * N_SUMS), dtype=torch.float64, device=dev)
+            err = lib.vihmc_paired_sums_small(
+                *feats, slots.data_ptr(), _small_tickets(dev, stream, c).data_ptr(),
+                out.data_ptr(), c, b, p, k, nblk, ctypes.c_void_p(stream))
+        else:
+            scratch = torch.empty((c, lib.vihmc_paired_sums_scratch(b, p)),
+                                  dtype=torch.float32, device=dev)
+            err = lib.vihmc_paired_sums(*feats, scratch.data_ptr(), out.data_ptr(),
+                                        c, b, p, k, ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"paired_sums kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"paired_sums {path} kernel launch failed: CUDA error {err}")
     paired_sums.launches += 1
     paired_sums.launches_c1 += int(c == 1)   # the unbatched form's launches
+    paired_sums.launches_small += int(path == "small")
     paired_sums.flops += 2 * 2 * c * b * p * k   # the two products m1, m0
     return out
 
 
 paired_sums.launches = 0
 paired_sums.launches_c1 = 0
+paired_sums.launches_small = 0
 paired_sums.flops = 0   # matmul FLOPs of the launches (core.profiling.count_flops)
 
 
