@@ -1,0 +1,372 @@
+"""The port's span recorder (``vihmc_torch/core/profiling.py``) on the CPU.
+
+The sampler's spans and counters on a small Gaussian target through
+``sample_chains_resumable``: one ``vihmc.draw`` per draw, the segment's
+``vihmc.transfer`` and ``vihmc.progress``, the detailed spans on draws
+4 mod 8 alone, nesting by parent id, counters, outputs bit-equal with the
+recorder off, the profiler's trace on the recorder's clock, no
+``record_function`` without a profiler; the operator row's Gram-field, MH,
+warm-start and Lanczos spans through ``bench_operator``, and its
+``seg_wall_s`` against a progress timer.
+"""
+
+from __future__ import annotations
+
+import ast
+import glob
+import json
+import os
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from vihmc_torch import bench_operator as bop
+from vihmc_torch.chains.resume import sample_chains_resumable
+from vihmc_torch.core import profiling
+from vihmc_torch.hmc.kernel import HMCConfig
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: the names the benchmark harness's trace reader keeps (port_bench/harness/trace.py)
+HARNESS_SPANS = {"segment", "density", "trajectory_field", "mh_test", "stretch"}
+C, D = 3, 5
+
+
+@pytest.fixture(autouse=True)
+def fresh_recorder():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    profiling.enable()
+    profiling.reset()
+    yield
+    profiling.enable()
+    profiling.reset()
+    torch.set_num_threads(prev)
+
+
+def _target(calls=None):
+    def log_prob(q, aux):
+        return -0.5 * (q * q).sum(-1)
+
+    def grad_fn(q, aux):
+        if calls is not None:
+            calls.append(1)
+        return -q
+
+    def delta_fn(q1, q0, aux):
+        lp1 = log_prob(q1, aux)
+        return lp1 - log_prob(q0, aux), lp1
+
+    return log_prob, grad_fn, delta_fn
+
+
+def _sample(n=16, segment=8, paired=True, progress=None, calls=None, seed=3):
+    log_prob, grad_fn, delta_fn = _target(calls)
+    cfg = HMCConfig(num_samples=n, num_leapfrog=3, step_size=0.3, burn=4)
+    q0 = torch.linspace(-1.0, 1.0, C * D).reshape(C, D)
+    return sample_chains_resumable(log_prob, q0, cfg, segment, 1.0, torch.zeros(D),
+                                   grad_fn=grad_fn, delta_fn=delta_fn if paired else None,
+                                   seed=seed, progress=progress)
+
+
+def _by_name(recs, name):
+    return [r for r in recs if r["name"] == name]
+
+
+def test_disabled_records_nothing_and_returns_the_null_context():
+    profiling.disable()
+    assert profiling.span("vihmc.field") is profiling.span("vihmc.warm_start", "cpu")
+    assert profiling.RECORDER.draw(0, 4) is profiling.span("vihmc.mh")
+    _sample(n=16, segment=8)
+    assert profiling.records() == []
+    c = profiling.counters()
+    assert c["sampler.draws"] == 16 and c["sampler.segments"] == 2
+
+
+def test_spans_nest_and_share_the_draw_id():
+    _sample(n=16, segment=8)
+    recs = profiling.records()
+    by_id = {r["id"]: r for r in recs}
+    parent = {"vihmc.draw": "vihmc.segment", "vihmc.transfer": "vihmc.segment",
+              "vihmc.progress": "vihmc.segment", "vihmc.field": "vihmc.draw",
+              "vihmc.mh": "vihmc.draw"}
+    for r in recs:
+        if r["name"] in parent:
+            p = by_id[r["parent"]]
+            assert p["name"] == parent[r["name"]], r
+            assert p["segment"] == r["segment"]
+            if p["name"] == "vihmc.draw":
+                assert r["draw"] == p["draw"] and p["id"] < r["id"]
+                assert p["host_t0"] <= r["host_t0"] <= r["host_t1"] <= p["host_t1"]
+        elif r["name"] == "vihmc.segment":
+            assert r["parent"] is None and r["draw"] is None
+    assert {r["name"] for r in recs} >= set(parent) | {"vihmc.segment", "vihmc.init_state"}
+
+
+@pytest.mark.parametrize("n,segment", [(16, 8), (30, 10), (24, 24)])
+@pytest.mark.parametrize("paired", [True, False])
+def test_one_draw_span_per_draw_detail_on_draws_4_mod_8(n, segment, paired):
+    calls = []
+    _sample(n=n, segment=segment, paired=paired, calls=calls)
+    recs = profiling.records()
+    draws = _by_name(recs, "vihmc.draw")
+    assert [r["draw"] for r in draws] == list(range(n))
+    assert [r["segment"] for r in draws] == [i // segment for i in range(n)]
+    n_seg = n // segment
+    for name in ("vihmc.segment", "vihmc.transfer", "vihmc.progress"):
+        assert [r["segment"] for r in _by_name(recs, name)] == list(range(n_seg))
+    sampled = {i for i in range(n) if (i % segment) % 8 == 4}
+    for name, per_draw in (("vihmc.field", 3), ("vihmc.mh", 1)):
+        got = _by_name(recs, name)
+        assert {r["draw"] for r in got} == sampled
+        assert len(got) == per_draw * len(sampled)
+    c = profiling.counters()
+    assert c["sampler.draws"] == n and c["sampler.segments"] == n_seg
+    # one field call in init_state, then L per draw
+    assert c["field.calls"] == len(calls) - 1 == 3 * n
+    assert c["mh.calls"] == n
+    # unpaired: lp0 recomputed and lp1 at the proposal, every draw
+    assert c["density.calls"] == 1 + (0 if paired else 2 * n)
+    assert c["sampler.d2h_bytes"] > 0
+
+
+def test_cpu_device_stamps_are_the_host_stamps():
+    _sample(n=16, segment=8)
+    recs = profiling.records()
+    for r in _by_name(recs, "vihmc.field") + _by_name(recs, "vihmc.mh"):
+        assert (r["dev_t0"], r["dev_t1"]) == (r["host_t0"], r["host_t1"])
+    draws = _by_name(recs, "vihmc.draw")
+    segs = {r["segment"]: r for r in _by_name(recs, "vihmc.segment")}
+    for a, b in zip(draws, draws[1:]):
+        assert a["dev_t0"] == a["host_t0"]
+        want = b["dev_t0"] if a["segment"] == b["segment"] else segs[a["segment"]]["dev_t1"]
+        assert a["dev_t1"] == want and a["dev_t1"] >= a["host_t1"]
+    last = draws[-1]
+    assert last["dev_t1"] == segs[last["segment"]]["dev_t1"]
+    for s in segs.values():
+        assert s["host_t0"] <= s["dev_t0"] <= s["dev_t1"] <= s["host_t1"]
+
+
+def test_a_progress_that_raises_still_closes_its_spans():
+    class Stop(Exception):
+        pass
+
+    def progress(done, n_segments, state):
+        if done == 2:
+            raise Stop
+
+    with pytest.raises(Stop):
+        _sample(n=32, segment=8, progress=progress)
+    recs = profiling.records()
+    prog = _by_name(recs, "vihmc.progress")
+    assert len(prog) == 2 and all(r["host_t1"] is not None for r in prog)
+    assert len(_by_name(recs, "vihmc.segment")) == 2
+    rec = profiling.RECORDER
+    assert rec._stack == [] and rec._seg is None and rec._draw is None
+    _sample(n=8, segment=8)   # the recorder is usable after the exception
+    assert _by_name(profiling.records(), "vihmc.draw")[-1]["parent"] is not None
+
+
+@pytest.mark.parametrize("paired", [True, False])
+def test_outputs_bit_equal_with_the_recorder_off_and_on(paired):
+    profiling.disable()
+    off = _sample(n=24, segment=8, paired=paired, seed=11)
+    profiling.enable()
+    on = _sample(n=24, segment=8, paired=paired, seed=11)
+    assert len(_by_name(profiling.records(), "vihmc.draw")) == 24
+    for a, b in ((off.samples, on.samples), (off.log_probs, on.log_probs),
+                 (off.accepted, on.accepted), (off.step_sizes, on.step_sizes)):
+        np.testing.assert_array_equal(a, b)
+    for f in ("position", "log_prob", "grad"):
+        assert torch.equal(getattr(off.final_state, f), getattr(on.final_state, f))
+
+
+def test_spans_in_the_profiler_trace_lie_on_the_recorders_clock(tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _sample(n=16, segment=8)
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    base_us = trace.get("baseTimeNanoseconds", 0) / 1000.0
+    seen = {}
+    for e in trace["traceEvents"]:
+        if e.get("cat") == "user_annotation" and e["name"].startswith("vihmc."):
+            seen.setdefault(e["name"], []).append((float(e["ts"]) + base_us, float(e["dur"])))
+    recs = [r for r in profiling.records() if r["profiled"]]
+    assert recs and all(r["name"] in seen for r in recs)
+    to_us = profiling.RECORDER.to_trace_us
+    for name, ranges in seen.items():
+        mine = sorted((to_us(r["host_t0"]), to_us(r["host_t1"]))
+                      for r in recs if r["name"] == name)
+        assert len(mine) == len(ranges), name
+        # the range opens after the host start and closes before the host end
+        # (a preempted host thread only widens that): both within 1 ms
+        for (t0, t1), (ts, dur) in zip(mine, sorted(ranges)):
+            assert t0 - 1000.0 <= ts and ts + dur <= t1 + 1000.0, name
+        offsets = [ts - t0 for (t0, _), (ts, _) in zip(mine, sorted(ranges))]
+        assert abs(float(np.median(offsets))) < 1000.0, name
+    # under a profiler the detailed spans are recorded on every draw
+    assert {r["draw"] for r in _by_name(recs, "vihmc.field")} == set(range(16))
+
+
+def test_no_record_function_without_a_profiler(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) opened with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    _sample(n=16, segment=8)
+    assert len(_by_name(profiling.records(), "vihmc.draw")) == 16
+    assert not any(r["profiled"] for r in profiling.records())
+
+
+def _span_literals():
+    names = set()
+    for path in glob.glob(os.path.join(ROOT, "vihmc_torch", "**", "*.py"), recursive=True):
+        for node in ast.walk(ast.parse(open(path).read(), path)):
+            if isinstance(node, ast.Call) and getattr(node.func, "attr",
+                                                      getattr(node.func, "id", None)) == "span" \
+                    and node.args and isinstance(node.args[0], ast.Constant):
+                names.add(node.args[0].value)
+    return names
+
+
+def test_every_span_is_named_vihmc_and_none_is_the_harness_s():
+    names = _span_literals() | set(profiling.DETAIL_SPANS) | set(profiling.SEGMENT_SPANS)
+    assert {"vihmc.field.forward", "vihmc.mh.paired_sums", "vihmc.warm_start.step",
+            "vihmc.lanczos.hvp", "vihmc.kernel_build", "vihmc.transfer"} <= names
+    for n in names:
+        assert n.startswith("vihmc.") and n not in HARNESS_SPANS, n
+
+
+def test_the_rings_keep_the_last_draws(monkeypatch):
+    monkeypatch.setattr(profiling, "RING_DRAWS", 10)
+    profiling.reset()
+    _sample(n=24, segment=8)
+    draws = _by_name(profiling.records(), "vihmc.draw")
+    assert [r["draw"] for r in draws] == list(range(14, 24))
+    assert profiling.counters()["sampler.draws"] == 24
+
+
+def test_export_chrome_writes_host_and_device_tracks_and_the_counters(tmp_path):
+    _sample(n=16, segment=8)
+    path = tmp_path / "spans" / "run.json"
+    profiling.export_chrome(str(path))
+    with open(path) as f:
+        out = json.load(f)
+    xs = [e for e in out["traceEvents"] if e["ph"] == "X"]
+    host = [e for e in xs if e["pid"] == 0]
+    dev = [e for e in xs if e["pid"] == 1]
+    assert len(host) == len(profiling.records())
+    assert sum(e["name"] == "vihmc.draw" for e in dev) == 16
+    assert out["vihmc_counters"]["sampler.draws"] == 16
+    assert any(e["ph"] == "C" for e in out["traceEvents"])
+    r0 = profiling.records()[0]
+    e0 = min(host, key=lambda e: e["args"]["id"])
+    assert abs(e0["ts"] - profiling.RECORDER.to_trace_us(r0["host_t0"])) < 1e-3
+    assert abs(e0["ts"] - time.time_ns() / 1000.0) < 600e6
+
+
+def test_the_operator_row_s_layers_and_seg_wall_s(monkeypatch, tmp_path):
+    """The quick operator row with a warm start and an uncached Lanczos metric:
+    the Gram field's three spans under ``vihmc.field``, the fused MH test's two
+    under ``vihmc.mh``, the set-up's spans and counters, and ``seg_wall_s``
+    from the recorder equal, to the millisecond, to a progress timer's."""
+    monkeypatch.setattr(bop, "CACHE_DIR", str(tmp_path))
+    marks = []
+    real = bop.sample_chains_resumable
+
+    def timed(*args, **kw):
+        t_ref = [time.perf_counter()]
+        marks.append([])
+
+        def mark(seg_i, n_segs, state):
+            now = time.perf_counter()
+            marks[-1].append(now - t_ref[0])
+            t_ref[0] = now
+
+        return real(*args, progress=mark, **kw)
+
+    monkeypatch.setattr(bop, "sample_chains_resumable", timed)
+    st, _ = bop.bench_operator(True, device="cpu", draws=24, burn=4, segment=12, coupled=True,
+                               init_opt=5, lowrank_rank=2, lowrank_iters=6, keys=(2,))
+    assert len(st["seg_wall_s"]) == 2
+    np.testing.assert_allclose(st["seg_wall_s"], marks[0], atol=1.5e-3)
+    recs = profiling.records()
+    by_id = {r["id"]: r for r in recs}
+    for name, parent in (("vihmc.field.forward", "vihmc.field"),
+                         ("vihmc.field.cotangents", "vihmc.field"),
+                         ("vihmc.field.vjp", "vihmc.field"),
+                         ("vihmc.mh.features", "vihmc.mh"),
+                         ("vihmc.mh.paired_sums", "vihmc.mh"),
+                         ("vihmc.warm_start.step", "vihmc.warm_start"),
+                         ("vihmc.lanczos.hvp", "vihmc.lanczos")):
+        got = _by_name(recs, name)
+        assert got and all(by_id[r["parent"]]["name"] == parent for r in got), name
+    # the detailed spans only inside the sampled draws (not the warm start's field calls)
+    assert {r["draw"] for r in _by_name(recs, "vihmc.field.forward")} == {4, 16}
+    c = profiling.counters()
+    assert c["warm_start.steps"] == len(_by_name(recs, "vihmc.warm_start.step")) == 5
+    assert c["lanczos.hvps"] == len(_by_name(recs, "vihmc.lanczos.hvp")) > 0
+    for name in ("vihmc.warm_start", "vihmc.lanczos", "vihmc.init_state"):
+        got = _by_name(recs, name)
+        assert got and all(r["parent"] is None and r["draw"] is None for r in got), name
+        assert all((r["dev_t0"], r["dev_t1"]) == (r["host_t0"], r["host_t1"]) for r in got)
+
+
+class _StandInEvent:
+    """A CUDA event on a stand-in device that reaches each event ``LAG_NS``
+    after the host records it; waiting on one drains the device, so an
+    anchor reads the host's clock."""
+
+    LAG_NS = 3_000_000
+
+    def __init__(self, enable_timing=False):
+        self.t = None
+
+    def record(self, stream=None):
+        self.t = time.perf_counter_ns() + self.LAG_NS
+
+    def synchronize(self):
+        self.t = time.perf_counter_ns()
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) / 1e6
+
+
+def test_the_event_path_maps_device_stamps_through_the_anchor(monkeypatch):
+    """The card's path (events, pending until the segment's anchor) on the
+    CPU with stand-in events: every device stamp reads its host stamp plus
+    the device's lag, each draw runs to the next draw's start, and the
+    events go back to the pool."""
+    monkeypatch.setattr(torch.cuda, "Event", _StandInEvent)
+    monkeypatch.setattr(profiling.SpanRecorder, "_device_mode",
+                        staticmethod(lambda device: ("event", "stream")))
+    _sample(n=24, segment=12)
+    recs = profiling.records()
+    lag_ms = _StandInEvent.LAG_NS / 1e6
+    draws = _by_name(recs, "vihmc.draw")
+    assert len(draws) == 24
+    for r in draws:
+        assert abs((r["dev_t0"] - r["host_t0"]) / 1e6 - lag_ms) < 1.0
+    for a, b in zip(draws, draws[1:]):
+        if a["segment"] == b["segment"]:
+            assert a["dev_t1"] == b["dev_t0"]
+    detail = _by_name(recs, "vihmc.field") + _by_name(recs, "vihmc.mh")
+    assert {r["draw"] for r in detail} == {4, 16}
+    for r in detail:
+        assert abs((r["dev_t0"] - r["host_t0"]) / 1e6 - lag_ms) < 1.0
+        assert abs((r["dev_t1"] - r["host_t1"]) / 1e6 - lag_ms) < 1.0
+    for s in _by_name(recs, "vihmc.segment"):
+        assert s["dev_t0"] is not None and s["dev_t1"] >= s["dev_t0"]
+    rec = profiling.RECORDER
+    assert rec._pending == [] and len(rec._pool) > 0
+    # set-up spans outside a run: an event pair, resolved when read
+    with profiling.span("vihmc.warm_start", "cuda"):
+        pass
+    (w,) = _by_name(profiling.records(), "vihmc.warm_start")
+    assert abs((w["dev_t0"] - w["host_t0"]) / 1e6 - lag_ms) < 1.0

@@ -17,6 +17,8 @@ keywords), of the CPU baseline and of the NN row.
 Where it differs from ``bench.py``:
 
 * ``--device`` (default ``cuda``; ``cpu`` runs everything on the CPU).
+* ``--spans PATH`` writes the run's spans and counters
+  (:mod:`vihmc_torch.core.profiling`) to PATH as a Chrome trace.
 * The paired MH delta is the fused form (one ``paired_sums`` launch per
   draw for all chains) unless ``--composed-delta`` asks for JAX's composed
   default; ``--fused-delta`` is accepted and changes nothing.
@@ -48,6 +50,7 @@ from vihmc_torch.bench_operator import (BENCH_FN_STRIDE, BENCH_JITTER_LOW, BENCH
                                         BENCH_STEP, BENCH_STRIDE, bench_grad_path,
                                         bench_operator, bench_torch_baseline)
 from vihmc_torch.chains.diagnostics import effective_sample_size_np
+from vihmc_torch.core import profiling
 from vihmc_torch.core.device import resolve_device
 
 #: low-rank rank of the NN row the default invocation appends (bench.py:305)
@@ -130,6 +133,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", help="torch device (default: the card)")
     ap.add_argument("--composed-delta", action="store_true",
                     help="JAX's composed paired delta instead of the fused kernel")
+    ap.add_argument("--spans", default=None, metavar="PATH",
+                    help="write the run's spans and counters to PATH as a Chrome trace")
     return ap
 
 
@@ -285,8 +290,16 @@ def vs_baseline_fields(args, samples_per_s: float, torch_samples_per_s: float) -
 
 
 def run(argv=None) -> dict:
-    """Run one invocation and return its line (the dict :func:`main` prints)."""
+    """Run one invocation and return its line (the dict :func:`main` prints);
+    with ``--spans PATH`` the recorder's spans and counters go to PATH."""
     args = parse_args(argv)
+    line = _run(args)
+    if args.spans:
+        profiling.export_chrome(args.spans)
+    return line
+
+
+def _run(args) -> dict:
     dev = resolve_device(args.device)
     if args.torch_ess is not None:
         return torch_ess_line(args.quick, args.torch_ess)

@@ -56,6 +56,7 @@ from vihmc_torch.bench_nn import torch_hmc_timing
 from vihmc_torch.chains.diagnostics import (effective_sample_size_np,
                                             ess_bulk_np, rhat_rank_np)
 from vihmc_torch.chains.resume import sample_chains_resumable
+from vihmc_torch.core import profiling
 from vihmc_torch.core.device import resolve_device, sync
 from vihmc_torch.core.precision import true_f32
 from vihmc_torch.data.burgers import (ASSETS, STAGE12_ASSET, get_burgers_train,
@@ -369,7 +370,7 @@ def lowrank_metric(log_prob, aux, q_center, inv_mass_diag, rank: int,
         t0 = time.perf_counter()
         gen = torch.Generator(device=dev)
         gen.manual_seed(LANCZOS_SEED)
-        with true_f32():
+        with profiling.span("vihmc.lanczos", dev), true_f32():
             mv = preconditioned_hvp(log_prob, q_center, diag, aux=aux)
             eigvals, eigvecs = lanczos_eigs(mv, dim, rank, num_iters=iters, generator=gen,
                                             device=dev, which="both" if two_sided else "top")
@@ -422,6 +423,16 @@ def hutchinson_metric(log_prob, aux, q_center, inv_mass_vec, spec: SubspaceSpec,
     print(f"# hutch diag: {n_probes} probes in {extras['wall_s']}s; prev-diag ratio "
           f"q05/50/95 {extras['vs_prev_diag_ratio_quantiles']}", file=sys.stderr)
     return torch.as_tensor(1.0 / prec, dtype=torch.float32, device=dev), extras
+
+
+def segment_walls(t0_ns: int) -> list:
+    """Seconds (to the millisecond) of each sampler segment that started after
+    ``t0_ns`` (``perf_counter_ns``), from the recorder's ``vihmc.segment``
+    spans: each from the end of the one before, the first from ``t0_ns``."""
+    ends = [r["host_t1"] for r in profiling.records()
+            if r["name"] == "vihmc.segment" and r["host_t0"] >= t0_ns
+            and r["host_t1"] is not None]
+    return [round((b - a) * 1e-9, 3) for a, b in zip([t0_ns] + ends, ends)]
 
 
 def sampler_config(n_samples: int, n_burn: int, num_leapfrog: int, coupled: bool = False,
@@ -604,35 +615,23 @@ def bench_operator(quick: bool = False, compute_dtype=None, draws=None, burn=Non
     segmented = n_samples > seg
     if not segmented and thin > 1:
         raise ValueError("thin requires the segmented path (draws > segment)")
-    seg_walls = []
-
-    def run(key):
-        t_ref = [time.perf_counter()]
-        seg_walls.clear()
-
-        def mark(seg_i, n_segs, state):
-            now = time.perf_counter()
-            seg_walls.append(round(now - t_ref[0], 3))
-            t_ref[0] = now
-
-        return sample_chains_resumable(
-            log_prob, inits, hmc_cfg, seg if segmented else n_samples, kinetic_metric, aux0,
-            grad_fn, delta_fn, thin=thin, seed=key, aux_refresh=refresh,
-            progress=mark if segmented else None)
 
     if keys is None:
         keys = (BENCH_KEYS[0],) if quick else BENCH_KEYS
     per_key, sampling_s = [], []
     for k in keys:
-        t0 = time.perf_counter()
-        res = run(k)
+        t0_ns = time.perf_counter_ns()
+        res = sample_chains_resumable(
+            log_prob, inits, hmc_cfg, seg if segmented else n_samples, kinetic_metric, aux0,
+            grad_fn, delta_fn, thin=thin, seed=k, aux_refresh=refresh)
         sync(dev)
-        sampling_s.append(time.perf_counter() - t0)
+        sampling_s.append((time.perf_counter_ns() - t0_ns) * 1e-9)
         stats_k = key_stats(res, k, sampling_s[-1] + warm_s, n_chains, n_samples, n_burn, thin)
         stats_k.update(samples_finite=bool(np.isfinite(res.samples).all()),
                        samples_shape=list(res.samples.shape))
-        if seg_walls:
-            stats_k["seg_wall_s"] = list(seg_walls)
+        walls = segment_walls(t0_ns)
+        if segmented and walls:
+            stats_k["seg_wall_s"] = walls
         if stats_k["tau_floor_frac"] > 0.01:
             print(f"# WARNING key {k}: tau floor binds on "
                   f"{100 * stats_k['tau_floor_frac']:.1f}% of dims -- raw ESS unreliable, "

@@ -40,6 +40,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from vihmc_torch.core import profiling
 from vihmc_torch.core.device import stream_generator
 from vihmc_torch.core.mesh import chain_axis
 from vihmc_torch.io.checkpoint import latest_step, load_checkpoint, save_checkpoint
@@ -89,35 +90,53 @@ def run_segments(step: Callable, state, n_total: int, segment_size: int, thin: i
     samples)`` runs after each segment, before ``progress(seg + 1,
     n_segments, state)``; with ``trace_aux`` every draw's ``state.aux`` is
     kept (:func:`per_chain_aux`) as ``infos['aux_trace']``. Returns
-    ``(state, samples (C, kept, d), infos)`` of the segments run here."""
+    ``(state, samples (C, kept, d), infos)`` of the segments run here.
+
+    Spans (:mod:`vihmc_torch.core.profiling`): ``vihmc.segment`` per segment,
+    ``vihmc.draw`` around each ``step`` (draw id ``seg * segment_size + i``),
+    ``vihmc.transfer`` around the host copy, after which the recorder takes
+    its anchor, and ``vihmc.progress`` around ``on_segment`` and ``progress``;
+    counters ``sampler.draws``, ``sampler.segments``, ``sampler.d2h_bytes``."""
     if thin < 1 or segment_size % thin:
         raise ValueError("thin must divide segment_size")
     n_segments = -(-n_total // segment_size)
     keys = tuple(info_keys) + tuple(extra_keys)
     collected, infos, traces = [], {k: [] for k in keys}, []
     n_chains = state.position.shape[0]
+    rec = profiling.RECORDER
     for seg in range(start_segment, n_segments):
         gen = segment_generator(device, seed, seg)
         kept, seg_info, seg_trace = [], {k: [] for k in keys}, []
-        for i in range(segment_size):
-            state, info = step(state, gen)
-            if (i + 1) % thin == 0:
-                kept.append(state.position)
-            if trace_aux:
-                seg_trace.append(per_chain_aux(state.aux, n_chains))
-            for k in keys:
-                seg_info[k].append(torch.as_tensor(info[k]))
-        # thinned on the device; one host copy per segment
-        collected.append(torch.stack(kept, dim=1).cpu().numpy())
-        for k in keys:
-            v = torch.stack(seg_info[k], dim=-1 if k in info_keys else 0)
-            infos[k].append(v.cpu().numpy())
-        if trace_aux:
-            traces.append(_stack_trace(seg_trace))
-        if on_segment is not None:
-            on_segment(seg, state, collected[-1])
-        if progress is not None:
-            progress(seg + 1, n_segments, state)
+        with rec.segment(seg, device):
+            for i in range(segment_size):
+                with rec.draw(seg * segment_size + i, i):
+                    state, info = step(state, gen)
+                rec.count("sampler.draws")
+                if (i + 1) % thin == 0:
+                    kept.append(state.position)
+                if trace_aux:
+                    seg_trace.append(per_chain_aux(state.aux, n_chains))
+                for k in keys:
+                    seg_info[k].append(torch.as_tensor(info[k]))
+            rec.segment_end()
+            # thinned on the device; one host copy per segment
+            with rec.span("vihmc.transfer"):
+                collected.append(torch.stack(kept, dim=1).cpu().numpy())
+                n_bytes = collected[-1].nbytes
+                for k in keys:
+                    v = torch.stack(seg_info[k], dim=-1 if k in info_keys else 0)
+                    infos[k].append(v.cpu().numpy())
+                    n_bytes += infos[k][-1].nbytes
+                if trace_aux:
+                    traces.append(_stack_trace(seg_trace))
+            rec.anchor()
+            rec.count("sampler.segments")
+            rec.count("sampler.d2h_bytes", n_bytes)
+            with rec.span("vihmc.progress"):
+                if on_segment is not None:
+                    on_segment(seg, state, collected[-1])
+                if progress is not None:
+                    progress(seg + 1, n_segments, state)
     n_run = min(n_total, n_segments * segment_size) - start_segment * segment_size
     out = {k: (np.concatenate(infos[k], axis=1)[:, :n_run] if infos[k]
                else np.zeros((n_chains, 0))) for k in info_keys}

@@ -6,13 +6,15 @@ a Python loop. ``step_size`` is a scalar or a per-chain ``(C,)`` tensor.
 ``n_steps`` (C,) masks the steps past each chain's own trajectory length
 (the ``jitter_l`` scans of ``vihmc_tpu/hmc/kernel.py:593-629``): every step
 runs for every chain, and a chain keeps its state from its last unmasked
-step.
+step. Each field evaluation is a ``vihmc.field`` span and a ``field.calls``
+count (:mod:`vihmc_torch.core.profiling`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from vihmc_torch.core import profiling
 from vihmc_torch.hmc.metric import mass_velocity
 
 
@@ -36,7 +38,9 @@ def leapfrog(value_and_grad_fn, q, p, grad, step_size, num_steps: int, inv_mass=
     for i in range(num_steps):
         p_half = p + 0.5 * eps * grad
         q_new = q + eps * mass_velocity(inv_mass, p_half)
-        lp_new, g_new = value_and_grad_fn(q_new)
+        profiling.count("field.calls")
+        with profiling.span("vihmc.field"):
+            lp_new, g_new = value_and_grad_fn(q_new)
         p_new = p_half + 0.5 * eps * g_new
         if n_steps is None:
             q, p, lp, grad = q_new, p_new, lp_new, g_new
@@ -60,7 +64,9 @@ def leapfrog_grad_only(grad_fn, q, p, grad, step_size, num_steps: int,
     for i in range(num_steps):
         p_half = p + 0.5 * eps * grad
         q_new = q + eps * mass_velocity(inv_mass, p_half)
-        g_new = grad_fn(q_new)
+        profiling.count("field.calls")
+        with profiling.span("vihmc.field"):
+            g_new = grad_fn(q_new)
         p_new = p_half + 0.5 * eps * g_new
         if n_steps is None:
             q, p, grad = q_new, p_new, g_new

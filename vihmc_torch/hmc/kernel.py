@@ -77,6 +77,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from vihmc_torch.core import profiling
 from vihmc_torch.core.mesh import ChainAxis
 from vihmc_torch.hmc.adaptation import (DualAveragingState, da_init, da_restart,
                                         da_update, find_reasonable_step_size)
@@ -351,6 +352,7 @@ def normalize_log_prob(fn: Optional[Callable]) -> Optional[Callable]:
 def value_and_grad(log_prob_fn: Callable, q: torch.Tensor, aux):
     """``(log_prob (C,), d log_prob / dq (C, d))`` by autograd; chains are
     independent, so one backward of the sum gives every chain's gradient."""
+    profiling.count("density.calls")
     with torch.enable_grad():
         x = q.detach().requires_grad_(True)
         lp = log_prob_fn(x, aux)
@@ -365,6 +367,11 @@ def _check_metric(inv_mass, config: HMCConfig):
                          "adapt_mass / init_step_search")
 
 
+def _density(log_prob_fn: Callable, q: torch.Tensor, aux):
+    profiling.count("density.calls")
+    return log_prob_fn(q, aux)
+
+
 def init_state(log_prob_fn: Callable, position: torch.Tensor,
                config: HMCConfig, aux: torch.Tensor,
                grad_fn: Optional[Callable] = None, inv_mass=1.0,
@@ -374,13 +381,15 @@ def init_state(log_prob_fn: Callable, position: torch.Tensor,
     averaging at ``step_size`` -- or, with ``init_step_search`` under
     ``'hmc_nuts'``, at each chain's searched step from the momentum normals
     ``step_noise`` (C, d) -- and the adaptive-metric and momentum carries
-    when their options are on (kernel.py:321-360)."""
+    when their options are on (kernel.py:321-360). Span ``vihmc.init_state``
+    around the initial density and field."""
     _check_metric(inv_mass, config)
     c = position.shape[0]
-    if grad_fn is None:
-        lp, g = value_and_grad(log_prob_fn, position, aux)
-    else:
-        lp, g = log_prob_fn(position, aux), grad_fn(position, aux)
+    with profiling.span("vihmc.init_state", position.device):
+        if grad_fn is None:
+            lp, g = value_and_grad(log_prob_fn, position, aux)
+        else:
+            lp, g = _density(log_prob_fn, position, aux), grad_fn(position, aux)
     step0 = config.step_size
     if config.init_step_search and config.sampler == "hmc_nuts":
         if step_noise is None:
@@ -480,13 +489,13 @@ def make_kernel(config: HMCConfig, inv_mass, grad_fn: Optional[Callable] = None,
             if not config.refresh_during_burn and in_burn:
                 aux = state.aux
             if grad_fn is not None:
-                lp0, g0 = log_prob_fn(q0, aux), grad_fn(q0, aux)
+                lp0, g0 = _density(log_prob_fn, q0, aux), grad_fn(q0, aux)
             else:
                 lp0, g0 = value_and_grad(log_prob_fn, q0, aux)
         else:
             aux, g0 = state.aux, state.grad
             # paired: the MH test never reads lp0; unpaired: recompute, never cache
-            lp0 = state.log_prob if delta_fn is not None else log_prob_fn(q0, aux)
+            lp0 = state.log_prob if delta_fn is not None else _density(log_prob_fn, q0, aux)
         if adapt:
             use_iterate = config.adapt_forever or in_burn
             eps = torch.exp(state.da.log_step if use_iterate else state.da.log_step_avg)
@@ -514,14 +523,20 @@ def make_kernel(config: HMCConfig, inv_mass, grad_fn: Optional[Callable] = None,
         elif grad_fn is not None:
             q1, p1, g1 = leapfrog_grad_only(lambda q: grad_fn(q, aux), q0, p0, g0,
                                             eps, n_lf, inv_mass_t, n_steps=n_steps)
-            lp1 = None if delta_fn is not None else log_prob_fn(q1, aux)
+            if delta_fn is None:
+                # the unpaired MH test's density at the proposal
+                profiling.count("mh.calls")
+                with profiling.span("vihmc.mh"):
+                    lp1 = _density(log_prob_fn, q1, aux)
         else:
             q1, p1, lp1, g1 = leapfrog(lambda q: value_and_grad(log_prob_fn, q, aux),
                                        q0, p0, g0, eps, n_lf, inv_mass_t, n_steps=n_steps)
         ke1 = mass_kinetic_energy(inv_mass_t, p1)
 
         if delta_fn is not None:
-            dlp, lp1 = delta_fn(q1, q0, aux)
+            profiling.count("mh.calls")
+            with profiling.span("vihmc.mh"):
+                dlp, lp1 = delta_fn(q1, q0, aux)
             delta = dlp - (ke1 - ke0)
         else:
             delta = (lp1 - ke1) - (lp0 - ke0)

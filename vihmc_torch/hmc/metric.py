@@ -25,6 +25,8 @@ import math
 
 import torch
 
+from vihmc_torch.core.profiling import count, span
+
 
 @dataclasses.dataclass
 class LowRankMetric:
@@ -199,12 +201,16 @@ def hvp_fn(log_prob, q0: torch.Tensor, aux=None):
 
 
 def preconditioned_hvp(log_prob, q0, diag_inv_mass, aux=None):
-    """HVP of ``A = S (-H) S`` with ``S = diag(sqrt(diag_inv_mass))``."""
+    """HVP of ``A = S (-H) S`` with ``S = diag(sqrt(diag_inv_mass))``; each
+    product is a ``vihmc.lanczos.hvp`` span (host clock) and a
+    ``lanczos.hvps`` count."""
     s = torch.sqrt(torch.as_tensor(diag_inv_mass, dtype=torch.float32))
     base = hvp_fn(log_prob, q0, aux=aux)
 
     def hvp(v):
-        return s * base(s * v)
+        count("lanczos.hvps")
+        with span("vihmc.lanczos.hvp"):
+            return s * base(s * v)
 
     return hvp
 

@@ -30,6 +30,8 @@ import subprocess
 import tempfile
 import time
 
+from vihmc_torch.core.profiling import span
+
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD_DIR = os.path.join(PKG, "_build")
@@ -110,7 +112,12 @@ def library_path(name: str) -> str:
 def build_all(names=None) -> dict:
     """Compile every library not built yet, one ``nvcc`` per source, in
     parallel. Returns ``{name: seconds}`` for the ones it compiled; raises
-    with the compiler's output if any fails."""
+    with the compiler's output if any fails. Span ``vihmc.kernel_build``."""
+    with span("vihmc.kernel_build"):
+        return _build(names)
+
+
+def _build(names) -> dict:
     names = list(SOURCES) if names is None else list(names)
     todo = [n for n in names if not os.path.exists(library_path(n))]
     if not todo:

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from vihmc_torch.core.precision import bf16_exact_tf32
+from vihmc_torch.core.profiling import span
 from vihmc_torch.models.deeponet import (DeepONetConfig, deeponet_features,
                                          unravel_deeponet)
 
@@ -78,7 +79,10 @@ def make_gram_grad_full(cfg: DeepONetConfig, branch_x, trunk_x, y, tau_var,
     rounding; plus ``prior.grad(flat)`` when a full-vector ``prior`` is given.
     ``query_subset`` / ``fn_subset`` (index arrays into the P points / the B
     functions) make it the rescaled stride surrogate; ``compute_dtype=
-    torch.bfloat16`` runs stacks, data and VJP in bf16 (module doc)."""
+    torch.bfloat16`` runs stacks, data and VJP in bf16 (module doc). Spans
+    ``vihmc.field.forward`` (unravel and feature stacks),
+    ``vihmc.field.cotangents`` (the Gram cotangents, scaled and cast) and
+    ``vihmc.field.vjp`` (the feature VJP)."""
     if cfg.noise_neurons:
         raise ValueError("Gram-form gradient covers the homoscedastic merge only")
     if trunk_x.ndim != 2:
@@ -100,15 +104,18 @@ def make_gram_grad_full(cfg: DeepONetConfig, branch_x, trunk_x, y, tau_var,
     def grad_full(flat: torch.Tensor) -> torch.Tensor:
         with torch.enable_grad():
             leaf = flat.detach().to(torch.float32).requires_grad_(True)
-            params = unravel_deeponet(cfg, leaf.to(dt))
-            bout, tout = deeponet_features(cfg, params, bx, tx)
+            with span("vihmc.field.forward"):
+                params = unravel_deeponet(cfg, leaf.to(dt))
+                bout, tout = deeponet_features(cfg, params, bx, tx)
             bias = params["b"]
-            with torch.no_grad():
-                cts = merge_nll_gram_cotangents(bout, tout, bias, yy, tau_var)
-                if ll_scale != 1.0:
-                    cts = [ll_scale * ct for ct in cts]
-            cts = [ct.to(dt) for ct in cts]
-            (g,) = torch.autograd.grad((bout, tout, bias), leaf, grad_outputs=cts)
+            with span("vihmc.field.cotangents"):
+                with torch.no_grad():
+                    cts = merge_nll_gram_cotangents(bout, tout, bias, yy, tau_var)
+                    if ll_scale != 1.0:
+                        cts = [ll_scale * ct for ct in cts]
+                cts = [ct.to(dt) for ct in cts]
+            with span("vihmc.field.vjp"):
+                (g,) = torch.autograd.grad((bout, tout, bias), leaf, grad_outputs=cts)
         if prior is not None:
             g = g + prior.grad(flat)
         return g

@@ -18,6 +18,7 @@ import math
 import torch
 
 from vihmc_torch.core.precision import true_f32
+from vihmc_torch.core.profiling import count, span
 from vihmc_torch.core.ravel import scatter_subspace
 from vihmc_torch.dists.likelihoods import GNLL_EPS, get_likelihood, nll_log_likelihood
 from vihmc_torch.models.bayesian import (bayesian_deeponet_apply, bayesian_mlp_apply,
@@ -165,23 +166,28 @@ def conditional_warm_start(grad_fn, aux, q0, inv_mass_diag, n_steps: int,
     """Chain inits at the conditional's approximate mode: ``n_steps`` of Adam
     (optax defaults b1 0.9, b2 0.999, eps 1e-8) on ``-log p`` in the
     preconditioned space ``q = q0 + scale z``, ``scale = sqrt(inv_mass_diag)``,
-    then ``spread * scale`` Gaussian jitter per chain. Returns ``(C, d)``."""
+    then ``spread * scale`` Gaussian jitter per chain. Returns ``(C, d)``.
+    Spans ``vihmc.warm_start`` and, per step, ``vihmc.warm_start.step``
+    (host clock); counter ``warm_start.steps``."""
     b1, b2, eps = 0.9, 0.999, 1e-8
-    scale = torch.sqrt(torch.as_tensor(inv_mass_diag, dtype=q0.dtype, device=q0.device)
-                       * torch.ones_like(q0))
-    z = torch.zeros_like(q0)[None, :]
-    m = torch.zeros_like(z)
-    v = torch.zeros_like(z)
-    for t in range(1, n_steps + 1):
-        g = -(scale * grad_fn(q0 + scale * z, aux))   # gradient of -log p in z
-        m = (1 - b1) * g + b1 * m
-        v = (1 - b2) * g * g + b2 * v
-        m_hat = m / (1 - b1 ** t)
-        v_hat = v / (1 - b2 ** t)
-        z = z - lr * (m_hat / (torch.sqrt(v_hat) + eps))
-    q_star = q0 + scale * z[0]
-    jitter = spread * scale * torch.randn((n_chains, q0.shape[0]), generator=generator,
-                                          device=q0.device)
+    with span("vihmc.warm_start", q0.device):
+        scale = torch.sqrt(torch.as_tensor(inv_mass_diag, dtype=q0.dtype, device=q0.device)
+                           * torch.ones_like(q0))
+        z = torch.zeros_like(q0)[None, :]
+        m = torch.zeros_like(z)
+        v = torch.zeros_like(z)
+        for t in range(1, n_steps + 1):
+            with span("vihmc.warm_start.step"):
+                g = -(scale * grad_fn(q0 + scale * z, aux))   # gradient of -log p in z
+                m = (1 - b1) * g + b1 * m
+                v = (1 - b2) * g * g + b2 * v
+                m_hat = m / (1 - b1 ** t)
+                v_hat = v / (1 - b2 ** t)
+                z = z - lr * (m_hat / (torch.sqrt(v_hat) + eps))
+            count("warm_start.steps")
+        q_star = q0 + scale * z[0]
+        jitter = spread * scale * torch.randn((n_chains, q0.shape[0]), generator=generator,
+                                              device=q0.device)
     return q_star[None, :] + jitter
 
 
@@ -216,20 +222,23 @@ def make_fused_paired_subspace_delta(cfg: DeepONetConfig, branch_x, trunk_x,
     """Kernel variant of :func:`make_paired_subspace_delta`: the feature
     stacks run composed in IEEE f32, then both endpoint merges and their
     paired reduction run in :func:`~vihmc_torch.ops.deeponet_merge.
-    fused_paired_delta` (one kernel launch for all chains on the card)."""
+    fused_paired_delta` (one kernel launch for all chains on the card).
+    Spans ``vihmc.mh.features`` (both f32 stacks) and
+    ``vihmc.mh.paired_sums`` (the fused merge and sums)."""
     tau = float(tau_var)
     sums_y = y_sums(y)
 
     def delta_fn(q1, q0, aux):
         params1 = unravel_deeponet(cfg, scatter_subspace(aux, q1, idx))
         params0 = unravel_deeponet(cfg, scatter_subspace(aux, q0, idx))
-        with true_f32():
+        with span("vihmc.mh.features"), true_f32():
             bout1, tout1 = deeponet_features(cfg, params1, branch_x, trunk_x)
             bout0, tout0 = deeponet_features(cfg, params0, branch_x, trunk_x)
-        dll, lp1 = fused_paired_delta(
-            bout1.contiguous(), tout1.contiguous(), params1["b"],
-            bout0.contiguous(), tout0.contiguous(), params0["b"], y, tau,
-            y_sum_pair=sums_y)
+        with span("vihmc.mh.paired_sums"):
+            dll, lp1 = fused_paired_delta(
+                bout1.contiguous(), tout1.contiguous(), params1["b"],
+                bout0.contiguous(), tout0.contiguous(), params0["b"], y, tau,
+                y_sum_pair=sums_y)
         lp_q1 = prior.log_prob(q1)
         return dll + (lp_q1 - prior.log_prob(q0)), lp1 + lp_q1
 
