@@ -25,7 +25,9 @@ Phases, each printed with its wall time:
    must show that every draw went through ``paired_sums``;
 4. where a row draw's time goes: the trajectory field, the delta's feature
    forwards and the kernel timed alone at 48 chains, beside the sampling
-   wall per draw;
+   wall per draw; the field's cotangent step alone on the merged route and
+   on the TF32 one it replaced, in turns, beside its bound, and both
+   against float64;
 5. the stage-3 kernels against their plain versions on the card:
    ``merge_sums`` at a ragged shape and at the stage-3 shape (16 chains,
    B = 1000, P = 10,201, K = 100) on real features at the VI mean and one
@@ -209,7 +211,8 @@ from vihmc_torch.bench_operator import (BENCH_L, bench_grad_path, bench_operator
                                         grad_path_log_posteriors, log_posterior_grad,
                                         mh_delta, problem_laplace_inv_mass, trajectory_field)
 from vihmc_torch.dists.priors import DiagonalGaussianPrior
-from vihmc_torch.core.precision import true_f32
+from vihmc_torch.core import profiling
+from vihmc_torch.core.precision import matmul_precision, true_f32
 from vihmc_torch.core.ravel import scatter_subspace
 from vihmc_torch.data.burgers import (get_burgers, load_port_inputs,
                                       load_stage12_artifacts)
@@ -226,8 +229,8 @@ from vihmc_torch.ops.deeponet_merge import (_merge_launch, _paired_launch, _sums
                                             merge_nll_reference, merge_sums,
                                             merge_sums_reference, paired_sums,
                                             paired_sums_reference, y_sums)
-from vihmc_torch.ops.gram_merge import (grid_stride_subset, infer_grid_shape,
-                                        make_gram_grad_full)
+from vihmc_torch.ops.gram_merge import (_gram_cotangents, grid_stride_subset,
+                                        infer_grid_shape, make_gram_grad_full, pad_queries)
 from vihmc_torch.ops.leapfrog import (fused_leapfrog_update,
                                       leapfrog_update_reference)
 import vihmc_torch.chains.resume as chains_resume
@@ -610,6 +613,83 @@ def merge_paths_grid(bo, to, y, reps) -> dict:
                                         merge_sums_bound_ms(c, b, to.shape[1], to.shape[2]))
             table[key]["rule"] = _sums_path(c, b)
     return table
+
+
+def gram_cotangents_tf32(bout, tout, bias, y, var):
+    """The Gram cotangents chain by chain in TF32, phase 4's yardstick for
+    the merged route: f32 copies of the bf16 features and data, each chain's
+    products in TF32 (exact on bf16 values, f32 sums), the scaled results
+    cast back to bf16."""
+    f32 = torch.float32
+    bo, to, yy, b = bout.to(f32), tout.to(f32), y.to(f32), bias.to(f32)
+    sum_t, sum_b = to.sum(-2), bo.sum(-2)
+    with matmul_precision("tensorfloat32"):
+        gram_t = torch.matmul(to.transpose(-1, -2), to)
+        gram_b = torch.matmul(bo.transpose(-1, -2), bo)
+        ct_bout = (torch.matmul(yy, to) - torch.matmul(bo, gram_t)
+                   - b[:, None, None] * sum_t[:, None, :]) / var
+        ct_tout = (torch.matmul(yy.T, bo) - torch.matmul(to, gram_b)
+                   - b[:, None, None] * sum_b[:, None, :]) / var
+    ct_bias = (yy.sum() - (sum_b * sum_t).sum(-1) - y.numel() * b) / var
+    return [ct.to(bout.dtype) for ct in (ct_bout, ct_tout, ct_bias)]
+
+
+def cotangent_step_times(problem, q, reps):
+    """The bf16 Gram field's cotangent step alone on the row's features at
+    ``q`` (C 48, B 1000, P 10,201, K 100): the merged route
+    (``gram_merge._gram_cotangents``: bf16 operands, f32 products, two wide
+    GEMMs) and :func:`gram_cotangents_tf32`, timed in turns (TF32, merged,
+    merged, TF32) beside the bound: 4 C B P K + 4 C (B + P) K^2 operations at
+    the bf16 peak, or y, the features and the cotangents (bf16) once at
+    3.35 TB/s. Chain 0 against float64 on the same bf16 values: the merged
+    route's largest error of a row against the row's norm may not exceed
+    the TF32 route's. ``field.cotangents.merged`` counts every merged call."""
+    bf = torch.bfloat16
+    cfg, spec = problem.cfg, problem.spec
+    params = unravel_deeponet(cfg, scatter_subspace(problem.frozen, q, spec.idx).to(bf))
+    bx, tx, y = (t.to(bf) for t in (problem.branch_x, problem.trunk_x, problem.y))
+    with torch.no_grad():
+        bout, tout = deeponet_features(cfg, params, bx, tx)
+    bias = params["b"].detach()
+    c, b, k = bout.shape
+    p = tout.shape[1]
+    yp, y_sum, bufs = pad_queries(y, bf), float(y.sum(dtype=torch.float32)), {}
+    routes = {"tf32": lambda: gram_cotangents_tf32(bout, tout, bias, y, 1.0),
+              "merged": lambda out=bf: _gram_cotangents(bout, tout, bias, yp, y_sum, 1.0, 1.0,
+                                                        out, bufs)}
+    n0 = profiling.counters().get("field.cotangents.merged", 0)
+    times = {"tf32": [], "merged": []}
+    for label in ("tf32", "merged", "merged", "tf32"):
+        times[label].append(time_device(f"cotangents {label}", routes[label], reps))
+    n_merged = profiling.counters().get("field.cotangents.merged", 0) - n0
+    check(n_merged == 2 * (reps + 2), f"field.cotangents.merged counted {n_merged} of "
+          f"{2 * (reps + 2)} merged calls")
+    flops = c * (4 * b * p * k + 4 * (b + p) * k * k)
+    nbytes = 2 * (b * p + 2 * c * (b + p) * k)
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    ms = {k_: sum(v) / 2 for k_, v in times.items()}
+    # chain 0 in float64: ct_tout, the wide one
+    f64 = torch.float64
+    bo, to, yy = bout[0].to(f64), tout[0].to(f64), y.to(f64)
+    want = yy.T @ bo - to @ (bo.T @ bo) - bias[0].to(f64) * bo.sum(0)
+    errs = {}
+    for label, fn in (("tf32", lambda: gram_cotangents_tf32(bout.float(), tout.float(),
+                                                            bias.float(), y.float(), 1.0)),
+                      ("merged", lambda: routes["merged"](torch.float32))):
+        got = fn()[1][0]       # f32: the TF32 route on f32 copies skips the bf16 cast
+        errs[label] = ((got.to(f64) - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+    del want, yy
+    print(f"  cotangent step at C={c} B={b} P={p} K={k}: merged {times['merged'][0]:.4f}/"
+          f"{times['merged'][1]:.4f} ms, TF32 {times['tf32'][0]:.4f}/{times['tf32'][1]:.4f} ms "
+          f"(in turns, {reps} queued calls each; {ms['tf32'] / ms['merged']:.2f}x); bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP at "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB at "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s): merged {100 * bound_ms / ms['merged']:.1f} %, "
+          f"TF32 {100 * bound_ms / ms['tf32']:.1f} %; chain 0 ct_tout row error vs float64: "
+          f"merged {errs['merged']:.3g}, TF32 {errs['tf32']:.3g}")
+    check(errs["merged"] <= errs["tf32"], f"merged cotangents less precise than TF32: {errs}")
+    profile_line("cotangents merged", routes["merged"], 5)
+    profile_line("cotangents TF32", routes["tf32"], 5)
 
 
 def stage3_kernels(dev, train, arts, reps):
@@ -2417,6 +2497,7 @@ def main(argv=None) -> int:
 
     feat_ms = time_device("row feature forwards", feature_forwards, SPLIT_REPS)
     delta_ms = time_device("row delta", lambda: delta(q1, q0, aux), SPLIT_REPS)
+    cotangent_step_times(problem, q0, args.timing_reps)
     draw_ms = 1e3 / stats["draws_per_s"]
     parts = {"gram_field_x4": 4 * grad_ms, "delta_feature_forwards": feat_ms,
              "paired_sums": ms, "delta_rest": delta_ms - feat_ms - ms}

@@ -695,3 +695,58 @@ def test_small_kernels_at_reference_scale(cuda_device):
     err_k = (d_k.double() - d_64.double()).abs().max().item()
     err_p = (d_p.double() - d_64.double()).abs().max().item()
     assert err_k <= 2 * err_p + 1e-3, (err_k, err_p)
+
+
+def _gram_cotangents_f64(bout, tout, bias, y, var):
+    """The Gram cotangents in float64, chain by chain."""
+    f64 = torch.float64
+    yy = y.to(f64)
+    out = [[], [], []]
+    for c in range(bout.shape[0]):
+        bo, to, b = bout[c].to(f64), tout[c].to(f64), bias[c].to(f64)
+        sum_t, sum_b = to.sum(0), bo.sum(0)
+        out[0].append((yy @ to - bo @ (to.T @ to) - b * sum_t) / var)
+        out[1].append((yy.T @ bo - to @ (bo.T @ bo) - b * sum_b) / var)
+        out[2].append((yy.sum() - sum_b @ sum_t - yy.numel() * b) / var)
+    return [torch.stack(o) for o in out]
+
+
+def test_merged_gram_cotangents_at_f32_accumulation_level(cuda_device):
+    """The merged bf16 -> f32 route on the card at C = 4, B = 64, P = 1,001
+    (odd: the query pad is exercised), K = 100, against float64 on the same
+    bf16 values: every row of both cotangents within 1e-5 of its norm and the
+    bias cotangent within 1e-5 (f32 sums of exact products; a bf16-rounded
+    result is over 100x further off); ``field.cotangents.merged`` counts one
+    per merged call, and none for a f32 field on the card."""
+    from vihmc_torch.core import profiling
+    from vihmc_torch.models.deeponet import DeepONetConfig
+    from vihmc_torch.ops.gram_merge import make_gram_grad_full, merge_nll_gram_cotangents
+
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(16)
+    bf = torch.bfloat16
+    bout, tout, bias, y = (torch.randn(s, generator=gen, device=cuda_device).to(bf)
+                           for s in ((4, 64, 100), (4, 1001, 100), (4,), (64, 1001)))
+    n0 = profiling.counters().get("field.cotangents.merged", 0)
+    got = merge_nll_gram_cotangents(bout, tout, bias, y, 0.7)
+    torch.cuda.synchronize()
+    want = _gram_cotangents_f64(bout, tout, bias, y, 0.7)
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        err = ((g.double() - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
+        rounded = ((g.to(bf).double() - w).norm(dim=-1) / w.norm(dim=-1)).max().item()
+        assert err <= 1e-5 and 100 * err < rounded, (err, rounded)
+    assert ((got[2].double() - want[2]).abs() / want[2].abs()).max().item() <= 1e-5
+    assert profiling.counters()["field.cotangents.merged"] == n0 + 1
+
+    cfg = DeepONetConfig(in_branch=6, in_trunk=5, width_branch=9, width_trunk=9,
+                         depth_branch=3, depth_trunk=3)
+    bx = torch.randn(64, 6, generator=gen, device=cuda_device)
+    tx = torch.rand(1001, 2, generator=gen, device=cuda_device)
+    flat = 0.3 * torch.randn(3, cfg.num_params, generator=gen, device=cuda_device)
+    y32 = y.float()
+    g_bf = make_gram_grad_full(cfg, bx, tx, y32, 0.7, compute_dtype=bf)
+    g_32 = make_gram_grad_full(cfg, bx, tx, y32, 0.7)
+    for _ in range(2):
+        assert torch.isfinite(g_bf(flat)).all() and torch.isfinite(g_32(flat)).all()
+    assert profiling.counters()["field.cotangents.merged"] == n0 + 3

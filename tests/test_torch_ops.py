@@ -20,6 +20,7 @@ from vihmc_tpu.ops.deeponet_merge import paired_delta_reference as j_ref
 from vihmc_torch.ops.deeponet_merge import (fused_paired_delta,
                                             paired_delta_reference, paired_sums,
                                             paired_sums_reference)
+from vihmc_torch.ops.gram_merge import make_gram_grad_full, merge_nll_gram_cotangents
 
 
 def _ragged(seed=5, b=130, p=301, k=12, c=1):
@@ -181,3 +182,162 @@ def test_gram_gradient_matches_jax(dtype, rtol, atol):
         scale = auto.abs().max()
         np.testing.assert_allclose((got / scale).numpy(), (auto / scale).numpy(),
                                    rtol=1e-4, atol=1e-4)
+
+
+# -- the merged Gram cotangents against the per-chain formula in float64 --
+
+MERGED_CFG = dict(in_branch=6, in_trunk=5, width_branch=9, width_trunk=9, depth_branch=3,
+                  depth_trunk=3, output_neurons=7)
+
+
+def _cotangents_f64(bout, tout, bias, y, var, scale):
+    """The Gram cotangents chain by chain in float64, term by term as in
+    ``ops/gram_merge.py``'s module doc: ``(y @ tout - bout @ (tout^T tout) -
+    b sum_j tout_j) / var`` and its two siblings, times ``scale``."""
+    f64 = torch.float64
+    yy = y.to(f64)
+    out = [[], [], []]
+    for c in range(bout.shape[0]):
+        bo, to, b = bout[c].to(f64), tout[c].to(f64), bias[c].to(f64)
+        sum_t, sum_b = to.sum(0), bo.sum(0)
+        out[0].append((yy @ to - bo @ (to.T @ to) - b * sum_t) / var)
+        out[1].append((yy.T @ bo - to @ (bo.T @ bo) - b * sum_b) / var)
+        out[2].append((yy.sum() - sum_b @ sum_t - yy.numel() * b) / var)
+    return [scale * torch.stack(o) for o in out]
+
+
+def _row_err(got, want):
+    """Largest error of a row of K against the row's norm."""
+    return ((got.to(torch.float64) - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_merged_cotangents_match_float64_per_chain_formula_ragged(dtype):
+    """C = 3, B = 37, P = 101, K = 7 (none a multiple of 8): the public
+    merge_nll_gram_cotangents in f32 (bf16 inputs upcast on the CPU) within
+    f32 rounding of the float64 per-chain formula."""
+    dtype = getattr(torch, dtype)
+    rng = np.random.default_rng(16)
+    bout, tout = (torch.as_tensor(rng.normal(size=s), dtype=dtype)
+                  for s in ((3, 37, 7), (3, 101, 7)))
+    bias = torch.as_tensor(rng.normal(size=3), dtype=dtype)
+    y = torch.as_tensor(rng.normal(size=(37, 101)), dtype=dtype)
+    got = merge_nll_gram_cotangents(bout, tout, bias, y, 0.7)
+    want = _cotangents_f64(bout, tout, bias, y, 0.7, 1.0)
+    assert [g.dtype for g in got] == [torch.float32] * 3
+    assert [g.shape for g in got] == [w.shape for w in want]
+    assert _row_err(got[0], want[0]) < 1e-5 and _row_err(got[1], want[1]) < 1e-5
+    np.testing.assert_allclose(got[2].numpy(), want[2].numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("subsets", ["full", "query", "fn", "both"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_field_cotangents_match_float64_per_chain_formula(monkeypatch, dtype, subsets):
+    """The cotangents make_gram_grad_full hands its VJP (3 chains, 37 functions
+    x 101 points, K = 7; stride subsets leave 13 functions and 34 points) are
+    ll_scale = (P / p)(B / b) times the float64 per-chain formula on the same
+    features, in the compute dtype: within f32 rounding, and within bf16's
+    half ulp where the cotangents are bf16."""
+    from vihmc_torch.models.deeponet import DeepONetConfig
+    from vihmc_torch.ops import gram_merge
+
+    dtype = getattr(torch, dtype)
+    cfg = DeepONetConfig(**MERGED_CFG)
+    rng = np.random.default_rng(17)
+    bx = torch.as_tensor(rng.normal(size=(37, 6)), dtype=torch.float32)
+    tx = torch.as_tensor(rng.random((101, 2)), dtype=torch.float32)
+    y = torch.as_tensor(rng.normal(size=(37, 101)), dtype=torch.float32)
+    q_sub = np.arange(0, 101, 3) if subsets in ("query", "both") else None
+    f_sub = np.arange(0, 37, 3) if subsets in ("fn", "both") else None
+    ys = y[:, q_sub] if q_sub is not None else y
+    ys = ys[f_sub] if f_sub is not None else ys
+    scale = (101 / ys.shape[1]) * (37 / ys.shape[0])
+    seen = []
+
+    def capture(bout, tout, bias, *args):
+        out = real(bout, tout, bias, *args)
+        seen.append((bout.detach(), tout.detach(), bias.detach(), out))
+        return out
+
+    real = gram_merge._gram_cotangents
+    monkeypatch.setattr(gram_merge, "_gram_cotangents", capture)
+    grad = make_gram_grad_full(cfg, bx, tx, y, 0.7, compute_dtype=dtype,
+                               query_subset=q_sub, fn_subset=f_sub)
+    flats = torch.as_tensor(0.4 * rng.normal(size=(3, cfg.num_params)), dtype=torch.float32)
+    grad(flats)
+    (bout, tout, bias, got), = seen
+    assert scale != 1.0 or subsets == "full"
+    want = _cotangents_f64(bout, tout, bias, ys.to(dtype), 0.7, scale)
+    assert [g.dtype for g in got] == [dtype] * 3
+    assert [g.shape for g in got] == [w.shape for w in want]
+    assert all(g.is_contiguous() for g in got)
+    if dtype == torch.float32:
+        assert _row_err(got[0], want[0]) < 1e-5 and _row_err(got[1], want[1]) < 1e-5
+        np.testing.assert_allclose(got[2].numpy(), want[2].numpy(), rtol=1e-5)
+    else:
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.double().numpy(), w.numpy(), rtol=2.0 ** -8,
+                                       atol=1e-30)
+
+
+def test_side_by_side_layout_carries_the_column_sums_in_the_gram_row():
+    """tout (3, 101, 7) side by side as (104, 3, 8): each chain's 7 features,
+    a one, zero pad rows; the Gram matrix of a block holds the feature
+    column sums in row 7 and the count in (7, 7). y (37, 101) pads to 104
+    zero columns."""
+    from vihmc_torch.ops.gram_merge import _side_by_side, pad_queries
+
+    feat = torch.randn(3, 101, 7)
+    t = _side_by_side(feat, 104, 8, torch.float32, None, "t")
+    assert t.shape == (104, 3, 8)
+    assert torch.equal(t[:101, :, :7], feat.transpose(0, 1))
+    assert (t[:101, :, 7] == 1).all() and not t[101:].any()
+    t_c = t.transpose(0, 1)
+    gram = t_c.transpose(1, 2) @ t_c
+    torch.testing.assert_close(gram[:, 7, :7], feat.sum(1))
+    assert (gram[:, 7, 7] == 101).all()
+    y = torch.randn(37, 101)
+    yp = pad_queries(y, torch.bfloat16)
+    assert yp.shape == (37, 104) and yp.dtype == torch.bfloat16
+    assert torch.equal(yp[:, :101], y.to(torch.bfloat16)) and not yp[:, 101:].any()
+    assert pad_queries(torch.randn(5, 104), torch.float32).shape == (5, 104)
+
+
+def test_field_layouts_are_reused_and_stay_zero_padded():
+    """The field keeps its side-by-side layouts between calls: a second call
+    on other parameters gives what a fresh field gives on them."""
+    from vihmc_torch.models.deeponet import DeepONetConfig
+
+    cfg = DeepONetConfig(**MERGED_CFG)
+    rng = np.random.default_rng(18)
+    bx = torch.as_tensor(rng.normal(size=(37, 6)), dtype=torch.float32)
+    tx = torch.as_tensor(rng.random((101, 2)), dtype=torch.float32)
+    y = torch.as_tensor(rng.normal(size=(37, 101)), dtype=torch.float32)
+    flat_a, flat_b = (torch.as_tensor(3.0 * rng.normal(size=(3, cfg.num_params)),
+                                      dtype=torch.float32) for _ in range(2))
+    kept = make_gram_grad_full(cfg, bx, tx, y, 0.7)
+    kept(flat_a)
+    assert torch.equal(kept(flat_b), make_gram_grad_full(cfg, bx, tx, y, 0.7)(flat_b))
+
+
+def test_count_flops_counts_products_with_an_f32_result():
+    """The mfu blocks' FLOP count takes the merged route's bf16 products with
+    an f32 result (``out_dtype``; on meta tensors, as shapes), 2 per
+    multiply-add, beside plain f32 products."""
+    from vihmc_torch.core.profiling import count_flops
+
+    bf, f32 = torch.bfloat16, torch.float32
+    a, b = (torch.empty(s, device="meta", dtype=bf) for s in ((3, 4, 8), (3, 8, 5)))
+    x, w = (torch.empty(s, device="meta", dtype=bf) for s in ((4, 8), (8, 5)))
+    acc = torch.empty(3, 4, 5, device="meta")
+
+    def products():
+        torch.bmm(a, b, out_dtype=f32)
+        torch.mm(x, w, out_dtype=f32)
+        torch.addmm(acc[0], x, w, out_dtype=f32)
+        torch.baddbmm(acc, a.float(), b.float(), alpha=-1, out=acc)
+        return torch.mm(x.float(), w.float())
+
+    flops, out = count_flops(products)
+    assert out.shape == (4, 5)
+    assert flops == 2 * (2 * 3 * 4 * 8 * 5) + 3 * (2 * 4 * 8 * 5)

@@ -370,3 +370,47 @@ def test_the_event_path_maps_device_stamps_through_the_anchor(monkeypatch):
         pass
     (w,) = _by_name(profiling.records(), "vihmc.warm_start")
     assert abs((w["dev_t0"] - w["host_t0"]) / 1e6 - lag_ms) < 1.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gram_cotangent_span_wraps_the_step_and_the_cpu_counts_no_merged_route(monkeypatch,
+                                                                              dtype):
+    """A Gram field call on the CPU (under a profiler, so the detailed spans
+    record outside a draw): ``vihmc.field.cotangents`` opens after the
+    forward, closes before the VJP and holds the whole cotangent step, which
+    returns the compute dtype the VJP takes; the CPU has no bf16 -> f32
+    product, so ``field.cotangents.merged`` stays 0 (bf16 stacks upcast)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vihmc_torch.models.deeponet import DeepONetConfig
+    from vihmc_torch.ops import gram_merge
+
+    dt = getattr(torch, dtype)
+    cfg = DeepONetConfig(in_branch=6, in_trunk=5, width_branch=9, width_trunk=9,
+                         depth_branch=3, depth_trunk=3, output_neurons=7)
+    rng = np.random.default_rng(19)
+    bx, tx, y = (torch.as_tensor(a, dtype=torch.float32) for a in
+                 (rng.normal(size=(37, 6)), rng.random((101, 2)), rng.normal(size=(37, 101))))
+    real, out_dtypes = gram_merge._gram_cotangents, []
+
+    def step(*args):
+        with profiling.span("vihmc.test.cotangent_step"):
+            out = real(*args)
+        out_dtypes.append({t.dtype for t in out})
+        return out
+
+    monkeypatch.setattr(gram_merge, "_gram_cotangents", step)
+    grad = gram_merge.make_gram_grad_full(cfg, bx, tx, y, 0.7, compute_dtype=dt,
+                                          query_subset=np.arange(0, 101, 3))
+    flats = torch.as_tensor(0.4 * rng.normal(size=(3, cfg.num_params)), dtype=torch.float32)
+    with profile(activities=[ProfilerActivity.CPU]), profiling.span("vihmc.field"):
+        grad(flats)
+    recs = profiling.records()
+    (fwd,), (cot,), (vjp,), (inner,) = (_by_name(recs, n) for n in (
+        "vihmc.field.forward", "vihmc.field.cotangents", "vihmc.field.vjp",
+        "vihmc.test.cotangent_step"))
+    assert inner["parent"] == cot["id"]
+    assert fwd["host_t1"] <= cot["host_t0"] <= inner["host_t0"]
+    assert inner["host_t1"] <= cot["host_t1"] <= vjp["host_t0"]
+    assert out_dtypes == [{dt}]
+    assert profiling.counters().get("field.cotangents.merged", 0) == 0

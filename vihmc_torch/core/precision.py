@@ -8,12 +8,6 @@ matmul may run on the tensor cores in TF32 (10-bit mantissa) when
 revives the acceptance ceiling the paired delta exists to remove, so every
 density evaluation runs under :func:`true_f32`.
 
-:func:`bf16_exact_tf32` is the opposite switch for one narrow use: matmuls
-whose float32 operands are upcast bfloat16 values. TF32 holds every bfloat16
-value exactly (8-bit exponent, 10- vs 7-bit mantissa), so on those operands
-the tensor cores form exact products and accumulate them in float32 -- the
-``preferred_element_type=float32`` contract of the JAX Gram gradient.
-
 :func:`matmul_precision` is the counterpart of JAX's ``matmul_precision``
 (``jax.default_matmul_precision``) for callers outside the densities: it
 takes JAX's precision names and restores the previous state on exit. No
@@ -25,19 +19,6 @@ from __future__ import annotations
 import contextlib
 
 import torch
-
-
-@contextlib.contextmanager
-def _matmul_tf32(allow: bool):
-    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
-    prev_prec = torch.get_float32_matmul_precision()
-    torch.backends.cuda.matmul.allow_tf32 = allow
-    torch.set_float32_matmul_precision("high" if allow else "highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev_prec)
-        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
 
 
 #: JAX's matmul precision names -> torch's float32 matmul precision
@@ -64,11 +45,15 @@ def matmul_precision(mode: str):
         torch.set_float32_matmul_precision(prev)
 
 
+@contextlib.contextmanager
 def true_f32():
     """Context: float32 matmuls in IEEE float32 (no TF32)."""
-    return _matmul_tf32(False)
-
-
-def bf16_exact_tf32():
-    """Context: TF32 allowed, for float32 matmuls of upcast bfloat16 values only."""
-    return _matmul_tf32(True)
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    prev_prec = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev_prec)
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32

@@ -51,6 +51,7 @@ import collections
 import contextlib
 import itertools
 import json
+import math
 import os
 import sys
 import time
@@ -140,14 +141,28 @@ def _kernel_flops() -> int:
     return paired_sums.flops + merge_sums.flops
 
 
+def _product_flops(lead: int):
+    """``FlopCounterMode`` formula of a (batched) matrix product whose two
+    operands follow ``lead`` other arguments: 2 per multiply-add. It takes
+    the ``out_dtype`` overloads (bf16 operands, f32 result) too, whose extra
+    argument torch's own formulas mistake for the output's shape."""
+    def formula(*shapes, out_shape=None, **kwargs):
+        a, b = shapes[lead], shapes[lead + 1]
+        return 2 * math.prod(a) * b[-1]
+    return formula
+
+
 def count_flops(fn: Callable, *args, **kwargs):
     """``(flops, fn's result)``: the matmul FLOPs of one call of ``fn``
     (2 per multiply-add, counted from the shapes of the matmuls torch
     issues) plus those of the port's kernels it launched."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    aten = torch.ops.aten
+    products = {aten.mm: _product_flops(0), aten.bmm: _product_flops(0),
+                aten.addmm: _product_flops(1), aten.baddbmm: _product_flops(1)}
     k0 = _kernel_flops()
-    with FlopCounterMode(display=False) as counter:
+    with FlopCounterMode(display=False, custom_mapping=products) as counter:
         out = fn(*args, **kwargs)
     return int(counter.get_total_flops()) + _kernel_flops() - k0, out
 

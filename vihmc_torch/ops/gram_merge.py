@@ -26,48 +26,131 @@ Precision. With ``compute_dtype=torch.bfloat16`` the stacks, the data and the
 cotangents entering the VJP are bf16, as in JAX (the subsets are taken
 first, and the rescale applies to the f32 cotangents before their cast).
 Where JAX writes ``preferred_element_type=float32`` (the Gram matrices and
-the two data contractions) the port upcasts the bf16 operands to f32 and
-multiplies under :func:`~vihmc_torch.core.precision.bf16_exact_tf32`: every
-bf16 value is exact in TF32, so the products are exact and accumulate in f32
-to an f32 result -- the same contract, on the tensor cores. The gradient is a
-trajectory field only: any deterministic field keeps leapfrog reversible and
-volume-preserving, and MH on the exact f32 density stays unbiased.
+the two data contractions) the port keeps the bf16 operands and asks for an
+f32 result (``out_dtype``): exact products, summed in f32 on the tensor
+cores -- the same contract. ``feat @ gram`` multiplies by an f32 Gram matrix,
+so it runs as two such products, on a bf16 high part of the Gram matrix and
+on the bf16 rounding of the rest (16 mantissa bits). The CPU has no
+``out_dtype`` product, and f32 stacks want none: there the operands are f32
+and every product is f32. The gradient is a trajectory field only: any
+deterministic field keeps leapfrog reversible and volume-preserving, and MH
+on the exact f32 density stays unbiased.
 """
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
-from vihmc_torch.core.precision import bf16_exact_tf32
-from vihmc_torch.core.profiling import span
+from vihmc_torch.core.profiling import count, span
 from vihmc_torch.models.deeponet import (DeepONetConfig, deeponet_features,
                                          unravel_deeponet)
 
 GNLL_EPS = 1e-6
 
 
+def _ceil8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def pad_queries(y: torch.Tensor, dtype) -> torch.Tensor:
+    """``y`` (B, P) as (B, P8) in ``dtype``, P8 the multiple of 8 at or above
+    P, the pad columns zero: every row of the data operand starts on 16
+    bytes."""
+    b, p = y.shape
+    out = y.new_zeros((b, _ceil8(p)), dtype=dtype)
+    out[:, :p] = y
+    return out
+
+
+def _merged_route(feat: torch.Tensor) -> bool:
+    """bf16 features on CUDA: bf16 operands, f32 products (``out_dtype``)."""
+    return feat.is_cuda and feat.dtype == torch.bfloat16
+
+
+def _side_by_side(feat, rows: int, k8: int, dtype, bufs, key):
+    """``feat`` (C, N, K) as (rows, C, K8), K8 > K: each row holds every
+    chain's K features in a block of K8, then a one (rows below N: zero), then
+    zeros. Against the block, a Gram matrix's row K is the features' column
+    sums, and ``feat @ gram`` adds that row. With ``bufs`` (a dict) the array
+    is kept there and reused for features of the same shape: only the
+    features are written again."""
+    c, n, k = feat.shape
+    buf = None if bufs is None else bufs.get(key)
+    if buf is None or buf.shape != (rows, c, k8) or buf.dtype != dtype:
+        buf = feat.new_zeros((rows, c, k8), dtype=dtype)
+        buf[:n, :, k] = 1
+        if bufs is not None:
+            bufs[key] = buf
+    buf[:n, :, :k] = feat.transpose(0, 1)
+    return buf
+
+
+def _gram_parts(gram: torch.Tensor, merged: bool):
+    """The right-hand operands whose products sum to ``feat @ gram``: on the
+    merged route a bf16 high part and the bf16 rounding of the rest (16
+    mantissa bits together, against TF32's 10), else ``gram`` itself."""
+    if not merged:
+        return (gram,)
+    hi = gram.to(torch.bfloat16)
+    return hi, torch.sub(gram, hi, out=torch.empty_like(hi))
+
+
+def _gram_cotangents(bout, tout, bias, yp, y_sum, var, scale=1.0,
+                     out_dtype=torch.float32, bufs=None):
+    """``scale`` x the Gram cotangents (module doc) of C chains at once:
+    ``(ct_bout (C, B, K), ct_tout (C, P, K), ct_bias (C,))`` in ``out_dtype``,
+    contiguous. ``yp`` is :func:`pad_queries` of ``y``, ``y_sum`` the sum of
+    ``y``; ``bufs`` a dict that keeps the layouts between calls.
+
+    The chains' features lie side by side (:func:`_side_by_side`), each in a
+    block of K8 columns: ``t`` (P8, C K8) and ``bo`` (B, C K8). The Gram
+    matrices of the blocks carry the column sums in row K; scaled by the
+    bias, that row makes ``feat @ gram`` carry the bias term as well. Then
+    ``s yp @ t`` and ``s yp^T @ bo`` are one GEMM each over every chain
+    (``s = scale / var``), their chain blocks take ``- s feat @ gram`` in
+    place (batched), and one copy writes each cotangent. On CUDA with bf16
+    features (the merged route) the operands stay bf16 and every product
+    returns f32 (``out_dtype``): exact products, f32 sums. Elsewhere the
+    operands are f32 and so are the products."""
+    c, b, k = bout.shape
+    p, p8, k8 = tout.shape[1], yp.shape[1], _ceil8(k + 1)
+    merged = _merged_route(bout)
+    op = torch.bfloat16 if merged else torch.float32
+    f32 = {"out_dtype": torch.float32} if merged else {}
+    s = scale / var
+    t = _side_by_side(tout, p8, k8, op, bufs, "t")
+    bo = _side_by_side(bout, b, k8, op, bufs, "bo")
+    t_c, bo_c = t.transpose(0, 1), bo.transpose(0, 1)        # (C, P8, K8), (C, B, K8)
+    gram_t = torch.bmm(t_c.transpose(1, 2), t_c, **f32)       # (C, K8, K8)
+    gram_b = torch.bmm(bo_c.transpose(1, 2), bo_c, **f32)
+    sum_t, sum_b = gram_t[:, k, :k], gram_b[:, k, :k]          # (C, K) each
+    bb = bias.to(torch.float32)
+    ct_bias = (sum_b * sum_t).sum(-1).add_(bb, alpha=b * p).mul_(-s).add_(s * y_sum)
+    gram_t[:, k].mul_(bb[:, None])
+    gram_b[:, k].mul_(bb[:, None])
+    yt = yp.new_empty((b, c * k8), dtype=torch.float32)
+    yb = yp.new_empty((p8, c * k8), dtype=torch.float32)
+    torch.addmm(yt, yp, t.view(p8, c * k8), beta=0, alpha=s, out=yt, **f32)
+    torch.addmm(yb, yp.T, bo.view(b, c * k8), beta=0, alpha=s, out=yb, **f32)
+    yt_c = yt.view(b, c, k8).transpose(0, 1)                  # (C, B, K8)
+    yb_c = yb.view(p8, c, k8).transpose(0, 1)                 # (C, P8, K8)
+    for acc, feat, gram in ((yt_c, bo_c, gram_t), (yb_c, t_c, gram_b)):
+        for part in _gram_parts(gram, merged):
+            torch.baddbmm(acc, feat, part, beta=1, alpha=-s, out=acc, **f32)
+    if merged:
+        count("field.cotangents.merged")
+    ct_bout = bout.new_empty((c, b, k), dtype=out_dtype).copy_(yt_c[:, :, :k])
+    ct_tout = tout.new_empty((c, p, k), dtype=out_dtype).copy_(yb_c[:, :p, :k])
+    return ct_bout, ct_tout, ct_bias.to(out_dtype)
+
+
 def merge_nll_gram_cotangents(bout, tout, bias, y, tau):
     """``(d ll/d bout (C,B,K), d ll/d tout (C,P,K), d ll/d bias (C,))`` in f32,
     without forming (B, P). ``y`` (B, P) is shared by all chains."""
-    var = max(float(tau), GNLL_EPS)
-    f32 = torch.float32
-    bo, to, yy = bout.to(f32), tout.to(f32), y.to(f32)
-    b = bias.to(f32)
-    sum_t = to.sum(-2)                                        # (C, K)
-    sum_b = bo.sum(-2)                                        # (C, K)
-    with bf16_exact_tf32() if bout.dtype == torch.bfloat16 else contextlib.nullcontext():
-        gram_t = torch.matmul(to.transpose(-1, -2), to)       # (C, K, K)
-        gram_b = torch.matmul(bo.transpose(-1, -2), bo)
-        yt = torch.matmul(yy, to)                             # (C, B, K)
-        yb = torch.matmul(yy.T, bo)                           # (C, P, K)
-        ct_bout = (yt - torch.matmul(bo, gram_t) - b[:, None, None] * sum_t[:, None, :]) / var
-        ct_tout = (yb - torch.matmul(to, gram_b) - b[:, None, None] * sum_b[:, None, :]) / var
-    n = y.shape[0] * y.shape[1]
-    ct_bias = (yy.sum() - (sum_b * sum_t).sum(-1) - n * b) / var
-    return ct_bout, ct_tout, ct_bias
+    yp = pad_queries(y, torch.bfloat16 if _merged_route(bout) else torch.float32)
+    return _gram_cotangents(bout, tout, bias, yp, y.sum(dtype=torch.float32),
+                            max(float(tau), GNLL_EPS))
 
 
 def make_gram_grad_full(cfg: DeepONetConfig, branch_x, trunk_x, y, tau_var,
@@ -100,6 +183,10 @@ def make_gram_grad_full(cfg: DeepONetConfig, branch_x, trunk_x, y, tau_var,
         branch_x, y = branch_x[fsel], y[fsel]
     dt = torch.float32 if compute_dtype is None else compute_dtype
     bx, tx, yy = (t.to(dt).contiguous() for t in (branch_x, trunk_x, y))
+    yp = pad_queries(yy, torch.bfloat16 if _merged_route(yy) else torch.float32)
+    y_sum = float(yy.sum(dtype=torch.float32))
+    var = max(float(tau_var), GNLL_EPS)
+    bufs = {}
 
     def grad_full(flat: torch.Tensor) -> torch.Tensor:
         with torch.enable_grad():
@@ -110,10 +197,8 @@ def make_gram_grad_full(cfg: DeepONetConfig, branch_x, trunk_x, y, tau_var,
             bias = params["b"]
             with span("vihmc.field.cotangents"):
                 with torch.no_grad():
-                    cts = merge_nll_gram_cotangents(bout, tout, bias, yy, tau_var)
-                    if ll_scale != 1.0:
-                        cts = [ll_scale * ct for ct in cts]
-                cts = [ct.to(dt) for ct in cts]
+                    cts = _gram_cotangents(bout, tout, bias, yp, y_sum, var, ll_scale, dt,
+                                           bufs)
             with span("vihmc.field.vjp"):
                 (g,) = torch.autograd.grad((bout, tout, bias), leaf, grad_outputs=cts)
         if prior is not None:
