@@ -414,3 +414,121 @@ def test_gram_cotangent_span_wraps_the_step_and_the_cpu_counts_no_merged_route(m
     assert inner["host_t1"] <= cot["host_t1"] <= vjp["host_t0"]
     assert out_dtypes == [{dt}]
     assert profiling.counters().get("field.cotangents.merged", 0) == 0
+
+
+@pytest.mark.parametrize("n,segment", [(8, 2), (9, 3), (8, 4), (4, 1)])
+def test_a_short_segment_details_its_last_draw_but_the_first(n, segment):
+    _sample(n=n, segment=segment)
+    recs = profiling.records()
+    sampled = {i for i in range(n) if 0 < i % segment == segment - 1}
+    assert {r["draw"] for r in _by_name(recs, "vihmc.field")} == sampled
+    assert profiling.detailed(4, 30) and not profiling.detailed(3, 30)
+    assert profiling.detailed(1, 2) and not profiling.detailed(0, 2)
+    assert not profiling.detailed(0, 1) and profiling.detailed(4, None)
+
+
+def _fno_problem(chains=2, per_chunk=None):
+    """A small Bayesian FNO2d posterior: 6 functions on a 7 x 9 grid, the
+    field's chunks of ``per_chunk`` functions (None: one chunk)."""
+    from vihmc_torch import bench_fno
+    from vihmc_torch.models.fno import FNO2dConfig, fno_field_bytes, init_fno
+
+    cfg = FNO2dConfig(modes1=2, modes2=2, width=4, n_layers=2, fc_dim=8, padding=2)
+    max_bytes = None if per_chunk is None else chains * per_chunk * fno_field_bytes(cfg, 7, 9)
+    g = torch.Generator().manual_seed(21)
+    u0 = torch.randn(6, 9, generator=g)
+    y = 0.1 * torch.randn(6, 7 * 9, generator=g)
+    mu = init_fno(cfg, g)
+    sigma = torch.full_like(mu, 0.01)
+    scores = bench_fno.fno_probe_scores(cfg, mu, sigma, u0, 7, 4, 3, seed=5)
+    problem = bench_fno.build_fno_problem(cfg, u0, y, mu, sigma, torch.randn(
+        mu.shape[0], generator=g), scores, 40, max_bytes)
+    return cfg, problem
+
+
+def test_fno_spans_open_and_close_in_order_inside_the_field_and_the_mh_test():
+    """Subspace VI-HMC on a small Bayesian FNO2d through the sampler (segments
+    of 2, so each segment's second draw is detailed): the spectral
+    convolution's forward spans inside ``vihmc.field.forward``, its backward
+    inside ``vihmc.field.vjp``, the pointwise layers in both, one
+    ``vihmc.fno.density`` in each MH test, each span inside its parent and
+    the same layer's spans in turn."""
+    from vihmc_torch import bench_fno
+    from vihmc_torch.dists.priors import DiagonalGaussianPrior
+    from vihmc_torch.pipelines.common import fno_chunks
+
+    cfg, p = _fno_problem(per_chunk=3)
+    chunks = fno_chunks(cfg, 6, 2, 7, 9, p.max_bytes)
+    assert len(chunks) == 2
+    prior = DiagonalGaussianPrior(loc=p.spec.sub_mu(), scale=p.spec.sub_sigma())
+    log_prob, aux0 = bench_fno.fno_log_prob(p, prior)
+    inv_mass = bench_fno.fno_laplace_inv_mass(p)
+    grad_fn = bench_fno.fno_trajectory_field(p, prior, inv_mass, "bfloat16")
+    delta_fn = bench_fno.fno_mh_delta(p, prior)
+    profiling.reset()
+    cfg_h = HMCConfig(num_samples=4, num_leapfrog=3, step_size=0.05, burn=2)
+    sample_chains_resumable(log_prob, p.spec.sub_mu().expand(2, -1).clone(), cfg_h, 2,
+                            inv_mass, aux0, grad_fn=grad_fn, delta_fn=delta_fn, seed=9)
+    recs = profiling.records()
+    by_id = {r["id"]: r for r in recs}
+    parents = {"vihmc.fno.spectral": {"vihmc.field.forward"},
+               "vihmc.fno.spectral.bwd": {"vihmc.field.vjp"},
+               "vihmc.fno.pointwise": {"vihmc.field.forward", "vihmc.field.vjp"},
+               "vihmc.fno.density": {"vihmc.mh"}}
+    for name, allowed in parents.items():
+        got = _by_name(recs, name)
+        assert {r["draw"] for r in got} == {1, 3}, name
+        for r in got:
+            par = by_id[r["parent"]]
+            assert par["name"] in allowed, (name, par["name"])
+            assert par["host_t0"] <= r["host_t0"] <= r["host_t1"] <= par["host_t1"]
+            assert r["dev_t0"] is not None and r["dev_t0"] <= r["dev_t1"]
+        spans = sorted((r["host_t0"], r["host_t1"]) for r in got)
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:])), name
+    per_draw = 3 * len(chunks)                      # field calls x chunks
+    for name, n in (("vihmc.fno.spectral", cfg.n_layers * per_draw),
+                    ("vihmc.fno.spectral.bwd", cfg.n_layers * per_draw),
+                    ("vihmc.fno.pointwise", 2 * (cfg.n_layers + 2) * per_draw),
+                    ("vihmc.fno.density", 1)):
+        assert len(_by_name(recs, name)) == 2 * n, name
+    # the backward spans close after their draw's forward spans of the chunk
+    fwd = _by_name(recs, "vihmc.fno.spectral")
+    bwd = _by_name(recs, "vihmc.fno.spectral.bwd")
+    assert min(r["host_t0"] for r in bwd) > min(r["host_t1"] for r in fwd)
+
+
+def test_fno_counters_count_chunks_transform_bytes_and_probes():
+    from vihmc_torch.models.fno import fft_bytes, fno_field_bytes
+    from vihmc_torch.pipelines.common import (fno_chunks, make_fno_grad_full,
+                                              make_fno_paired_subspace_delta)
+    from vihmc_torch.dists.priors import DiagonalGaussianPrior
+
+    profiling.reset()
+    cfg, p = _fno_problem()
+    c = profiling.counters()
+    # 4 functions x 3 probes, one VJP each
+    assert c["sensitivity.probes"] == 12
+    assert [r["name"] for r in profiling.records()].count("vihmc.sensitivity") == 1
+    profiling.reset()
+    mb = 3 * 3 * fno_field_bytes(cfg, 7, 9)
+    chunks = fno_chunks(cfg, 6, 3, 7, 9, mb)
+    assert len(chunks) == 2
+    grad = make_fno_grad_full(cfg, p.u0, p.y, 1.0, max_bytes=mb)
+    grad(p.frozen.expand(3, -1).contiguous())
+    grad(p.frozen[None])
+    c = profiling.counters()
+    one = fno_chunks(cfg, 6, 1, 7, 9, mb)
+    assert c["fno.chunks"] == len(chunks) + len(one)
+    want = sum(2 * cfg.n_layers * fft_bytes(3, cfg.width, b - a, 9, 11) for a, b in chunks)
+    want += sum(2 * cfg.n_layers * fft_bytes(1, cfg.width, b - a, 9, 11) for a, b in one)
+    assert c["fno.fft_bytes"] == want
+    profiling.reset()
+    prior = DiagonalGaussianPrior(loc=p.spec.sub_mu(), scale=p.spec.sub_sigma())
+    delta = make_fno_paired_subspace_delta(cfg, p.u0, p.y, 1.0, p.spec.idx, prior)
+    q = p.spec.sub_mu().expand(2, -1)
+    delta(q, q, p.frozen)
+    c = profiling.counters()
+    assert "fno.chunks" not in c
+    assert c["fno.fft_bytes"] == cfg.n_layers * fft_bytes(4, cfg.width, 6, 9, 11)
+    # the shapes' count: each transform reads its input and writes its output once
+    assert fft_bytes(1, 1, 1, 9, 11) == 2 * (9 * 11 * 4 + 9 * 6 * 8)

@@ -109,7 +109,7 @@ def run_segments(step: Callable, state, n_total: int, segment_size: int, thin: i
         kept, seg_info, seg_trace = [], {k: [] for k in keys}, []
         with rec.segment(seg, device):
             for i in range(segment_size):
-                with rec.draw(seg * segment_size + i, i):
+                with rec.draw(seg * segment_size + i, i, segment_size):
                     state, info = step(state, gen)
                 rec.count("sampler.draws")
                 if (i + 1) % thin == 0:

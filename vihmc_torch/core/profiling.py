@@ -17,11 +17,15 @@ hooks) times every layer of the sampling path where its work happens:
 each transition), ``vihmc.transfer`` (the segment's host copy) and
 ``vihmc.progress``; inside a draw the trajectory field (``vihmc.field``, and
 the Gram field's ``vihmc.field.forward`` / ``.cotangents`` / ``.vjp``) and the
-MH test (``vihmc.mh``, ``vihmc.mh.features``, ``vihmc.mh.paired_sums``); in the
-set-up ``vihmc.kernel_build``, ``vihmc.warm_start`` (``.step``),
-``vihmc.lanczos`` (``.hvp``) and ``vihmc.init_state``. A record holds the
-name, an id, the parent's id, the draw id (the draw's global index), the
-segment, the rank (in a process group), the host start and end
+MH test (``vihmc.mh``, ``vihmc.mh.features``, ``vihmc.mh.paired_sums``); the
+FNO2d's layers (``vihmc.fno.spectral`` and ``vihmc.fno.spectral.bwd``, the
+spectral convolution's forward and backward; ``vihmc.fno.pointwise``, the lift,
+1x1 convolutions, GELU and projection both ways; ``vihmc.fno.density``, the
+MH test's f32 forwards); in the set-up ``vihmc.kernel_build``,
+``vihmc.warm_start`` (``.step``), ``vihmc.lanczos`` (``.hvp``),
+``vihmc.sensitivity`` (the probe estimator) and ``vihmc.init_state``. A
+record holds the name, an id, the parent's id, the draw id (the draw's global
+index), the segment, the rank (in a process group), the host start and end
 (``perf_counter_ns``), the device start and end on the same clock, and
 whether a ``torch.profiler`` session was active at its start.
 
@@ -34,7 +38,8 @@ stamps. No span adds a host sync inside a draw. What is recorded, by default: ev
 span with one event at its start (its device time runs to the next draw's
 start, or to the event at the segment's end); the detailed spans, each with an
 event pair, on the draws whose index in the segment is ``DETAIL_AT`` mod
-``DETAIL_EVERY`` (so never the first after a boundary); the set-up's spans on
+``DETAIL_EVERY``, and in a segment of ``DETAIL_AT`` draws or fewer on its last
+(so never the first after a boundary); the set-up's spans on
 the host clock, with an event pair on each outer one. While a profiler
 session is active every span also opens ``torch.profiler.record_function``
 under its name, so it lands in the device trace, and detailed spans are
@@ -176,11 +181,13 @@ RING_DRAWS = 4096
 #: set-up records kept: warm-start steps, Lanczos HVPs, outer spans
 RING_SETUP = 8192
 #: the detailed spans are recorded on draws whose index in the segment is
-#: ``DETAIL_AT`` mod ``DETAIL_EVERY``
+#: ``DETAIL_AT`` mod ``DETAIL_EVERY`` (a shorter segment: its last draw but the first)
 DETAIL_EVERY, DETAIL_AT = 8, 4
 DETAIL_SPANS = frozenset({
     "vihmc.field", "vihmc.field.forward", "vihmc.field.cotangents", "vihmc.field.vjp",
-    "vihmc.mh", "vihmc.mh.features", "vihmc.mh.paired_sums"})
+    "vihmc.mh", "vihmc.mh.features", "vihmc.mh.paired_sums",
+    "vihmc.fno.spectral", "vihmc.fno.spectral.bwd", "vihmc.fno.pointwise",
+    "vihmc.fno.density"})
 SEGMENT_SPANS = frozenset({"vihmc.segment", "vihmc.transfer", "vihmc.progress"})
 
 _NULL = contextlib.nullcontext()
@@ -234,16 +241,16 @@ class _Draw(_Span):
     """The draw's span: one event at its start; its device end is the next
     draw's start or the segment's end, filled in at the anchor."""
 
-    __slots__ = ("index",)
+    __slots__ = ("index", "size")
 
-    def __init__(self, rec, r, mode, stream, index):
+    def __init__(self, rec, r, mode, stream, index, size=None):
         super().__init__(rec, r, mode, stream)
-        self.index = index
+        self.index, self.size = index, size
 
     def __enter__(self):
         rec = self.rec
         rec._draw = [self.r]
-        rec._sampled = self.index % DETAIL_EVERY == DETAIL_AT
+        rec._sampled = detailed(self.index, self.size)
         super().__enter__()
         if self.mode == "event":
             rec._pending.append((self.r, "dev_t0", self.ev0, self.stream))
@@ -265,6 +272,15 @@ class _Draw(_Span):
             # them: the reading overlaps the device's work, not its idle
             rec._flush()
         return False
+
+
+def detailed(index: int, size=None) -> bool:
+    """Whether draw ``index`` of a segment of ``size`` draws records the
+    detailed spans: index ``DETAIL_AT`` mod ``DETAIL_EVERY``, or, in a segment
+    too short to reach it, the last draw unless it is the first."""
+    if index % DETAIL_EVERY == DETAIL_AT:
+        return True
+    return size is not None and 0 < index == size - 1 < DETAIL_AT
 
 
 def _fill_draws(seg: dict, draws: list):
@@ -375,13 +391,14 @@ class SpanRecorder:
             return _NULL
         return self._segment(segment, device)
 
-    def draw(self, draw_id: int, index: int):
+    def draw(self, draw_id: int, index: int, size=None):
         """The span of one draw: ``draw_id`` its global index, ``index`` its
-        place in the segment (which picks the detailed draws)."""
+        place in the segment of ``size`` draws (which pick the detailed draws,
+        :func:`detailed`)."""
         if not self.enabled or self._seg is None:
             return _NULL
         return _Draw(self, self._record("vihmc.draw", draw_id), self._mode, self._stream,
-                     index)
+                     index, size)
 
     def segment_end(self):
         """Mark the end of the segment's last draw on the device (one event)."""

@@ -38,6 +38,7 @@ from torch import nn
 
 from vihmc_torch.models.deeponet import (DeepONetConfig, bc_embedding, deeponet_apply,
                                          merge, unravel_deeponet)
+from vihmc_torch.models.fno import FNO2dConfig, fno_apply_chains, fno_input
 from vihmc_torch.models.mlp import MLPConfig, get_activation, mlp_apply, unravel_mlp
 
 #: ``{'mu': ..., 'rho': ...}`` (flat ``(D,)`` tensors for the models here)
@@ -262,6 +263,22 @@ def bayesian_deeponet_apply(cfg: DeepONetConfig, vp: dict, branch_x: torch.Tenso
                       generator)
     eb = _normals(get("b"), (e,), generator, branch_x.device)
     return merge(cfg, bout, tout, mu_p["b"] + eb * softplus_sigma(rho_p["b"]))
+
+
+def bayesian_fno_apply(cfg: FNO2dConfig, vp: dict, u0: torch.Tensor, nt: int, eps=None,
+                       sample: bool = True, mode: str = "bbb",
+                       generator: Optional[torch.Generator] = None,
+                       num_samples: int = 1) -> torch.Tensor:
+    """``(E, B, nt nx)`` FNO2d outputs of ``E`` weight-space members on the
+    initial conditions ``u0`` (B, nx) over ``nt`` time rows
+    (:func:`~vihmc_torch.models.fno.fno_input`), or ``(1, B, nt nx)`` at the
+    mean weights. Only ``'bbb'``: the spectral weights have no local
+    reparameterization here."""
+    check_mode(mode)
+    if mode != "bbb" and sample:
+        raise ValueError("the Bayesian FNO2d samples in weight space ('bbb') only")
+    w = _weights(vp, eps, sample, num_samples, generator)
+    return fno_apply_chains(cfg, w, fno_input(u0, nt)).flatten(2)
 
 
 class BayesianFlat(nn.Module):

@@ -9,6 +9,15 @@ the kernel path the operator row runs on the card), plus the preconditioned
 Adam warm start both operator entry points share (``bench.py:883-922``,
 ``pipelines/vi_hmc.py:364-406``). Every closure takes chain-batched tensors:
 flat ``(C, D)``, subspace ``(C, d)``; the frozen vector ``aux`` is ``(D,)``.
+
+The Fourier neural operator (:mod:`vihmc_torch.models.fno`, no JAX
+counterpart): ``fno_vi_apply`` (weight-space BBB for the VI trainer), and for
+stage 3 ``make_fno_grad_full`` (the chain-batched
+autograd field over function chunks), ``make_fno_nll_log_likelihood`` (the
+IEEE-f32 density, per-function residual squares summed in float64) and
+``make_fno_paired_subspace_delta`` (both endpoints' forwards in one pass, the
+paired residuals summed in float64). Their function chunks come from
+:func:`fno_chunks`: as many functions at once as ``max_bytes`` holds.
 """
 
 from __future__ import annotations
@@ -21,10 +30,12 @@ from vihmc_torch.core.precision import true_f32
 from vihmc_torch.core.profiling import count, span
 from vihmc_torch.core.ravel import scatter_subspace
 from vihmc_torch.dists.likelihoods import GNLL_EPS, get_likelihood, nll_log_likelihood
-from vihmc_torch.models.bayesian import (bayesian_deeponet_apply, bayesian_mlp_apply,
-                                         check_mode)
+from vihmc_torch.models.bayesian import (bayesian_deeponet_apply, bayesian_fno_apply,
+                                         bayesian_mlp_apply, check_mode)
 from vihmc_torch.models.deeponet import (DeepONetConfig, bc_embedding, deeponet_apply,
                                          deeponet_features, unravel_deeponet)
+from vihmc_torch.models.fno import (FNO2dConfig, fno_apply_chains, fno_field_bytes,
+                                    fno_input)
 from vihmc_torch.models.mlp import MLPConfig, mlp_apply, mlp_stack
 from vihmc_torch.ops.deeponet_merge import (fused_merge_nll, fused_paired_delta,
                                             merge_nll_reference, y_sums)
@@ -257,3 +268,138 @@ def make_nll_log_likelihood(cfg: DeepONetConfig, branch_x, trunk_x, y, tau_var):
         return nll_log_likelihood(pred, y, tau_var)
 
     return full_ll
+
+
+# ---------------------------------------------------------------------------
+# The Fourier neural operator
+# ---------------------------------------------------------------------------
+
+def fno_vi_apply(cfg: FNO2dConfig, mode: str = "bbb"):
+    """``apply_fn(vp, batch{'branch', 'trunk', 'y'}, eps, sample, num_samples,
+    generator) -> (E, B, P)`` for the VI trainer: ``batch['branch']`` holds the
+    initial conditions (B, nx) and ``batch['trunk']`` the shared (P, 2) grid
+    of ``P = nt nx`` points, t-major; the FNO predicts the whole grid, so a
+    per-example subsample of it is refused."""
+    check_mode(mode)
+
+    def apply_fn(vp, batch, eps=None, sample=True, num_samples=1, generator=None):
+        u0, trunk = batch["branch"], batch["trunk"]
+        if trunk.ndim != 2:
+            raise ValueError("the FNO2d predicts the whole grid: train it on the shared "
+                             "grid (p equal to the grid's points), not per-example points")
+        nt = trunk.shape[0] // u0.shape[-1]
+        return bayesian_fno_apply(cfg, vp, u0, nt, eps, sample, mode, generator, num_samples)
+
+    return apply_fn
+
+
+def fno_chunks(cfg: FNO2dConfig, n_functions: int, n_chains: int, s1: int, s2: int,
+               max_bytes=None, grad: bool = True) -> list:
+    """``[(lo, hi)]``: the functions in as few equal chunks as
+    :func:`~vihmc_torch.models.fno.fno_field_bytes` says ``max_bytes`` holds
+    for ``n_chains`` chains (None: one chunk), each a multiple of 8 functions
+    but the last (the products' rows then start on 16 bytes)."""
+    if max_bytes is None:
+        return [(0, n_functions)]
+    per = n_chains * fno_field_bytes(cfg, s1, s2, grad)
+    fit = max(1, int(max_bytes // per))
+    n_chunks = -(-n_functions // fit)
+    size = -(-n_functions // n_chunks)
+    size = min(fit, -(-size // 8) * 8)
+    return [(lo, min(lo + size, n_functions)) for lo in range(0, n_functions, size)]
+
+
+def make_fno_grad_full(cfg: FNO2dConfig, u0, y, tau_var, compute_dtype=None,
+                       max_bytes=None):
+    """``grad_full(flat (C, D)) -> (C, D)`` f32: d log-likelihood / d flat of
+    the FNO2d on the initial conditions ``u0`` (B, nx) against ``y`` (B, nt
+    nx), Gaussian NLL at variance ``tau_var``, by autograd through the
+    layers' Functions, one function chunk (:func:`fno_chunks`) at a time, the
+    chunks' gradients summed. ``compute_dtype=torch.bfloat16``: bf16 GEMM
+    operands, f32 sums and transforms. Per chunk the spans
+    ``vihmc.field.forward`` (the forward and the residual cotangent) and
+    ``vihmc.field.vjp`` (the backward), with the model's own spans inside;
+    counter ``fno.chunks``, the chunks of each call."""
+    a = fno_input(u0, y.shape[1] // u0.shape[1])
+    s1, s2 = a.shape[1], a.shape[2]
+    var = max(float(tau_var), GNLL_EPS)
+
+    def grad_full(flat):
+        chunks = fno_chunks(cfg, a.shape[0], flat.shape[0], s1, s2, max_bytes)
+        count("fno.chunks", len(chunks))
+        g = None
+        with torch.enable_grad(), true_f32():
+            leaf = flat.detach().to(torch.float32).requires_grad_(True)
+            for lo, hi in chunks:
+                with span("vihmc.field.forward"):
+                    pred = fno_apply_chains(cfg, leaf, a[lo:hi], compute_dtype,
+                                            spans=True).flatten(2)
+                    ct = (y[lo:hi] - pred.detach()).div_(var)
+                with span("vihmc.field.vjp"):
+                    (gc,) = torch.autograd.grad(pred, leaf, grad_outputs=ct)
+                del pred, ct
+                g = gc if g is None else g.add_(gc)
+        return g
+
+    return grad_full
+
+
+def _fno_residual_sums(cfg, flat, a, y, chunks, pair: bool):
+    """float64 sums over functions of the per-function residual squares: of
+    ``flat`` (C, D) ((C,)); with ``pair`` the rows are ``[q1; q0]`` (2C, D)
+    and the sums are ``sum (e1 - e0)(e1 + e0)`` and ``sum e1^2`` ((C,) each)."""
+    out = [torch.zeros(flat.shape[0] // (2 if pair else 1), dtype=torch.float64,
+                       device=flat.device) for _ in range(2 if pair else 1)]
+    for lo, hi in chunks:
+        e = (fno_apply_chains(cfg, flat, a[lo:hi]).flatten(2) - y[lo:hi]).double()
+        if pair:
+            e1, e0 = e.chunk(2)
+            out[0] += ((e1 - e0) * (e1 + e0)).sum(-1).sum(-1)
+            out[1] += (e1 * e1).sum(-1).sum(-1)
+        else:
+            out[0] += (e * e).sum(-1).sum(-1)
+        del e
+    return out
+
+
+def make_fno_nll_log_likelihood(cfg: FNO2dConfig, u0, y, tau_var, max_bytes=None):
+    """``full_ll(flat (C, D)) -> (C,)`` f32: the FNO2d's Gaussian NLL
+    log-likelihood (no ``2 pi`` constant) in IEEE f32, each function's
+    residual squares summed in float64, chunked over functions (span
+    ``vihmc.fno.density``)."""
+    a = fno_input(u0, y.shape[1] // u0.shape[1])
+    var = max(float(tau_var), GNLL_EPS)
+    const = -0.5 * y.numel() * math.log(var)
+
+    def full_ll(flat):
+        chunks = fno_chunks(cfg, a.shape[0], flat.shape[0], a.shape[1], a.shape[2],
+                            max_bytes, grad=False)
+        with span("vihmc.fno.density"), true_f32(), torch.no_grad():
+            (ss,) = _fno_residual_sums(cfg, flat, a, y, chunks, pair=False)
+        return (-0.5 / var * ss + const).float()
+
+    return full_ll
+
+
+def make_fno_paired_subspace_delta(cfg: FNO2dConfig, u0, y, tau_var, idx, prior,
+                                   max_bytes=None):
+    """The FNO2d's paired MH delta ``delta_fn(q1, q0, aux) -> (dlp (C,), lp1
+    (C,))``: both endpoints' IEEE-f32 forwards in one chain-batched pass per
+    function chunk, the residuals paired cell by cell and summed in float64
+    (``-0.5/var sum (e1 - e0)(e1 + e0)``), plus the prior difference; ``lp1``
+    the proposal's log density (span ``vihmc.fno.density``)."""
+    a = fno_input(u0, y.shape[1] // u0.shape[1])
+    var = max(float(tau_var), GNLL_EPS)
+    const = -0.5 * y.numel() * math.log(var)
+
+    def delta_fn(q1, q0, aux):
+        flat = torch.cat([scatter_subspace(aux, q1, idx), scatter_subspace(aux, q0, idx)])
+        chunks = fno_chunks(cfg, a.shape[0], flat.shape[0], a.shape[1], a.shape[2],
+                            max_bytes, grad=False)
+        with span("vihmc.fno.density"), true_f32(), torch.no_grad():
+            dss, ss1 = _fno_residual_sums(cfg, flat, a, y, chunks, pair=True)
+        lp_q1 = prior.log_prob(q1)
+        dll = (-0.5 / var * dss + (lp_q1 - prior.log_prob(q0)).double()).float()
+        return dll, (-0.5 / var * ss1 + const + lp_q1.double()).float()
+
+    return delta_fn

@@ -55,8 +55,9 @@ from vihmc_torch.data.synthetic import regression_data
 from vihmc_torch.io.artifacts import RunStore
 from vihmc_torch.models.bayesian import BayesianFlat, init_variational
 from vihmc_torch.models.deeponet import DeepONetConfig
+from vihmc_torch.models.fno import FNO2dConfig
 from vihmc_torch.pipelines import sensitivity
-from vihmc_torch.pipelines.common import deeponet_vi_apply, mlp_vi_apply
+from vihmc_torch.pipelines.common import deeponet_vi_apply, fno_vi_apply, mlp_vi_apply
 from vihmc_torch.pipelines.configs import (NNVIRunConfig, OperatorVIRunConfig,
                                            SensitivityRunConfig)
 from vihmc_torch.sensitivity import flatten_mean_std
@@ -74,6 +75,14 @@ def nn_data(cfg: NNVIRunConfig, seed: int, device) -> dict:
     return regression_data(cfg.n_train, cfg.n_val, noise_std=cfg.noise,
                            generator=stream_generator(device, seed, _DATA_STREAM),
                            device=device)
+
+
+def _operator_vi_apply(model, mode: str):
+    """The VI trainer's apply of an operator model: the DeepONet's, or the
+    FNO2d's (weight space, on the shared grid)."""
+    if isinstance(model, FNO2dConfig):
+        return fno_vi_apply(model, mode)
+    return deeponet_vi_apply(model, mode)
 
 
 def _init_vp(num_params, cfg, init_vp, dev, seed):
@@ -153,7 +162,9 @@ def run_operator(cfg: OperatorVIRunConfig = OperatorVIRunConfig(), seed: int = 0
     ``.mat`` at ``mat_path``), or Cone, :func:`~vihmc_torch.data.cone.get_cone`
     (generated from the seed, or read from ``mat_path``). ``epochs``
     overrides ``cfg.vi.epochs`` (float ``beta_type``); ``callback(epoch,
-    row, trainer)`` runs after each epoch.
+    row, trainer)`` runs after each epoch. A ``cfg.model`` of
+    :class:`~vihmc_torch.models.fno.FNO2dConfig` trains the Bayesian FNO2d
+    (Burgers on the shared grid, ``p`` at the grid's points).
     """
     dev = resolve_device(device)
     check_vi_config(cfg.vi)
@@ -205,10 +216,10 @@ def run_operator(cfg: OperatorVIRunConfig = OperatorVIRunConfig(), seed: int = 0
                     for i in range(0, n_train, cfg.batch_size)]
 
         final, best, metrics = _train_loop(
-            cfg, deeponet_vi_apply(cfg.model, cfg.mode), vp, all_batches, valid_batch,
+            cfg, _operator_vi_apply(cfg.model, cfg.mode), vp, all_batches, valid_batch,
             train_eval_batch, n_train * n_grid, gen, store)
         return _finish(cfg, None, final, best, metrics, (train, valid), store)
-    model = BayesianFlat(deeponet_vi_apply(cfg.model, cfg.mode), vp["mu"], vp["rho"])
+    model = BayesianFlat(_operator_vi_apply(cfg.model, cfg.mode), vp["mu"], vp["rho"])
     # the reference's train_size: N_train x trunk points
     trainer = VITrainer(model, cfg.vi, train_size=n_train * n_grid, generator=gen)
 

@@ -13,17 +13,32 @@ only one ``(chunk, *out, D)`` block lives at a time, in IEEE float32
 (:func:`captured_variance_count`, :func:`select_sensitive_indices`) is the
 JAX package's numpy code verbatim, on float32 scores: a float64 cumsum, a
 ``torch.sort`` or another ``argsort`` kind can move it.
+
+Where the ``(outputs x D)`` block does not fit (the FNO2d's is 10,201 x
+2,368,001 per function), ``probes=n`` estimates the same mean from
+Rademacher probes: ``E_v[(v^T J)^2] = sum_o J_o^2`` for ``v`` of +-1 over the
+outputs, so ``n`` seeded probes per example, each one VJP, average to the
+mean squared Jacobian. The examples run as rows of ``apply_rows(flat (E, D),
+inputs) -> (E, *out)`` (row ``e`` the forward of copy ``e`` of the vector on
+example ``e``; default ``vmap`` of ``apply_one``): ``chunk_size`` examples at
+a time, each repeated once per probe, so that one forward and one backward
+give every probe's VJP of the chunk (``probes x chunk_size`` rows; the chunk
+bounds the memory). ``probes=0`` is the
+exact ``jacrev`` path above, unchanged. Span ``vihmc.sensitivity`` (the probe
+estimator); counter ``sensitivity.probes`` (probes x examples, one VJP each
+row).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 from torch.func import jacrev, vmap
 
 from vihmc_torch.core.precision import true_f32
+from vihmc_torch.core.profiling import count, span
 from vihmc_torch.models.bayesian import softplus_sigma
 
 
@@ -40,15 +55,21 @@ def _batch_size(inputs) -> int:
 
 
 def mean_squared_jacobian(apply_one: Callable, flat_params: torch.Tensor, inputs,
-                          chunk_size: int = 0) -> torch.Tensor:
+                          chunk_size: int = 0, probes: int = 0, seed: int = 0,
+                          apply_rows: Optional[Callable] = None) -> torch.Tensor:
     """``(D,)``: the mean over examples and output coordinates of
     ``(d output / d flat_params)^2``.
 
     ``apply_one(flat (D,), one_input) -> outputs`` is the forward of ONE
     example; ``inputs`` is a tensor or a dict of tensors with a leading
     example axis. ``chunk_size > 0`` streams the examples in chunks of that
-    size (0: all at once).
+    size (0: all at once). ``probes > 0``: the Rademacher estimate of ``probes``
+    probes per example drawn from a generator seeded with ``seed``, the rows
+    run by ``apply_rows`` (module doc).
     """
+    if probes:
+        return _probe_mean_squared_jacobian(apply_one, flat_params, inputs, chunk_size,
+                                            probes, seed, apply_rows)
     flat = flat_params.detach()
 
     def one_example(x):
@@ -64,10 +85,51 @@ def mean_squared_jacobian(apply_one: Callable, flat_params: torch.Tensor, inputs
     return torch.cat(per_example).mean(0)
 
 
+def _probe_mean_squared_jacobian(apply_one, flat_params, inputs, chunk_size, probes, seed,
+                                 apply_rows):
+    flat = flat_params.detach()
+    dev = flat.device
+    if apply_rows is None:
+        apply_rows = vmap(apply_one)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    n = _batch_size(inputs)
+    step = chunk_size if chunk_size and chunk_size > 0 else n
+    acc = torch.zeros_like(flat)
+    n_out = None
+    with span("vihmc.sensitivity", dev), true_f32():
+        for lo in range(0, n, step):
+            rows = _take(inputs, lo, min(lo + step, n))
+            e = _batch_size(rows)
+            # every probe of every example a row: one forward, one backward
+            rep = _repeat(rows, probes)
+            with torch.enable_grad():
+                leaf = flat.expand(probes * e, -1).clone().requires_grad_(True)
+                out = apply_rows(leaf, rep)
+                n_out = out[0].numel()
+                v = torch.randint(0, 2, out.shape, generator=gen, device=dev,
+                                  dtype=out.dtype).mul_(2).sub_(1)
+                (g,) = torch.autograd.grad(out, leaf, grad_outputs=v)
+            acc += (g * g).sum(0)
+            del g, out, leaf
+            count("sensitivity.probes", probes * e)
+    return acc / (n * n_out * probes)
+
+
+def _repeat(inputs, k: int):
+    """The examples ``k`` times over, probe-major."""
+    if isinstance(inputs, dict):
+        return {key: v.repeat(k, *([1] * (v.dim() - 1))) for key, v in inputs.items()}
+    return inputs.repeat(k, *([1] * (inputs.dim() - 1)))
+
+
 def sensitivity_scores(apply_one: Callable, flat_mu: torch.Tensor, flat_sigma: torch.Tensor,
-                       inputs, chunk_size: int = 0) -> torch.Tensor:
-    """``S = E[(dy/dw)^2] sigma^2`` at the VI posterior mean."""
-    return mean_squared_jacobian(apply_one, flat_mu, inputs, chunk_size) * flat_sigma ** 2
+                       inputs, chunk_size: int = 0, probes: int = 0, seed: int = 0,
+                       apply_rows: Optional[Callable] = None) -> torch.Tensor:
+    """``S = E[(dy/dw)^2] sigma^2`` at the VI posterior mean (exact, or with
+    ``probes`` Rademacher probes per example: :func:`mean_squared_jacobian`)."""
+    return mean_squared_jacobian(apply_one, flat_mu, inputs, chunk_size, probes, seed,
+                                 apply_rows) * flat_sigma ** 2
 
 
 def captured_variance_count(scores, threshold: float = 0.90) -> int:
