@@ -22,12 +22,16 @@ Phases, each printed with its wall time:
    DeepONet, B = 1000 x P = 10,201, 2048-dim subspace, 48 chains, L = 4,
    bf16 Gram trajectory gradients, the fused paired delta, a low-rank
    metric), with only its depth cut; the kernel launch counts of that run
-   must show that every draw went through ``paired_sums``;
+   must show that every draw went through ``paired_sums`` and every field
+   call through the fused stacks (11 launches a call);
 4. where a row draw's time goes: the trajectory field, the delta's feature
    forwards and the kernel timed alone at 48 chains, beside the sampling
    wall per draw; the field's cotangent step alone on the merged route and
    on the TF32 one it replaced, in turns, beside its bound, and both
-   against float64;
+   against float64; the field's fused stacks (``csrc/field_stack.cu``)
+   forward and backward against the autograd path they replaced, in turns,
+   beside their byte bounds and the plain version's time, their gradient
+   against the plain version's;
 5. the stage-3 kernels against their plain versions on the card:
    ``merge_sums`` at a ragged shape and at the stage-3 shape (16 chains,
    B = 1000, P = 10,201, K = 100) on real features at the VI mean and one
@@ -221,9 +225,11 @@ from vihmc_torch.hmc.integrators import leapfrog_grad_only
 from vihmc_torch.hmc.kernel import (clipped_grad_fn, draw_noise, init_state, make_kernel,
                                     mass_window_schedule)
 from vihmc_torch.hmc.subspace import make_subspace_grad
-from vihmc_torch.models.deeponet import (DeepONetConfig, deeponet_features,
+from vihmc_torch.models.deeponet import (DeepONetConfig, bc_embedding, deeponet_features,
                                          unravel_deeponet)
 from vihmc_torch.ops import cuda_build
+from vihmc_torch.ops.field_stacks import (FeatureStacks, _backward_launch,
+                                          stacks_backward_reference, stacks_forward_reference)
 from vihmc_torch.ops.deeponet_merge import (_merge_launch, _paired_launch, _sums_path,
                                             close_paired_sums, fused_merge_nll,
                                             merge_nll_reference, merge_sums,
@@ -335,6 +341,9 @@ KERNELS = {
                          "replaces": "vihmc_tpu/ops/deeponet_merge.py:72"},
     "leapfrog_update": {"route": "cuda", "source": "vihmc_torch/csrc/leapfrog_update.cu",
                         "replaces": "vihmc_tpu/ops/leapfrog.py:46"},
+    # pack + forward + one backward launch per layer, per bf16 Gram field call
+    "field_stacks": {"route": "cuda", "source": "vihmc_torch/csrc/field_stack.cu",
+                     "replaces": "none: the JAX field's stacks are XLA matmuls"},
 }
 # (wrapper, attribute): each wrapper counts its launches, those at C = 1 and
 # those of the small kernel apart
@@ -344,7 +353,8 @@ COUNTERS = {"paired_sums": (paired_sums, "launches"),
             "merge_sums": (merge_sums, "launches"),
             "merge_sums_c1": (merge_sums, "launches_c1"),
             "merge_sums_small": (merge_sums, "launches_small"),
-            "leapfrog_update": (fused_leapfrog_update, "launches")}
+            "leapfrog_update": (fused_leapfrog_update, "launches"),
+            "field_stacks": (FeatureStacks, "launches")}
 
 
 def check(cond: bool, msg: str):
@@ -690,6 +700,110 @@ def cotangent_step_times(problem, q, reps):
     check(errs["merged"] <= errs["tf32"], f"merged cotangents less precise than TF32: {errs}")
     profile_line("cotangents merged", routes["merged"], 5)
     profile_line("cotangents TF32", routes["tf32"], 5)
+
+
+def stacks_bytes_flops(plan, c):
+    """``(forward bytes, backward bytes, forward FLOPs, backward FLOPs)`` of
+    one field call's stacks at C chains: each input read once and each output
+    written once at the layers' own widths (the flat f32 vector, the shared
+    inputs, the tanh outputs and features in bf16; backward: each layer's g
+    and y read, g below written, W in bf16 read, the f32 gradient written);
+    2 FLOPs per multiply-add of the products (forward; dW and g W)."""
+    d4 = 4 * c * plan.num_params
+    fb, bb, ff, bf_ = d4, d4 + d4 // 2, 0, 0
+    for st in plan.stacks:
+        widths = [s.d_out for s in st.slices]
+        fb += 2 * st.n * st.d_in + 2 * c * st.n * sum(widths)
+        for i, s in enumerate(st.slices):
+            y_bytes = 2 * c * st.n * s.d_in if i else 2 * st.n * s.d_in
+            bb += 2 * c * st.n * s.d_out + y_bytes + (2 * c * st.n * s.d_in if i else 0)
+            ff += 2 * c * st.n * s.d_in * s.d_out
+            bf_ += 2 * c * st.n * s.d_in * s.d_out * (2 if i else 1)
+    return fb, bb, ff, bf_
+
+
+def field_stack_times(cfg, branch_x, trunk_x, flat, reps):
+    """The bf16 field's stacks at ``flat`` (C, D) on the card: the fused
+    kernels (``csrc/field_stack.cu``: pack + forward, then the nine backward
+    layers) against the autograd path they replace (``mlp_stack`` in bf16:
+    cuBLAS GEMM, bias add and tanh per layer, and autograd's backward), timed
+    in turns (autograd, fused, fused, autograd; ``reps`` queued calls each),
+    beside the byte and FLOP bounds (:func:`stacks_bytes_flops`) and the plain
+    version's time; the kernels' gradient against the plain version's.
+    Returns the kernel row."""
+    bf = torch.bfloat16
+    c = flat.shape[0]
+    plan = FeatureStacks(cfg, branch_x, bc_embedding(trunk_x))
+    gen = torch.Generator(device=flat.device)
+    gen.manual_seed(5)
+    leaf = flat.detach().clone().requires_grad_(True)
+    with torch.no_grad():
+        feats = plan(leaf)
+    cts = [torch.randn(f.shape, generator=gen, device=f.device).to(bf) for f in feats]
+    with torch.enable_grad():
+        outs = plan(leaf)
+    saved = outs[0].grad_fn.saved
+    bx, tx = branch_x.to(bf), trunk_x.to(bf)
+    with torch.enable_grad():
+        params = unravel_deeponet(cfg, leaf.to(bf))
+        old = (*deeponet_features(cfg, params, bx, tx), params["b"])
+
+    def old_forward():
+        with torch.no_grad():
+            deeponet_features(cfg, unravel_deeponet(cfg, leaf.detach().to(bf)), bx, tx)
+
+    routes = {"autograd forward": old_forward,
+              "fused forward": lambda: plan(leaf.detach()),
+              "autograd backward": lambda: torch.autograd.grad(old, leaf, cts, retain_graph=True),
+              "fused backward": lambda: _backward_launch(plan, saved, cts[:2])}
+    times = {k: [] for k in routes}
+    for part in ("forward", "backward"):
+        for kind in ("autograd", "fused", "fused", "autograd"):
+            label = f"{kind} {part}"
+            times[label].append(time_device(label, routes[label], reps))
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    fb, bb, ff, bflops = stacks_bytes_flops(plan, c)
+    bounds = {part: bound(f, b, PEAK_BF16_FLOPS) for part, f, b in
+              (("forward", ff, fb), ("backward", bflops, bb))}
+    n0 = FeatureStacks.launches
+    routes["fused backward"]()
+    torch.cuda.synchronize()
+    per_backward = FeatureStacks.launches - n0
+    plain = {"forward": time_device("plain forward",
+                                    lambda: stacks_forward_reference(plan, leaf.detach()), 2,
+                                    warmup=1)}
+    want_feats, acts = stacks_forward_reference(plan, leaf.detach())
+    plain["backward"] = time_device(
+        "plain backward", lambda: stacks_backward_reference(plan, leaf.detach(), acts, cts[:2]),
+        2, warmup=1)
+    want = stacks_backward_reference(plan, leaf.detach(), acts, cts[:2])
+    got = _backward_launch(plan, saved, cts[:2])
+    got[:, 0] = want[:, 0] = 0
+    err = ((got - want).norm(dim=1) / want.norm(dim=1)).max().item()
+    feat_err = max(((a.float() - b.float()).norm() / b.float().norm()).item()
+                   for a, b in zip(outs[:2], want_feats))
+    for part in ("forward", "backward"):
+        bms, by = bounds[part]
+        print(f"  field stacks {part} at C={c} B={plan.stacks[0].n} P={plan.stacks[1].n}: fused "
+              f"{times['fused ' + part][0]:.4f}/{times['fused ' + part][1]:.4f} ms, autograd "
+              f"{times['autograd ' + part][0]:.4f}/{times['autograd ' + part][1]:.4f} ms (in "
+              f"turns, {reps} queued calls each; {ms['autograd ' + part] / ms['fused ' + part]:.2f}"
+              f"x); bound {bms:.4f} ms ({by}: {(ff if part == 'forward' else bflops) / 1e9:.1f} "
+              f"GFLOP, {(fb if part == 'forward' else bb) / 1e9:.3f} GB): fused "
+              f"{100 * bms / ms['fused ' + part]:.1f} %; plain {plain[part]:.3f} ms")
+    print(f"  field stacks: {2} forward + {per_backward} backward launches per call; fused vs "
+          f"plain: gradient {err:.3g} of each chain's norm (largest), features {feat_err:.3g}")
+    check(err < 5e-3 and feat_err < 2e-3, f"fused stacks vs plain: gradient {err}, "
+          f"features {feat_err}")
+    profile_line("fused stacks forward + backward",
+                 lambda: (plan(leaf.detach()), _backward_launch(plan, saved, cts[:2])), 5)
+    total = ms["fused forward"] + ms["fused backward"]
+    bound_ms = bounds["forward"][0] + bounds["backward"][0]
+    return dict(max_abs_err=err, ms=total, forward_ms=ms["fused forward"],
+                backward_ms=ms["fused backward"], autograd_ms=ms["autograd forward"]
+                + ms["autograd backward"], plain_ms=plain["forward"] + plain["backward"],
+                bound_ms=bound_ms, bound_by="bytes" if bounds["backward"][1] == "bytes"
+                else "operations")
 
 
 def stage3_kernels(dev, train, arts, reps):
@@ -2465,6 +2579,12 @@ def main(argv=None) -> int:
     check(row_counts["merge_sums"] == 0 and row_counts["leapfrog_update"] == 0,
           f"unexpected launches in the row: {row_counts}")
     expect_tiled_only("operator row (C = 48)", row_counts)
+    # every bf16 field call (warm start and trajectories) on the fused stacks:
+    # pack + forward + one backward launch per layer of the nine
+    per_call = 2 + max(cfg.depth_branch, cfg.depth_trunk)
+    check(row_counts["field_stacks"] > 0 and row_counts["field_stacks"] % per_call == 0,
+          f"field_stacks launched {row_counts['field_stacks']} times, not {per_call} per call")
+    print(f"  fused field stacks: {row_counts['field_stacks'] // per_call} field calls")
     acc = stats["acceptance"]
     steps = stats["step_quartiles"]
     check(math.isfinite(acc) and acc > 0.0, f"acceptance {acc}")
@@ -2498,6 +2618,9 @@ def main(argv=None) -> int:
     feat_ms = time_device("row feature forwards", feature_forwards, SPLIT_REPS)
     delta_ms = time_device("row delta", lambda: delta(q1, q0, aux), SPLIT_REPS)
     cotangent_step_times(problem, q0, args.timing_reps)
+    kernel_rows["field_stacks"] = field_stack_times(
+        cfg, problem.branch_x, problem.trunk_x, scatter_subspace(aux, q0, spec.idx),
+        args.timing_reps)
     draw_ms = 1e3 / stats["draws_per_s"]
     parts = {"gram_field_x4": 4 * grad_ms, "delta_feature_forwards": feat_ms,
              "paired_sums": ms, "delta_rest": delta_ms - feat_ms - ms}
@@ -2850,9 +2973,11 @@ def main(argv=None) -> int:
                 "paired_sums_small": row_counts["paired_sums_small"],
                 "merge_sums": s3_counts["merge_sums"],
                 "leapfrog_update": s3_counts["leapfrog_update"],
-                "merge_sums_small": row28["grad_merge_sums_small"]}
-    print("  launches per kernel on its main path: paired_sums and its small kernel in "
-          "the operator row (phase 3), merge_sums and leapfrog_update in stage 3 (phase 6), "
+                "merge_sums_small": row28["grad_merge_sums_small"],
+                "field_stacks": row_counts["field_stacks"]}
+    print("  launches per kernel on its main path: paired_sums and its small kernel and the "
+          "fused field stacks in the operator row (phase 3), merge_sums and leapfrog_update "
+          "in stage 3 (phase 6), "
           "merge_sums' small kernel in --extras' fused gradient (phase 28 (c)); each counted "
           "by its wrapper where it launches: " + json.dumps(launches))
     print(f"  merge_sums in the stage-3 script (phase 29 (b)): "

@@ -750,3 +750,120 @@ def test_merged_gram_cotangents_at_f32_accumulation_level(cuda_device):
     for _ in range(2):
         assert torch.isfinite(g_bf(flat)).all() and torch.isfinite(g_32(flat)).all()
     assert profiling.counters()["field.cotangents.merged"] == n0 + 3
+
+
+# -- the fused bf16 feature stacks of the Gram field (csrc/field_stack.cu) --
+
+def _stack_problem(c, b, p, device, seed=21, cfg=None):
+    """The DeepONet's stacks (widths 100, inputs 101 and 5, nine layers each
+    unless ``cfg`` says otherwise) on B functions and P grid points, a flat
+    batch at the init's scale, and bf16 cotangents of the features."""
+    from vihmc_torch.models.deeponet import DeepONetConfig, bc_embedding, init_deeponet
+    from vihmc_torch.ops.field_stacks import FeatureStacks
+
+    cfg = cfg or DeepONetConfig()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    bx = torch.randn(b, cfg.in_branch, generator=gen, device=device)
+    tx = torch.rand(p, 2, generator=gen, device=device)
+    plan = FeatureStacks(cfg, bx, bc_embedding(tx))
+    base = init_deeponet(cfg, device=device)
+    flat = base + 0.05 * torch.randn(c, cfg.num_params, generator=gen, device=device)
+    k = cfg.latent
+    cts = [torch.randn(c, n, k, generator=gen, device=device).to(torch.bfloat16)
+           for n in (b, p)] + [torch.randn(c, generator=gen, device=device).to(torch.bfloat16)]
+    return cfg, plan, flat, cts
+
+
+def _stacks_vjp(plan, flat, cts):
+    leaf = flat.clone().requires_grad_(True)
+    with torch.enable_grad():
+        outs = plan(leaf)
+        (g,) = torch.autograd.grad(outs, leaf, grad_outputs=cts)
+    return [o.detach() for o in outs[:2]], g
+
+
+@pytest.mark.parametrize("c,b,p", [(48, 1000, 10201), (1, 1000, 10201), (48, 500, 2601),
+                                   (3, 37, 301)])
+def test_field_stacks_kernels_match_plain_version(cuda_device, c, b, p):
+    """The kernels against the plain version on the card, at the row's shapes
+    (C 48, B 1000, P 10,201), at C = 1 (the warm start), on the stride-2
+    subsets (500 functions, 51 x 51 points) and ragged small: the features
+    within bf16 rounding of the plain version's (both sum f32 products in
+    another order, so a rounding may land one unit apart), every chain's
+    gradient within 5e-3 of the plain one's norm."""
+    from vihmc_torch.ops.field_stacks import (stacks_backward_reference,
+                                              stacks_forward_reference)
+
+    cfg, plan, flat, cts = _stack_problem(c, b, p, cuda_device)
+    feats, g = _stacks_vjp(plan, flat, cts)
+    want_feats, acts = stacks_forward_reference(plan, flat)
+    want = stacks_backward_reference(plan, flat, acts, cts[:2])
+    want[:, 0] = cts[2].float()
+    torch.cuda.synchronize()
+    for got_f, want_f in zip(feats, want_feats):
+        assert got_f.dtype == torch.bfloat16 and got_f.shape == want_f.shape
+        diff = (got_f.float() - want_f.float()).norm() / want_f.float().norm()
+        assert diff < 2e-3, diff.item()
+    assert g.dtype == torch.float32 and torch.isfinite(g).all()
+    err = ((g - want).norm(dim=1) / want.norm(dim=1)).max().item()
+    assert err < 5e-3, err
+
+
+def test_field_stacks_are_deterministic_and_count_launches(cuda_device):
+    """Two calls on the same input give bit-equal features and gradients (the
+    weight gradients are summed in a fixed order, no float atomics); a call
+    launches pack + forward, then one backward kernel per layer (nine), and
+    counts ``field.stacks.fused`` twice (once per stack); a non-contiguous
+    batch or an f32 cotangent raises before any launch."""
+    from vihmc_torch.core import profiling
+    from vihmc_torch.ops.field_stacks import FeatureStacks
+
+    cfg, plan, flat, cts = _stack_problem(48, 1000, 10201, cuda_device, seed=22)
+    n0, k0 = FeatureStacks.launches, profiling.counters().get("field.stacks.fused", 0)
+    a = _stacks_vjp(plan, flat, cts)
+    torch.cuda.synchronize()
+    assert FeatureStacks.launches - n0 == 2 + max(cfg.depth_branch, cfg.depth_trunk)
+    assert profiling.counters()["field.stacks.fused"] - k0 == 2
+    b = _stacks_vjp(plan, flat, cts)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+    assert torch.equal(a[1], b[1])
+    from vihmc_torch.ops.field_stacks import _backward_launch, _forward_launch
+
+    n1 = FeatureStacks.launches
+    with pytest.raises(ValueError):
+        _forward_launch(plan, flat.t().contiguous().t())
+    _, saved = _forward_launch(plan, flat)
+    with pytest.raises(ValueError):
+        _backward_launch(plan, saved, [cts[0].float(), cts[1]])
+    assert FeatureStacks.launches == n1 + 2
+
+
+def test_bf16_field_on_the_card_takes_the_fused_stacks(cuda_device):
+    """make_gram_grad_full in bf16 on the card (C 4, 200 functions x 1001
+    points) launches the fused stacks and agrees with the same field on the
+    CPU (the plain version) within 1e-2 of each chain's norm; the f32 field
+    launches none."""
+    from vihmc_torch.models.deeponet import DeepONetConfig
+    from vihmc_torch.ops.field_stacks import FeatureStacks
+    from vihmc_torch.ops.gram_merge import make_gram_grad_full
+
+    cfg = DeepONetConfig()
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(23)
+    bx = torch.randn(200, 101, generator=gen, device=cuda_device)
+    tx = torch.rand(1001, 2, generator=gen, device=cuda_device)
+    y = torch.randn(200, 1001, generator=gen, device=cuda_device)
+    _, _, flat, _ = _stack_problem(4, 8, 8, cuda_device, seed=23)
+    n0 = FeatureStacks.launches
+    got = make_gram_grad_full(cfg, bx, tx, y, 0.7, compute_dtype=torch.bfloat16)(flat)
+    torch.cuda.synchronize()
+    assert FeatureStacks.launches == n0 + 11
+    want = make_gram_grad_full(cfg, bx.cpu(), tx.cpu(), y.cpu(), 0.7,
+                               compute_dtype=torch.bfloat16)(flat.cpu())
+    err = ((got.cpu() - want).norm(dim=1) / want.norm(dim=1)).max().item()
+    assert err < 1e-2, err
+    make_gram_grad_full(cfg, bx, tx, y, 0.7)(flat)
+    torch.cuda.synchronize()
+    assert FeatureStacks.launches == n0 + 11

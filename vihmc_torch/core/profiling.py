@@ -142,8 +142,9 @@ class ProgressPrinter:
 
 def _kernel_flops() -> int:
     from vihmc_torch.ops.deeponet_merge import merge_sums, paired_sums
+    from vihmc_torch.ops.field_stacks import FeatureStacks
 
-    return paired_sums.flops + merge_sums.flops
+    return paired_sums.flops + merge_sums.flops + FeatureStacks.flops
 
 
 def _product_flops(lead: int):

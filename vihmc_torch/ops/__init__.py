@@ -2,8 +2,9 @@
 (counterpart of ``vihmc_tpu.ops``).
 
 The hand-written CUDA kernels: ``deeponet_merge.paired_sums`` and
-``deeponet_merge.merge_sums`` (behind ``fused_merge_nll``), and
-``leapfrog.fused_leapfrog_update``; ``gram_merge`` is plain matmul work.
+``deeponet_merge.merge_sums`` (behind ``fused_merge_nll``),
+``leapfrog.fused_leapfrog_update``, and ``field_stacks.FeatureStacks`` (the
+bf16 Gram field's tanh stacks); the rest of ``gram_merge`` is matmul work.
 """
 
 from vihmc_torch.ops.deeponet_merge import (fused_merge_nll,

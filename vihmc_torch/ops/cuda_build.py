@@ -7,8 +7,9 @@ a shared library under ``vihmc_torch/_build/`` (listed in ``.gitignore``):
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
 ``paired_sums.cu`` and ``merge_sums.cu`` share their tensor-core mainloop,
-``csrc/split_mma.cuh``, found beside them by ``#include "..."``; no other
-include path is given (neither kernel uses CUTLASS or CuTe). Their tensor
+``csrc/split_mma.cuh``, found beside them by ``#include "..."``
+(``field_stack.cu`` takes two small helpers from it); no other include path
+is given (no kernel uses CUTLASS or CuTe). Their tensor
 maps are encoded with ``cuTensorMapEncodeTiled``, reached at run time
 through ``cudaGetDriverEntryPoint``, so nothing links ``libcuda`` beyond
 what the CUDA runtime loads. The library name carries a hash of the flags,
@@ -41,7 +42,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"
 
 #: kernel library name -> its source under csrc/
 SOURCES = {"paired_sums": "paired_sums.cu", "merge_sums": "merge_sums.cu",
-           "leapfrog_update": "leapfrog_update.cu"}
+           "leapfrog_update": "leapfrog_update.cu", "field_stack": "field_stack.cu"}
 
 #: ctypes signatures of each library's C functions
 _SIGNATURES = {
@@ -63,6 +64,10 @@ _SIGNATURES = {
         "vihmc_leapfrog_update": (ctypes.c_int, [ctypes.c_void_p] * 6
                                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    },
+    "field_stack": {
+        "vihmc_field_forward": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p]),
+        "vihmc_field_backward": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p]),
     },
 }
 

@@ -11,8 +11,13 @@ prediction:
     d ll/d b    = (sum y - (sum_i bout_i).(sum_j tout_j) - B P b) / var
 
 The feature VJP then runs through ``torch.autograd`` over the chain-batched
-feature stacks. This is plain matmul work (XLA's in JAX), so it stays
-``torch.matmul``.
+feature stacks. In bf16 (``compute_dtype=torch.bfloat16``) with tanh stacks
+that fit them (:func:`~vihmc_torch.ops.field_stacks.fusable`), the stacks are
+the fused layers of :mod:`vihmc_torch.ops.field_stacks` (CUDA kernels on the
+card, their plain version on the CPU): the inputs are padded and cast once
+when the field is made, and the VJP writes the flat gradient itself. Every
+other field (f32, relu or sine stacks) runs ``mlp_stack`` with ``torch.matmul``
+(XLA's matmuls in JAX).
 
 The stride surrogates. ``query_subset`` keeps only those query points and
 ``fn_subset`` only those training functions, the likelihood term rescaled by
@@ -24,7 +29,9 @@ exact full density at the endpoints stays unbiased (only acceptance moves).
 
 Precision. With ``compute_dtype=torch.bfloat16`` the stacks, the data and the
 cotangents entering the VJP are bf16, as in JAX (the subsets are taken
-first, and the rescale applies to the f32 cotangents before their cast).
+first, and the rescale applies to the f32 cotangents before their cast); on
+the fused stacks the biases, tanh and its derivative stay f32, each
+activation is rounded once, and the weight gradients are summed in f32.
 Where JAX writes ``preferred_element_type=float32`` (the Gram matrices and
 the two data contractions) the port keeps the bf16 operands and asks for an
 f32 result (``out_dtype``): exact products, summed in f32 on the tensor
@@ -43,8 +50,9 @@ import numpy as np
 import torch
 
 from vihmc_torch.core.profiling import count, span
-from vihmc_torch.models.deeponet import (DeepONetConfig, deeponet_features,
+from vihmc_torch.models.deeponet import (DeepONetConfig, bc_embedding, deeponet_features,
                                          unravel_deeponet)
+from vihmc_torch.ops.field_stacks import FeatureStacks, fusable
 
 GNLL_EPS = 1e-6
 
@@ -162,10 +170,12 @@ def make_gram_grad_full(cfg: DeepONetConfig, branch_x, trunk_x, y, tau_var,
     rounding; plus ``prior.grad(flat)`` when a full-vector ``prior`` is given.
     ``query_subset`` / ``fn_subset`` (index arrays into the P points / the B
     functions) make it the rescaled stride surrogate; ``compute_dtype=
-    torch.bfloat16`` runs stacks, data and VJP in bf16 (module doc). Spans
-    ``vihmc.field.forward`` (unravel and feature stacks),
-    ``vihmc.field.cotangents`` (the Gram cotangents, scaled and cast) and
-    ``vihmc.field.vjp`` (the feature VJP)."""
+    torch.bfloat16`` runs stacks, data and VJP in bf16 (module doc), on the
+    fused stacks where :func:`fusable` admits them. Spans
+    ``vihmc.field.forward`` (the feature stacks: the fused stacks' pack and
+    forward, or unravel and ``mlp_stack``), ``vihmc.field.cotangents`` (the
+    Gram cotangents, scaled and cast) and ``vihmc.field.vjp`` (the feature
+    VJP under ``autograd.grad``)."""
     if cfg.noise_neurons:
         raise ValueError("Gram-form gradient covers the homoscedastic merge only")
     if trunk_x.ndim != 2:
@@ -182,19 +192,26 @@ def make_gram_grad_full(cfg: DeepONetConfig, branch_x, trunk_x, y, tau_var,
         ll_scale = ll_scale * (branch_x.shape[0] / fsel.shape[0])
         branch_x, y = branch_x[fsel], y[fsel]
     dt = torch.float32 if compute_dtype is None else compute_dtype
-    bx, tx, yy = (t.to(dt).contiguous() for t in (branch_x, trunk_x, y))
+    yy = y.to(dt).contiguous()
     yp = pad_queries(yy, torch.bfloat16 if _merged_route(yy) else torch.float32)
     y_sum = float(yy.sum(dtype=torch.float32))
     var = max(float(tau_var), GNLL_EPS)
     bufs = {}
+    trunk_in = bc_embedding(trunk_x.float()) if cfg.impose_bc else trunk_x.float()
+    if dt == torch.bfloat16 and fusable(cfg, branch_x.shape[1], trunk_in.shape[1]):
+        features = FeatureStacks(cfg, branch_x.float(), trunk_in, dt)
+    else:
+        bx, tx = branch_x.to(dt).contiguous(), trunk_x.to(dt).contiguous()
+
+        def features(leaf):
+            params = unravel_deeponet(cfg, leaf.to(dt))
+            return (*deeponet_features(cfg, params, bx, tx), params["b"])
 
     def grad_full(flat: torch.Tensor) -> torch.Tensor:
         with torch.enable_grad():
             leaf = flat.detach().to(torch.float32).requires_grad_(True)
             with span("vihmc.field.forward"):
-                params = unravel_deeponet(cfg, leaf.to(dt))
-                bout, tout = deeponet_features(cfg, params, bx, tx)
-            bias = params["b"]
+                bout, tout, bias = features(leaf)
             with span("vihmc.field.cotangents"):
                 with torch.no_grad():
                     cts = _gram_cotangents(bout, tout, bias, yp, y_sum, var, ll_scale, dt,
