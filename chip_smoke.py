@@ -345,16 +345,17 @@ KERNELS = {
     "field_stacks": {"route": "cuda", "source": "vihmc_torch/csrc/field_stack.cu",
                      "replaces": "none: the JAX field's stacks are XLA matmuls"},
 }
-# (wrapper, attribute): each wrapper counts its launches, those at C = 1 and
-# those of the small kernel apart
-COUNTERS = {"paired_sums": (paired_sums, "launches"),
-            "paired_sums_c1": (paired_sums, "launches_c1"),
-            "paired_sums_small": (paired_sums, "launches_small"),
-            "merge_sums": (merge_sums, "launches"),
-            "merge_sums_c1": (merge_sums, "launches_c1"),
-            "merge_sums_small": (merge_sums, "launches_small"),
-            "leapfrog_update": (fused_leapfrog_update, "launches"),
-            "field_stacks": (FeatureStacks, "launches")}
+# the recorder's launch counters (core/profiling.py): each wrapper counts its
+# launches, those at C = 1 and those of the small kernel apart
+COUNTERS = {"paired_sums": "paired_sums.launches",
+            "paired_sums_c1": "paired_sums.launches_c1",
+            "paired_sums_small": "paired_sums.launches_small",
+            "merge_sums": "merge_sums.launches",
+            "merge_sums_c1": "merge_sums.launches_c1",
+            "merge_sums_small": "merge_sums.launches_small",
+            "leapfrog_update": "leapfrog_update.launches",
+            "field_stacks": "field_stacks.launches"}
+_COUNTS_AT = {}   # the counters at the last reset_counts()
 
 
 def check(cond: bool, msg: str):
@@ -368,13 +369,14 @@ def phase(name: str, t0: float):
 
 def reset_counts():
     torch.cuda.synchronize()
-    for fn, attr in COUNTERS.values():
-        setattr(fn, attr, 0)
+    _COUNTS_AT.clear()
+    _COUNTS_AT.update(profiling.counters())
 
 
 def read_counts() -> dict:
+    """The launches since the last :func:`reset_counts`."""
     torch.cuda.synchronize()
-    return {k: getattr(fn, attr) for k, (fn, attr) in COUNTERS.items()}
+    return {k: profiling.counter(c) - _COUNTS_AT.get(c, 0) for k, c in COUNTERS.items()}
 
 
 def time_device(label: str, fn, reps: int, warmup: int = 2) -> float:
@@ -765,10 +767,10 @@ def field_stack_times(cfg, branch_x, trunk_x, flat, reps):
     fb, bb, ff, bflops = stacks_bytes_flops(plan, c)
     bounds = {part: bound(f, b, PEAK_BF16_FLOPS) for part, f, b in
               (("forward", ff, fb), ("backward", bflops, bb))}
-    n0 = FeatureStacks.launches
+    n0 = profiling.counter("field_stacks.launches")
     routes["fused backward"]()
     torch.cuda.synchronize()
-    per_backward = FeatureStacks.launches - n0
+    per_backward = profiling.counter("field_stacks.launches") - n0
     plain = {"forward": time_device("plain forward",
                                     lambda: stacks_forward_reference(plan, leaf.detach()), 2,
                                     warmup=1)}
@@ -841,15 +843,14 @@ def stage3_kernels(dev, train, arts, reps):
         if name == "VI mean":
             compare_merge("ragged C=3 B=130 P=301 K=12", bo[:3, :130, :12].contiguous(),
                           to[:3, :301, :12].contiguous(), b[:3], y[:130, :301].contiguous())
-            n_small = merge_sums.launches_small
+            n_small = profiling.counter("merge_sums.launches_small")
             compare_merge("small C=3 B=100 P=301 K=12", bo[:3, :100, :12].contiguous(),
                           to[:3, :301, :12].contiguous(), b[:3], y[:100, :301].contiguous())
             compare_merge("small C=1 B=130 P=301 K=13", bo[:1, :130, :13].contiguous(),
                           to[:1, :301, :13].contiguous(), b[:1], y[:130, :301].contiguous())
             # each compare_merge runs merge_sums twice (the sums, then fused_merge_nll)
-            check(merge_sums.launches_small == n_small + 4,
-                  f"merge_sums took the small kernel {merge_sums.launches_small - n_small} "
-                  f"of 4 times")
+            n_small = profiling.counter("merge_sums.launches_small") - n_small
+            check(n_small == 4, f"merge_sums took the small kernel {n_small} of 4 times")
         err = max(err, compare_merge(f"{name} C={c} B={bo.shape[1]} P={to.shape[1]} "
                                      f"K={bo.shape[2]}", bo, to, b, y, main=True))
     # the gradient against autograd of the plain f32 reference, at q1
@@ -2526,7 +2527,7 @@ def main(argv=None) -> int:
                                        bound_tc_ms=tc_ms)}
     # the unbatched form (_paired_sums_pallas): the small kernel at C = 1, at
     # small B (C = 3), and with K % 4 != 0 (4-byte loads)
-    n_small = paired_sums.launches_small
+    n_small = profiling.counter("paired_sums.launches_small")
     feats1 = [t[:1].contiguous() for t in feats]
     err_c1 = compare_paired(f"small C=1 B={b} P={p} K={k}", feats1,
                             (biases[0][:1], biases[1][:1]), y, main=True)
@@ -2538,8 +2539,8 @@ def main(argv=None) -> int:
                                                   ((bout1, 130), (tout1, 301), (bout0, 130),
                                                    (tout0, 301))],
                    (biases[0][:1], biases[1][:1]), y[:130, :301].contiguous())
-    check(paired_sums.launches_small == n_small + 3,
-          f"paired_sums took the small kernel {paired_sums.launches_small - n_small} of 3 times")
+    n_small = profiling.counter("paired_sums.launches_small") - n_small
+    check(n_small == 3, f"paired_sums took the small kernel {n_small} of 3 times")
     a_, b_ = paired_sums(*feats1, y), paired_sums(*feats1, y)
     torch.cuda.synchronize()
     check(torch.equal(a_, b_), "small paired_sums: two launches differ")
@@ -2818,11 +2819,12 @@ def main(argv=None) -> int:
     bo, to = bo.contiguous(), to.contiguous()
     y_n = n_train["solution"]
     # at B = 10 the small kernel (row 4's B = 10 line), held and timed against the tiled one
-    n_small = merge_sums.launches_small
+    n_small = profiling.counter("merge_sums.launches_small")
     compare_merge(f"hmc_nuts shape C={args.nuts_chains} B={bo.shape[1]} P={to.shape[1]} "
                   f"K={bo.shape[2]}", bo, to, flat_n[:, 0].contiguous(), y_n, ncfg.tau_out,
                   main=True)
-    check(merge_sums.launches_small == n_small + 2, "hmc_nuts shape: not the small kernel")
+    check(profiling.counter("merge_sums.launches_small") == n_small + 2,
+          "hmc_nuts shape: not the small kernel")
     n_t = paths_in_turns(f"merge_sums C={bo.shape[0]} B={bo.shape[1]} P={to.shape[1]} "
                          f"K={bo.shape[2]}", _merge_launch, (bo, to, y_n), args.timing_reps,
                          merge_sums_bound_ms(*bo.shape[:2], to.shape[1], bo.shape[2]))

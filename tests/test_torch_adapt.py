@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_convert import state_from_jax, welford_from_jax
 from torch_parity_helpers import one_torch_thread  # noqa: F401 (a fixture)
 
 import vihmc_tpu.hmc.metric as jm
@@ -28,7 +29,6 @@ from vihmc_tpu.hmc.kernel import make_kernel as j_make_kernel
 from vihmc_tpu.hmc.kernel import mass_window_schedule as j_schedule
 from vihmc_tpu.hmc.kernel import pooled_variance as j_pooled
 import vihmc_torch.hmc.metric as tm
-from vihmc_torch.core.convert import state_from_jax, welford_from_jax
 from vihmc_torch.hmc.adaptation import (DualAveragingState, da_restart,
                                         find_reasonable_step_size)
 from vihmc_torch.hmc.kernel import (HMCConfig, TransitionNoise, WelfordState, init_state,

@@ -13,13 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from torch_convert import chees_state_from_jax
 from torch_parity_helpers import one_torch_thread  # noqa: F401 (a fixture)
 
 from vihmc_tpu.hmc.chees import ChEESConfig as JChEESConfig
 from vihmc_tpu.hmc.chees import chees_sample as j_chees_sample
 from vihmc_tpu.hmc.chees import halton_base2 as j_halton
 from vihmc_torch.chains import sample_chains_chees
-from vihmc_torch.core.convert import chees_state_from_jax
 from vihmc_torch.hmc.chees import (ChEESConfig, ChEESNoise, chees_sample, halton_base2,
                                    init_chees_state, make_chees_kernel)
 from vihmc_torch.hmc.kernel import gaussian_field_grad

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_convert import flat_from_tree, vp_from_jax
 from torch_parity_helpers import (jax_deeponet_eps, jax_transition_draws,  # noqa: F401
                                   one_torch_thread)
 from vihmc_tpu.data import cone as jcone
@@ -34,7 +35,6 @@ from vihmc_tpu.pipelines import vi_train as jvt
 from vihmc_tpu.pipelines.common import make_flat_deeponet as j_make_flat
 from vihmc_tpu.vi import VIConfig as JVIConfig
 from vihmc_tpu.vi.elbo import ELBOConfig as JELBO
-from vihmc_torch.core.convert import flat_from_tree, vp_from_jax
 from vihmc_torch.data import cone as tcone
 from vihmc_torch.hmc.kernel import HMCConfig, TransitionNoise, init_state, make_kernel
 from vihmc_torch.models.deeponet import DeepONetConfig
@@ -264,7 +264,7 @@ def test_three_stage_cone_run_on_cpu():
     training and 16 validation examples, 10 epochs, the top-8 subspace, 2
     chains x 30 draws): finite draws of the expected shape, no kernel
     launch, finite validation metrics on the (16, 1) outputs."""
-    import vihmc_torch.ops.deeponet_merge as tmerge
+    from vihmc_torch.core.profiling import counter
 
     model = DeepONetConfig(**CONE_KW)
     data = tcone.get_cone(torch.Generator().manual_seed(0), 24, 16, in_branch=9, device="cpu")
@@ -278,13 +278,13 @@ def test_three_stage_cone_run_on_cpu():
                               TC.SensitivityRunConfig(importance_threshold=0.9))
     assert np.isfinite(sens["scores"]).all() and sens["scores"].max() > 0
     indices = np.sort(np.argsort(-sens["scores"])[:8])
-    launches = tmerge.merge_sums.launches + tmerge.paired_sums.launches
+    launches = counter("merge_sums.launches") + counter("paired_sums.launches")
     out = tv.run_operator(VIHMCRunConfig(num_samples=30, num_chains=2, step_size=1e-3,
                                          tau_out=0.1, sample_data=False), model,
                           {"mu": sens["mu"], "sigma": sens["sigma"], "indices": indices},
                           data=data, device="cpu")
     samples = out["result"].samples
     assert samples.shape == (2, 30, 8) and np.isfinite(samples).all()
-    assert tmerge.merge_sums.launches + tmerge.paired_sums.launches == launches
+    assert counter("merge_sums.launches") + counter("paired_sums.launches") == launches
     assert np.asarray(out["predictions"]).shape[1:] == (16, 1)
     assert np.isfinite(out["metrics"]["expected_mse_of_mean"])

@@ -16,6 +16,7 @@ import pytest
 import torch
 from jax.flatten_util import ravel_pytree
 
+from torch_convert import params_from_flat
 from torch_parity_helpers import tiny_problem
 
 from vihmc_tpu.chains import diagnostics as jdiag
@@ -26,7 +27,6 @@ from vihmc_tpu.models.deeponet import deeponet_features as j_features
 from vihmc_tpu.models.deeponet import init_deeponet
 from vihmc_tpu.pipelines.common import make_flat_deeponet as j_make_flat
 from vihmc_torch.chains import diagnostics as tdiag
-from vihmc_torch.core.convert import params_from_flat
 from vihmc_torch.core.precision import true_f32
 from vihmc_torch.core.ravel import gather_subspace, scatter_subspace
 from vihmc_torch.dists.likelihoods import nll_log_likelihood

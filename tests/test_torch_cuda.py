@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from vihmc_torch.core.profiling import counter
 from vihmc_torch.ops.deeponet_merge import (_merge_launch, _paired_launch, _sums_path,
                                             close_paired_sums, fused_merge_nll,
                                             fused_paired_delta, merge_nll_reference,
@@ -64,10 +65,10 @@ def test_paired_sums_kernel_matches_plain_version(cuda_device):
     bout1, tout1, bout0, tout0, y = _features(5, 3, 130, 301, 12, cuda_device)
     bias1 = torch.tensor([0.34, 0.2, -0.1], device=cuda_device)
     bias0 = torch.tensor([0.31, 0.21, -0.12], device=cuda_device)
-    n = paired_sums.launches
+    n = counter("paired_sums.launches")
     d_k, lp_k = fused_paired_delta(bout1, tout1, bias1, bout0, tout0, bias0, y, 0.7)
     torch.cuda.synchronize()
-    assert paired_sums.launches == n + 1
+    assert counter("paired_sums.launches") == n + 1
     sums_p = paired_sums_reference(bout1, tout1, bout0, tout0, y)
     d_p, lp_p = close_paired_sums(sums_p, bias1, bias0, y.numel(), 0.7, *y_sums(y))
     np.testing.assert_allclose(d_k.cpu().numpy(), d_p.cpu().numpy(), atol=1e-2, rtol=0)
@@ -102,7 +103,7 @@ def test_paired_sums_kernel_is_deterministic_and_checks_inputs(cuda_device):
     b = paired_sums(*feats)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
-    n = paired_sums.launches
+    n = counter("paired_sums.launches")
     bad = feats[1].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError):
         paired_sums(feats[0], bad, *feats[2:])
@@ -112,7 +113,7 @@ def test_paired_sums_kernel_is_deterministic_and_checks_inputs(cuda_device):
         paired_sums(feats[0].half(), *feats[1:])
     with pytest.raises(ValueError):
         paired_sums(feats[0], feats[1], feats[2][:, :-1].contiguous(), *feats[3:])
-    assert paired_sums.launches == n
+    assert counter("paired_sums.launches") == n
 
 
 def test_paired_sums_equal_endpoints_give_zero_delta(cuda_device):
@@ -199,10 +200,10 @@ def test_merge_sums_kernel_matches_plain_and_float64(cuda_device, b, p, k):
     1 x 1 x 1 a block that is all edge; B = 10 is hmc_nuts's training set,
     below one 64-row tile."""
     feats = _merge_features(8, 2, b, p, k, cuda_device)
-    n = merge_sums.launches
+    n = counter("merge_sums.launches")
     got = merge_sums(*feats)
     torch.cuda.synchronize()
-    assert merge_sums.launches == n + 1
+    assert counter("merge_sums.launches") == n + 1
     assert got.dtype == torch.float64 and got.shape == (2, 2)
     want, mag = _merge_sums_f64(*feats)
     plain = merge_sums_reference(*feats)
@@ -219,14 +220,14 @@ def test_merge_sums_kernel_is_deterministic_and_checks_inputs(cuda_device):
     b = merge_sums(*feats)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
-    n = merge_sums.launches
+    n = counter("merge_sums.launches")
     with pytest.raises(TypeError):
         merge_sums(feats[0].double(), *feats[1:])
     with pytest.raises(ValueError):
         merge_sums(feats[0], feats[1][:, :, :-1].contiguous(), feats[2])
     with pytest.raises(ValueError):
         merge_sums(feats[0], feats[1], feats[2].cpu())
-    assert merge_sums.launches == n
+    assert counter("merge_sums.launches") == n
 
 
 def test_merge_sums_at_reference_scale(cuda_device):
@@ -290,10 +291,10 @@ def test_leapfrog_kernel_matches_plain_version(cuda_device, aligned, mass):
     q, p, g = ((bf[:-1] if aligned else bf[1:]).view(c, d) for bf in bufs)
     im = 0.37 if mass == "scalar" else torch.as_tensor(
         (0.5 + rng.random(d)).astype(np.float32), device=cuda_device)
-    n = fused_leapfrog_update.launches
+    n = counter("leapfrog_update.launches")
     qk, pk = fused_leapfrog_update(q, p, g, 3e-3, im)
     torch.cuda.synchronize()
-    assert fused_leapfrog_update.launches == n + 1
+    assert counter("leapfrog_update.launches") == n + 1
     im_t = torch.as_tensor(im, dtype=torch.float32, device=cuda_device)
     qr, pr = leapfrog_update_reference(q, p, g, 3e-3, im_t)
     for a, r in ((qk, qr), (pk, pr)):
@@ -398,11 +399,11 @@ def test_refresh_on_cuda_keeps_per_chain_frozen_vectors_and_merge_sums_count(cud
     cfg = VIHMCRunConfig(num_samples=6, step_size=1e-3, num_chains=3, num_leapfrog=4,
                          tau_out=1.0, frozen_policy="refresh", vi_mass=True,
                          clip_grad=13.0 * 40 ** 0.5, jitter_eps=True, jitter_low_frac=0.5)
-    n = merge_sums.launches
+    n = counter("merge_sums.launches")
     out = run_operator(cfg, cfg_d, arts, data=(split(12), split(5)), use_fused=True,
                        segment_size=3, device=cuda_device)
     torch.cuda.synchronize()
-    assert merge_sums.launches - n == 1 + 2 * cfg.num_samples
+    assert counter("merge_sums.launches") - n == 1 + 2 * cfg.num_samples
     aux = out["result"].final_state.aux
     assert aux.shape == (3, d) and aux.device.type == "cuda"
     assert not torch.equal(aux[0], aux[1]) and not torch.equal(aux[1], aux[2])
@@ -451,13 +452,13 @@ def test_stage3_variants_on_cuda_launch_merge_sums_per_density(cuda_device, vari
 
     vi_hmc.make_gram_grad_full = counted
     try:
-        n = merge_sums.launches
+        n = counter("merge_sums.launches")
         out = vi_hmc.run_operator(cfg, cfg_d, arts, data=data, use_fused=True,
                                   segment_size=3, device=cuda_device)
         torch.cuda.synchronize()
     finally:
         vi_hmc.make_gram_grad_full = real
-    assert merge_sums.launches - n == 1 + 2 * cfg.num_samples
+    assert counter("merge_sums.launches") - n == 1 + 2 * cfg.num_samples
     assert len(calls) == (1 + cfg.L * cfg.num_samples if variant == "stride" else 0)
     assert np.isfinite(out["result"].samples).all()
     assert all(np.isfinite(v).all() for v in out["metrics"].values())
@@ -476,11 +477,11 @@ def test_hmc_nuts_fused_on_cuda_launches_and_frozen_step(cuda_device):
                                step_size=2e-3, post_std=0.1)
     assert cfg.burn == 2
     inits = 0.1 * np.random.default_rng(25).normal(size=(3, cfg_d.num_params))
-    n = merge_sums.launches
+    n = counter("merge_sums.launches")
     out = hmc_nuts.run(cfg, data=data, num_chains=3, use_fused=True, inits=inits,
                        device=cuda_device)
     torch.cuda.synchronize()
-    assert merge_sums.launches - n == 1 + 2 * cfg.num_samples
+    assert counter("merge_sums.launches") - n == 1 + 2 * cfg.num_samples
     res = out["result"]
     post = res.step_sizes[:, cfg.burn:]
     assert (post == post[:, :1]).all()
@@ -504,12 +505,12 @@ def test_stage3_nuts_and_chees_on_cuda_launch_merge_sums(cuda_device, algorithm)
                          tau_out=1.0, frozen_policy="draw", vi_mass=True,
                          clip_grad=13.0 * 40 ** 0.5, coarse_stride=3, fn_stride=3,
                          algorithm=algorithm, nuts_max_depth=3, chees_max_steps=6)
-    n = merge_sums.launches
+    n = counter("merge_sums.launches")
     out = run_operator(cfg, cfg_d, arts, data=data, use_fused=True, use_gram=True,
                        segment_size=5, device=cuda_device)
     torch.cuda.synchronize()
     per_draw = 7 if algorithm == "nuts" else 1
-    assert merge_sums.launches - n == 1 + per_draw * cfg.num_samples
+    assert counter("merge_sums.launches") - n == 1 + per_draw * cfg.num_samples
     assert out["algorithm"] == algorithm
     assert np.isfinite(out["result"].samples).all()
     assert all(np.isfinite(v).all() for v in out["metrics"].values())
@@ -532,10 +533,10 @@ def test_resume_on_cuda_with_merge_sums_is_bit_equal(cuda_device, tmp_path):
     kw = dict(data=data, use_fused=True, segment_size=4, evaluate=False, device=cuda_device)
 
     def launches(fn):
-        n = merge_sums.launches
+        n = counter("merge_sums.launches")
         out = fn()
         torch.cuda.synchronize()
-        return out, merge_sums.launches - n
+        return out, counter("merge_sums.launches") - n
 
     full, n_full = launches(lambda: run_operator(cfg, cfg_d, arts, **kw))
     assert n_full == 1 + 2 * 12
@@ -547,11 +548,11 @@ def test_resume_on_cuda_with_merge_sums_is_bit_equal(cuda_device, tmp_path):
         raise Stop
 
     ck = str(tmp_path / "ck")
-    n0 = merge_sums.launches
+    n0 = counter("merge_sums.launches")
     with pytest.raises(Stop):
         run_operator(cfg, cfg_d, arts, checkpoint_dir=ck, progress=stop, **kw)
     torch.cuda.synchronize()
-    assert merge_sums.launches - n0 == 1 + 2 * 4
+    assert counter("merge_sums.launches") - n0 == 1 + 2 * 4
     resumed, n_res = launches(lambda: run_operator(cfg, cfg_d, arts, checkpoint_dir=ck, **kw))
     assert n_res == 1 + 2 * 8
     np.testing.assert_array_equal(resumed["result"].samples, full["result"].samples)
@@ -602,13 +603,14 @@ SMALL_SHAPES = [(1, 1000, 1021, 100), (3, 10, 515, 100), (2, 63, 301, 13), (1, 1
 def test_small_merge_kernel_matches_plain_and_float64(cuda_device, c, b, p, k):
     """Each sum within 1e-5 of its terms' magnitudes of float64 and of the
     plain version (as the tiled kernel's test); two launches bit for bit
-    equal; each launch counted in ``launches`` and ``launches_small``."""
+    equal; each launch counted in ``merge_sums.launches`` and ``.launches_small``."""
     feats = _merge_features(31, c, b, p, k, cuda_device)
-    n, n_small = merge_sums.launches, merge_sums.launches_small
+    n, n_small = counter("merge_sums.launches"), counter("merge_sums.launches_small")
     got = _merge_launch("small", *feats)
     again = _merge_launch("small", *feats)
     torch.cuda.synchronize()
-    assert merge_sums.launches == n + 2 and merge_sums.launches_small == n_small + 2
+    assert counter("merge_sums.launches") == n + 2
+    assert counter("merge_sums.launches_small") == n_small + 2
     assert torch.equal(got, again)
     want, mag = _merge_sums_f64(*feats)
     for ref in (want, merge_sums_reference(*feats)):
@@ -622,13 +624,13 @@ def test_small_paired_kernel_matches_float64(cuda_device, c, b, p, k):
     float64 (as the tiled kernel's test), two launches bit for bit equal, and
     D = Bd = 0 exactly at q1 = q0."""
     feats = _features(32, c, b, p, k, cuda_device)
-    n_small = paired_sums.launches_small
+    n_small = counter("paired_sums.launches_small")
     got = _paired_launch("small", *feats)
     again = _paired_launch("small", *feats)
     same = _paired_launch("small", feats[0], feats[1], feats[0].clone(), feats[1].clone(),
                           feats[4])
     torch.cuda.synchronize()
-    assert paired_sums.launches_small == n_small + 3
+    assert counter("paired_sums.launches_small") == n_small + 3
     assert torch.equal(got, again)
     assert bool((same[:, :2] == 0).all()), same[:, :2]
     want, mag = _sums_f64(*feats)
@@ -643,11 +645,11 @@ def test_wrappers_take_the_small_kernels_by_the_rule(cuda_device):
     for c, b in [(1, 1000), (2, 200), (4, 10), (3, 127), (3, 130), (16, 128)]:
         feats = _features(33, c, b, 70, 20, cuda_device)
         small = _sums_path(c, b) == "small"
-        n_m, n_p = merge_sums.launches_small, paired_sums.launches_small
+        n_m, n_p = counter("merge_sums.launches_small"), counter("paired_sums.launches_small")
         got_m = merge_sums(feats[0], feats[1], feats[4])
         got_p = paired_sums(*feats)
-        assert merge_sums.launches_small - n_m == int(small)
-        assert paired_sums.launches_small - n_p == int(small)
+        assert counter("merge_sums.launches_small") - n_m == int(small)
+        assert counter("paired_sums.launches_small") - n_p == int(small)
         other = "tiled" if small else "small"
         alt_m = _merge_launch(other, feats[0], feats[1], feats[4])
         alt_p = _paired_launch(other, *feats)
@@ -816,28 +818,25 @@ def test_field_stacks_are_deterministic_and_count_launches(cuda_device):
     launches pack + forward, then one backward kernel per layer (nine), and
     counts ``field.stacks.fused`` twice (once per stack); a non-contiguous
     batch or an f32 cotangent raises before any launch."""
-    from vihmc_torch.core import profiling
-    from vihmc_torch.ops.field_stacks import FeatureStacks
-
     cfg, plan, flat, cts = _stack_problem(48, 1000, 10201, cuda_device, seed=22)
-    n0, k0 = FeatureStacks.launches, profiling.counters().get("field.stacks.fused", 0)
+    n0, k0 = counter("field_stacks.launches"), counter("field.stacks.fused")
     a = _stacks_vjp(plan, flat, cts)
     torch.cuda.synchronize()
-    assert FeatureStacks.launches - n0 == 2 + max(cfg.depth_branch, cfg.depth_trunk)
-    assert profiling.counters()["field.stacks.fused"] - k0 == 2
+    assert counter("field_stacks.launches") - n0 == 2 + max(cfg.depth_branch, cfg.depth_trunk)
+    assert counter("field.stacks.fused") - k0 == 2
     b = _stacks_vjp(plan, flat, cts)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
     assert torch.equal(a[1], b[1])
     from vihmc_torch.ops.field_stacks import _backward_launch, _forward_launch
 
-    n1 = FeatureStacks.launches
+    n1 = counter("field_stacks.launches")
     with pytest.raises(ValueError):
         _forward_launch(plan, flat.t().contiguous().t())
     _, saved = _forward_launch(plan, flat)
     with pytest.raises(ValueError):
         _backward_launch(plan, saved, [cts[0].float(), cts[1]])
-    assert FeatureStacks.launches == n1 + 2
+    assert counter("field_stacks.launches") == n1 + 2
 
 
 def test_bf16_field_on_the_card_takes_the_fused_stacks(cuda_device):
@@ -846,7 +845,6 @@ def test_bf16_field_on_the_card_takes_the_fused_stacks(cuda_device):
     CPU (the plain version) within 1e-2 of each chain's norm; the f32 field
     launches none."""
     from vihmc_torch.models.deeponet import DeepONetConfig
-    from vihmc_torch.ops.field_stacks import FeatureStacks
     from vihmc_torch.ops.gram_merge import make_gram_grad_full
 
     cfg = DeepONetConfig()
@@ -856,14 +854,14 @@ def test_bf16_field_on_the_card_takes_the_fused_stacks(cuda_device):
     tx = torch.rand(1001, 2, generator=gen, device=cuda_device)
     y = torch.randn(200, 1001, generator=gen, device=cuda_device)
     _, _, flat, _ = _stack_problem(4, 8, 8, cuda_device, seed=23)
-    n0 = FeatureStacks.launches
+    n0 = counter("field_stacks.launches")
     got = make_gram_grad_full(cfg, bx, tx, y, 0.7, compute_dtype=torch.bfloat16)(flat)
     torch.cuda.synchronize()
-    assert FeatureStacks.launches == n0 + 11
+    assert counter("field_stacks.launches") == n0 + 11
     want = make_gram_grad_full(cfg, bx.cpu(), tx.cpu(), y.cpu(), 0.7,
                                compute_dtype=torch.bfloat16)(flat.cpu())
     err = ((got.cpu() - want).norm(dim=1) / want.norm(dim=1)).max().item()
     assert err < 1e-2, err
     make_gram_grad_full(cfg, bx, tx, y, 0.7)(flat)
     torch.cuda.synchronize()
-    assert FeatureStacks.launches == n0 + 11
+    assert counter("field_stacks.launches") == n0 + 11

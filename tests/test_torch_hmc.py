@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_convert import metric_from_jax, state_from_jax
 from torch_parity_helpers import one_torch_thread, tiny_problem  # noqa: F401 (a fixture)
 
 import vihmc_tpu.hmc.metric as jm
@@ -27,7 +28,6 @@ from vihmc_tpu.ops.gram_merge import make_gram_grad_full as j_gram
 from vihmc_tpu.pipelines.common import make_flat_deeponet as j_make_flat
 from vihmc_tpu.pipelines.common import make_paired_subspace_delta as j_make_delta
 import vihmc_torch.hmc.metric as tm
-from vihmc_torch.core.convert import metric_from_jax, state_from_jax
 from vihmc_torch.hmc.adaptation import da_init, da_update
 from vihmc_torch.hmc.integrators import leapfrog_grad_only
 from vihmc_torch.hmc.kernel import (HMCConfig, TransitionNoise, clipped_grad_fn,
@@ -343,7 +343,7 @@ def test_operator_row_control_flow_on_cpu():
     (bench_operator on a posterior given to it): warm start, Lanczos
     metric, segmented sampling with thinning, diagnostics."""
     from vihmc_torch.bench_operator import BenchProblem, bench_operator
-    from vihmc_torch.ops.deeponet_merge import paired_sums
+    from vihmc_torch.core.profiling import counter
 
     tp = tiny_problem(seed=10, sub_dim=12)
     scores = (np.random.default_rng(10).random(tp.mu.shape[0]) * 1e-5).astype(np.float32)
@@ -354,9 +354,9 @@ def test_operator_row_control_flow_on_cpu():
     recipe = dict(coupled=True, stride=1, fn_stride=1, laplace_mass=True, grad_dtype="bfloat16",
                   num_leapfrog=4, target_accept=0.25, burn=6, thin=3, segment=12, keys=(0,),
                   init_opt=20, lowrank_rank=4)
-    launches = paired_sums.launches
+    launches = counter("paired_sums.launches")
     st, _ = bench_operator(device="cpu", problem=prob, **recipe)
-    assert paired_sums.launches == launches  # CPU tensors take the plain version
+    assert counter("paired_sums.launches") == launches  # CPU tensors take the plain version
     assert st["samples_shape"] == [3, 8, 12] and st["samples_finite"]
     assert 0.0 <= st["acceptance"] <= 1.0
     assert len(st["step_quartiles"]) == 4 and all(np.isfinite(st["step_quartiles"]))

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_convert import flat_from_tree, vp_from_jax
 from torch_parity_helpers import jax_deeponet_eps, one_torch_thread  # noqa: F401
 from vihmc_tpu.data import get_burgers as j_get_burgers
 from vihmc_tpu.models import DeepONetConfig as JDCfg
@@ -28,7 +29,6 @@ from vihmc_tpu.pipelines import sensitivity as jsens
 from vihmc_tpu.pipelines import vi_hmc as jv
 from vihmc_tpu.pipelines.common import deeponet_vi_apply as j_vi_apply
 from vihmc_tpu.vi import elbo as jelbo
-from vihmc_torch.core.convert import flat_from_tree, vp_from_jax
 from vihmc_torch.models.bayesian import BayesianFlat, bayesian_deeponet_apply
 from vihmc_torch.models.deeponet import DeepONetConfig, deeponet_apply, unravel_deeponet
 from vihmc_torch.ops.gram_merge import make_gram_grad_full
@@ -102,7 +102,7 @@ def test_elbo_loss_with_learned_noise_matches_jax(noise_type, reduction):
 def test_noise_head_forward_matches_jax(grid):
     """With ``noise_neurons=2`` the forward returns ``(y, noise)``: the mean
     head over the first K - 2 channels plus the bias, the noise head over the
-    last 2 without it. From JAX's parameters (``core.convert``), on a shared
+    last 2 without it. From JAX's parameters (``torch_convert``), on a shared
     grid and on per-example points, the plain forward and the Bayesian one
     with JAX's weight normals: both outputs within rtol 1e-5, atol 1e-5.
     The flat layout is the one without the head."""

@@ -141,7 +141,7 @@ def test_cut_functions_are_the_jax_copies():
 
 def test_flatten_mean_std_matches_jax():
     """The flat (mu, softplus(rho)) of a variational tree (rtol 1e-6)."""
-    from vihmc_torch.core.convert import vp_from_jax
+    from torch_convert import vp_from_jax
 
     rng = np.random.default_rng(4)
     tree = {"mu": [{"w": rng.normal(size=(3, 2)), "b": rng.normal(size=3)}],

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from vihmc_tpu.ops.deeponet_merge import _merge_sums_pallas, _paired_sums_pallas
+from vihmc_torch.core.profiling import counter
 from vihmc_torch.ops.deeponet_merge import (SMALL_P_ROWS, _small_blocks, _small_tile_n,
                                             _sums_path, merge_sums, merge_sums_reference,
                                             paired_sums, paired_sums_reference)
@@ -137,9 +138,9 @@ def test_merge_sums_match_unbatched_pallas_kernel(b, p, k):
     s1, s2 = _merge_sums_pallas(jnp.asarray(bout[0]), jnp.asarray(tout[0]), jnp.asarray(y),
                                 interpret=True)
     t = [torch.as_tensor(a) for a in (bout, tout, y)]
-    n = merge_sums.launches
+    n = counter("merge_sums.launches")
     got = merge_sums(*t)
-    assert merge_sums.launches == n  # the CPU path launches no kernel
+    assert counter("merge_sums.launches") == n  # the CPU path launches no kernel
     m = t[0][0].double() @ t[1][0].double().T
     y64 = t[2].double()
     mag = [float((m * m + 2 * (m * y64).abs()).sum()), float(m.abs().sum())]
@@ -158,9 +159,9 @@ def test_paired_sums_match_unbatched_pallas_kernel(b, p, k):
     want = _paired_sums_pallas(*(jnp.asarray(a[0]) for a in feats[:4]), jnp.asarray(feats[4]),
                                interpret=True)
     t = [torch.as_tensor(a) for a in feats]
-    n = paired_sums.launches
+    n = counter("paired_sums.launches")
     got = paired_sums(*t)
-    assert paired_sums.launches == n
+    assert counter("paired_sums.launches") == n
     assert torch.equal(got, paired_sums_reference(*t))
     b1, t1, b0, t0, y64 = (a.double() for a in t)
     m1, m0 = b1[0] @ t1[0].T, b0[0] @ t0[0].T
@@ -177,10 +178,10 @@ def test_launch_helpers_take_cuda_tensors_only():
     from vihmc_torch.ops.deeponet_merge import _merge_launch, _paired_launch
 
     bout, tout, y = torch.zeros((1, 3, 4)), torch.zeros((1, 5, 4)), torch.zeros((3, 5))
-    counts = (merge_sums.launches, paired_sums.launches)
+    counts = (counter("merge_sums.launches"), counter("paired_sums.launches"))
     for path in ("small", "tiled"):
         with pytest.raises(ValueError, match="CUDA or CPU"):
             _merge_launch(path, bout, tout, y)
         with pytest.raises(ValueError, match="CUDA or CPU"):
             _paired_launch(path, bout, tout, bout, tout, y)
-    assert (merge_sums.launches, paired_sums.launches) == counts
+    assert (counter("merge_sums.launches"), counter("paired_sums.launches")) == counts

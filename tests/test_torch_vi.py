@@ -20,6 +20,7 @@ import pytest
 import torch
 from jax.flatten_util import ravel_pytree
 
+from torch_convert import flat_from_tree, vp_from_jax
 from torch_parity_helpers import one_torch_thread  # noqa: F401 (a fixture)
 from vihmc_tpu.data.synthetic import regression_data as j_regression_data
 from vihmc_tpu.models import DeepONetConfig as JDCfg
@@ -36,7 +37,6 @@ from vihmc_tpu.pipelines.common import deeponet_vi_apply as j_deeponet_vi_apply
 from vihmc_tpu.pipelines.common import make_flat_mlp as j_make_flat_mlp
 from vihmc_tpu.pipelines.common import mlp_vi_apply as j_mlp_vi_apply
 from vihmc_tpu.vi import elbo as jelbo
-from vihmc_torch.core.convert import flat_from_tree, vp_from_jax
 from vihmc_torch.data.synthetic import regression_data
 from vihmc_torch.models.bayesian import (BayesianFlat, bayesian_deeponet_apply,
                                          bayesian_mlp_apply, kl_divergence)
@@ -709,12 +709,12 @@ def test_python_loop_train_matches_jax():
     """Three epochs of the Python-loop trainer with a string beta schedule
     ('Blundell' over two minibatches per epoch), the same batches, JAX's
     ensemble normals injected (rebuilt from its key chain, train.py:301-306)
-    and the port started from JAX's initial state (core.convert): every
+    and the port started from JAX's initial state (torch_convert): every
     metrics row (rtol 1e-5), then the final variational parameters (rtol
     1e-6, atol 1e-4 of ``lr_start``, as the three-step Adam test), Adam's
     moments (rtol 1e-4 of their scale), the step count, the plateau state
     and the epoch."""
-    from vihmc_torch.core.convert import vi_train_state_from_jax
+    from torch_convert import vi_train_state_from_jax
     from vihmc_torch.vi.train import train
 
     rng = np.random.default_rng(16)

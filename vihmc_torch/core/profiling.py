@@ -8,26 +8,19 @@ Counterpart of ``vihmc_tpu/core/profiling.py`` (:17-90): :class:`Timer`,
 matmuls torch issues, each counted from its shapes
 (``torch.utils.flop_counter``), plus the products of the port's CUDA
 kernels that ran in it, which torch does not see (each kernel wrapper adds
-its products' FLOPs to its ``flops`` counter where it launches).
+its products' FLOPs to the counter ``kernel.flops`` where it launches).
 
 The span recorder (:class:`SpanRecorder`; the process's one is
-:data:`RECORDER`, driven by :func:`span`, :func:`count` and the sampler's
-hooks) times every layer of the sampling path where its work happens:
-``chains/resume.run_segments`` opens ``vihmc.segment``, ``vihmc.draw`` (around
-each transition), ``vihmc.transfer`` (the segment's host copy) and
-``vihmc.progress``; inside a draw the trajectory field (``vihmc.field``, and
-the Gram field's ``vihmc.field.forward`` / ``.cotangents`` / ``.vjp``) and the
-MH test (``vihmc.mh``, ``vihmc.mh.features``, ``vihmc.mh.paired_sums``); the
-FNO2d's layers (``vihmc.fno.spectral`` and ``vihmc.fno.spectral.bwd``, the
-spectral convolution's forward and backward; ``vihmc.fno.pointwise``, the lift,
-1x1 convolutions, GELU and projection both ways; ``vihmc.fno.density``, the
-MH test's f32 forwards); in the set-up ``vihmc.kernel_build``,
-``vihmc.warm_start`` (``.step``), ``vihmc.lanczos`` (``.hvp``),
-``vihmc.sensitivity`` (the probe estimator) and ``vihmc.init_state``. A
-record holds the name, an id, the parent's id, the draw id (the draw's global
-index), the segment, the rank (in a process group), the host start and end
-(``perf_counter_ns``), the device start and end on the same clock, and
-whether a ``torch.profiler`` session was active at its start.
+:data:`RECORDER`, driven by :func:`span`, :func:`detail_span`, :func:`count`
+and the sampler's hooks) times every layer of the sampling path where its
+work happens; each layer names its own spans (``vihmc.<layer>``, listed in
+the README) and counters. :func:`span` opens a set-up or segment span,
+:func:`detail_span` a per-draw span (the trajectory field's and the MH
+test's layers). A record holds the name, an id, the parent's id, the draw id
+(the draw's global index), the segment, the rank (in a process group), the
+host start and end (``perf_counter_ns``), the device start and end on the
+same clock, and whether a ``torch.profiler`` session was active at its
+start.
 
 Device stamps come from CUDA events on the sampler's stream, mapped onto the
 host clock by an anchor taken after each segment's host copy (the stream is
@@ -36,13 +29,13 @@ the next segment's first draw is queued, so the reading overlaps the device's
 work; on the CPU the work is synchronous and the device stamps are the host
 stamps. No span adds a host sync inside a draw. What is recorded, by default: every draw's
 span with one event at its start (its device time runs to the next draw's
-start, or to the event at the segment's end); the detailed spans, each with an
+start, or to the event at the segment's end); the per-draw spans, each with an
 event pair, on the draws whose index in the segment is ``DETAIL_AT`` mod
 ``DETAIL_EVERY``, and in a segment of ``DETAIL_AT`` draws or fewer on its last
 (so never the first after a boundary); the set-up's spans on
 the host clock, with an event pair on each outer one. While a profiler
 session is active every span also opens ``torch.profiler.record_function``
-under its name, so it lands in the device trace, and detailed spans are
+under its name, so it lands in the device trace, and per-draw spans are
 recorded outside a draw too (the warm start calls the same field). After
 :func:`disable` a span is a shared null context; counters always count.
 Records stay in memory (rings of the last ``RING_DRAWS`` draws, their
@@ -140,13 +133,6 @@ class ProgressPrinter:
         self.stream.flush()
 
 
-def _kernel_flops() -> int:
-    from vihmc_torch.ops.deeponet_merge import merge_sums, paired_sums
-    from vihmc_torch.ops.field_stacks import FeatureStacks
-
-    return paired_sums.flops + merge_sums.flops + FeatureStacks.flops
-
-
 def _product_flops(lead: int):
     """``FlopCounterMode`` formula of a (batched) matrix product whose two
     operands follow ``lead`` other arguments: 2 per multiply-add. It takes
@@ -167,10 +153,10 @@ def count_flops(fn: Callable, *args, **kwargs):
     aten = torch.ops.aten
     products = {aten.mm: _product_flops(0), aten.bmm: _product_flops(0),
                 aten.addmm: _product_flops(1), aten.baddbmm: _product_flops(1)}
-    k0 = _kernel_flops()
-    with FlopCounterMode(display=False, custom_mapping=products) as counter:
+    k0 = counter("kernel.flops")
+    with FlopCounterMode(display=False, custom_mapping=products) as mode:
         out = fn(*args, **kwargs)
-    return int(counter.get_total_flops()) + _kernel_flops() - k0, out
+    return int(mode.get_total_flops()) + counter("kernel.flops") - k0, out
 
 
 # ---------------------------------------------------------------------------
@@ -181,14 +167,9 @@ def count_flops(fn: Callable, *args, **kwargs):
 RING_DRAWS = 4096
 #: set-up records kept: warm-start steps, Lanczos HVPs, outer spans
 RING_SETUP = 8192
-#: the detailed spans are recorded on draws whose index in the segment is
+#: the per-draw spans are recorded on draws whose index in the segment is
 #: ``DETAIL_AT`` mod ``DETAIL_EVERY`` (a shorter segment: its last draw but the first)
 DETAIL_EVERY, DETAIL_AT = 8, 4
-DETAIL_SPANS = frozenset({
-    "vihmc.field", "vihmc.field.forward", "vihmc.field.cotangents", "vihmc.field.vjp",
-    "vihmc.mh", "vihmc.mh.features", "vihmc.mh.paired_sums",
-    "vihmc.fno.spectral", "vihmc.fno.spectral.bwd", "vihmc.fno.pointwise",
-    "vihmc.fno.density"})
 SEGMENT_SPANS = frozenset({"vihmc.segment", "vihmc.transfer", "vihmc.progress"})
 
 _NULL = contextlib.nullcontext()
@@ -277,7 +258,7 @@ class _Draw(_Span):
 
 def detailed(index: int, size=None) -> bool:
     """Whether draw ``index`` of a segment of ``size`` draws records the
-    detailed spans: index ``DETAIL_AT`` mod ``DETAIL_EVERY``, or, in a segment
+    per-draw spans: index ``DETAIL_AT`` mod ``DETAIL_EVERY``, or, in a segment
     too short to reach it, the last draw unless it is the first."""
     if index % DETAIL_EVERY == DETAIL_AT:
         return True
@@ -349,27 +330,29 @@ class SpanRecorder:
         return ("host", None) if device.type == "cpu" else (None, None)
 
     def span(self, name: str, device=None):
-        """A span named ``name``. Inside a run's segment the device is the
-        sampler's; outside, ``device`` (None: host stamps only) gives the
-        outer set-up spans their event pair."""
+        """A set-up or segment span named ``name``. Inside a run's segment the
+        device is the sampler's; outside, ``device`` (None: host stamps only)
+        gives the outer set-up spans their event pair."""
         if not self.enabled:
             return _NULL
-        draw = self._draw
-        if name in DETAIL_SPANS:
-            if draw is not None and self._sampled:
-                mode, stream = self._mode, self._stream
-            elif _profiler_on():
-                mode, stream = ("host", None) if self._mode == "host" else (None, None)
-            else:
-                return _NULL
-        elif self._seg is not None:
+        if self._seg is not None:
             mode, stream = ("host", None) if self._mode == "host" else (None, None)
         elif not self._stack:
             mode, stream = self._device_mode(device)
         else:
             mode, stream = None, None
-        r = self._record(name, None if draw is None else draw[0]["draw"])
-        return _Span(self, r, mode, stream)
+        draw = self._draw
+        return _Span(self, self._record(name, None if draw is None else draw[0]["draw"]),
+                     mode, stream)
+
+    def detail_span(self, name: str):
+        """A per-draw span named ``name``: recorded with the sampler's device
+        stamps on the draws :func:`detailed` picks, as a :meth:`span` anywhere
+        while a profiler session is active, and else the shared null context."""
+        draw = self._draw
+        if self.enabled and draw is not None and self._sampled:
+            return _Span(self, self._record(name, draw[0]["draw"]), self._mode, self._stream)
+        return self.span(name) if _profiler_on() else _NULL
 
     @contextlib.contextmanager
     def _segment(self, segment: int, device):
@@ -507,6 +490,11 @@ def span(name: str, device=None):
     return RECORDER.span(name, device)
 
 
+def detail_span(name: str):
+    """``with detail_span("vihmc.<layer>"): ...``, a per-draw span, on :data:`RECORDER`."""
+    return RECORDER.detail_span(name)
+
+
 def count(name: str, n: int = 1):
     RECORDER.count(name, n)
 
@@ -529,6 +517,11 @@ def records() -> list:
 
 def counters() -> dict:
     return dict(RECORDER.counters)
+
+
+def counter(name: str) -> int:
+    """Counter ``name``'s value (0 before its first count)."""
+    return RECORDER.counters.get(name, 0)
 
 
 def export_chrome(path: str):

@@ -6,7 +6,7 @@ a Python loop. ``step_size`` is a scalar or a per-chain ``(C,)`` tensor.
 ``n_steps`` (C,) masks the steps past each chain's own trajectory length
 (the ``jitter_l`` scans of ``vihmc_tpu/hmc/kernel.py:593-629``): every step
 runs for every chain, and a chain keeps its state from its last unmasked
-step. Each field evaluation is a ``vihmc.field`` span and a ``field.calls``
+step. Each field evaluation is a ``vihmc.field`` per-draw span and a ``field.calls``
 count (:mod:`vihmc_torch.core.profiling`).
 """
 
@@ -39,7 +39,7 @@ def leapfrog(value_and_grad_fn, q, p, grad, step_size, num_steps: int, inv_mass=
         p_half = p + 0.5 * eps * grad
         q_new = q + eps * mass_velocity(inv_mass, p_half)
         profiling.count("field.calls")
-        with profiling.span("vihmc.field"):
+        with profiling.detail_span("vihmc.field"):
             lp_new, g_new = value_and_grad_fn(q_new)
         p_new = p_half + 0.5 * eps * g_new
         if n_steps is None:
@@ -65,7 +65,7 @@ def leapfrog_grad_only(grad_fn, q, p, grad, step_size, num_steps: int,
         p_half = p + 0.5 * eps * grad
         q_new = q + eps * mass_velocity(inv_mass, p_half)
         profiling.count("field.calls")
-        with profiling.span("vihmc.field"):
+        with profiling.detail_span("vihmc.field"):
             g_new = grad_fn(q_new)
         p_new = p_half + 0.5 * eps * g_new
         if n_steps is None:

@@ -526,7 +526,7 @@ def make_kernel(config: HMCConfig, inv_mass, grad_fn: Optional[Callable] = None,
             if delta_fn is None:
                 # the unpaired MH test's density at the proposal
                 profiling.count("mh.calls")
-                with profiling.span("vihmc.mh"):
+                with profiling.detail_span("vihmc.mh"):
                     lp1 = _density(log_prob_fn, q1, aux)
         else:
             q1, p1, lp1, g1 = leapfrog(lambda q: value_and_grad(log_prob_fn, q, aux),
@@ -535,7 +535,7 @@ def make_kernel(config: HMCConfig, inv_mass, grad_fn: Optional[Callable] = None,
 
         if delta_fn is not None:
             profiling.count("mh.calls")
-            with profiling.span("vihmc.mh"):
+            with profiling.detail_span("vihmc.mh"):
                 dlp, lp1 = delta_fn(q1, q0, aux)
             delta = dlp - (ke1 - ke0)
         else:

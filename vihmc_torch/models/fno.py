@@ -48,10 +48,11 @@ and ``N = S1 S2`` (padded), the cotangent of the kept modes is ``c_l G / N``,
 cotangent divided by ``c_l``. The two factors cancel: ``dx = irfft2(pad(G
 W^H))``, and only the weights' cotangent ``M^H c_l G / N`` carries them.
 
-Spans (``core/profiling.py``, with ``spans=True``): ``vihmc.fno.spectral``
-around each spectral convolution's forward, ``vihmc.fno.spectral.bwd`` around
-its backward, ``vihmc.fno.pointwise`` around the lift, each 1x1 convolution
-with its GELU and the projection, forward and backward. Counter
+Per-draw spans (``core/profiling.detail_span``, with ``spans=True``):
+``vihmc.fno.spectral`` around each spectral convolution's forward,
+``vihmc.fno.spectral.bwd`` around its backward, ``vihmc.fno.pointwise``
+around the lift, each 1x1 convolution with its GELU and the projection,
+forward and backward. Counter
 ``fno.fft_bytes``: the bytes the transforms must move (each reads its input
 once and writes its output once), counted from the shapes at every forward
 and backward.
@@ -67,7 +68,7 @@ from typing import Optional
 import torch
 from torch.nn.functional import gelu
 
-from vihmc_torch.core.profiling import count, span
+from vihmc_torch.core.profiling import count, detail_span
 
 _NULL = contextlib.nullcontext()
 
@@ -281,7 +282,7 @@ class _Lift(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a_t, w0, b0, n, s1, s2, pad, op, spans):
-        with span("vihmc.fno.pointwise") if spans else _NULL:
+        with detail_span("vihmc.fno.pointwise") if spans else _NULL:
             c, w = w0.shape[:2]
             h = _mm(w0, _chains(a_t, c), op).add_(b0[..., None])
             x0 = h.new_zeros((c, w, n, s1 + pad, s2 + pad))
@@ -294,7 +295,7 @@ class _Lift(torch.autograd.Function):
     def backward(ctx, g):
         a_t, w0 = ctx.saved_tensors
         n, s1, s2 = ctx.dims
-        with span("vihmc.fno.pointwise") if ctx.spans else _NULL:
+        with detail_span("vihmc.fno.pointwise") if ctx.spans else _NULL:
             c, w, cin = w0.shape
             # the sum over n S1 S2 points as one short product per function
             # (C n, W, P) @ (C n, P, Cin), then summed over the functions: a
@@ -314,7 +315,7 @@ class _Spectral(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w1, w2, op, spans):
-        with span("vihmc.fno.spectral") if spans else _NULL:
+        with detail_span("vihmc.fno.spectral") if spans else _NULL:
             c, i, n, s1, s2 = x.shape
             o, m1, m2 = w1.shape[2], w1.shape[3], w1.shape[4]
             if 2 * m1 > s1 or m2 > s2 // 2 + 1:
@@ -332,7 +333,7 @@ class _Spectral(torch.autograd.Function):
     def backward(ctx, g):
         a, w1, w2 = ctx.saved_tensors
         c, i, o, n, s1, s2, m1, m2 = ctx.dims
-        with span("vihmc.fno.spectral.bwd") if ctx.spans else _NULL:
+        with detail_span("vihmc.fno.spectral.bwd") if ctx.spans else _NULL:
             count("fno.fft_bytes", fft_bytes(c, o, n, s1, s2))
             gm =_corners(torch.fft.rfft2(g.contiguous()), m1, m2)     # (C M, n, 2o)
             wb = _mixing_matrix(w1, w2)
@@ -352,7 +353,7 @@ class _Pointwise(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, s, x, w, b, act, op, spans):
-        with span("vihmc.fno.pointwise") if spans else _NULL:
+        with detail_span("vihmc.fno.pointwise") if spans else _NULL:
             c, i = x.shape[:2]
             o = w.shape[1]
             x_op = _op(x.reshape(c, i, -1), op)
@@ -366,7 +367,7 @@ class _Pointwise(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x_op, w, z = ctx.saved_tensors
-        with span("vihmc.fno.pointwise") if ctx.spans else _NULL:
+        with detail_span("vihmc.fno.pointwise") if ctx.spans else _NULL:
             c, o, i = w.shape[:3]
             gz = gelu_backward(g, z) if ctx.act else g.contiguous()
             gzf = gz.view(c, o, -1)
@@ -382,7 +383,7 @@ class _Project(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, s1, s2, op, spans):
-        with span("vihmc.fno.pointwise") if spans else _NULL:
+        with detail_span("vihmc.fno.pointwise") if spans else _NULL:
             c, w, n = x.shape[:3]
             xu = _op(x[..., :s1, :s2], op).reshape(c, w, n * s1 * s2)
             z1 = _mm(w1, xu, op).add_(b1[..., None])                  # (C, F, N)
@@ -396,7 +397,7 @@ class _Project(torch.autograd.Function):
         xu, z1, w1, w2 = ctx.saved_tensors
         n, s1, s2, p1, p2 = ctx.dims
         op = ctx.op
-        with span("vihmc.fno.pointwise") if ctx.spans else _NULL:
+        with detail_span("vihmc.fno.pointwise") if ctx.spans else _NULL:
             c, f, w = w1.shape
             gf = g.reshape(c, 1, n * s1 * s2)
             dw2 = _mm(gf, _op(gelu(z1), op).transpose(1, 2), op)     # (C, 1, F)

@@ -47,6 +47,7 @@ import math
 import torch
 
 from vihmc_torch.core.precision import true_f32
+from vihmc_torch.core.profiling import count
 from vihmc_torch.ops import cuda_build
 
 GNLL_EPS = 1e-6
@@ -67,6 +68,16 @@ def _sums_path(c: int, b: int) -> str:
     the tiled tile is mostly zeros, and the small kernel is faster at every
     C measured (1 to 8)."""
     return "small" if c <= SMALL_MAX_C or b < SMALL_B else "tiled"
+
+
+def _count(kernel: str, c: int, path: str, flops: int):
+    """Count one launch of ``kernel`` at C = ``c`` on ``path``: its launches,
+    those at C = 1 (the unbatched form's) and those of the small kernel
+    apart, and its products' FLOPs in ``kernel.flops``."""
+    count(f"{kernel}.launches")
+    count(f"{kernel}.launches_c1", int(c == 1))
+    count(f"{kernel}.launches_small", int(path == "small"))
+    count("kernel.flops", flops)
 
 
 def _small_tile_n(b: int) -> int:
@@ -133,9 +144,9 @@ def merge_sums(bout, tout, y) -> torch.Tensor:
 
     CUDA tensors: one launch of a hand-written kernel for all chains, the one
     :func:`_sums_path` picks, counted in ``merge_sums.launches`` (at C = 1
-    also in ``launches_c1``, on the small kernel also in
-    ``launches_small``). CPU tensors: :func:`merge_sums_reference`. Anything
-    else raises. The result is f64, not the f32 of JAX: ``S1`` is about
+    also in ``merge_sums.launches_c1``, on the small kernel also in
+    ``merge_sums.launches_small``). CPU tensors: :func:`merge_sums_reference`.
+    Anything else raises. The result is f64, not the f32 of JAX: ``S1`` is about
     ``-sum y^2`` (~1.7e6) at reference scale, where rounding it to f32 alone
     moves ll by up to 0.03 nats, and f32 accumulation across tiles by more.
     """
@@ -171,17 +182,8 @@ def _merge_launch(path, bout, tout, y) -> torch.Tensor:
                                        ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"merge_sums {path} kernel launch failed: CUDA error {err}")
-    merge_sums.launches += 1
-    merge_sums.launches_c1 += int(c == 1)   # the unbatched form's launches
-    merge_sums.launches_small += int(path == "small")
-    merge_sums.flops += 2 * c * b * p * k
+    _count("merge_sums", c, path, 2 * c * b * p * k)
     return out
-
-
-merge_sums.launches = 0
-merge_sums.launches_c1 = 0
-merge_sums.launches_small = 0
-merge_sums.flops = 0   # matmul FLOPs of the launches (core.profiling.count_flops)
 
 
 def merge_nll_reference(bout, tout, bias, y, tau) -> torch.Tensor:
@@ -289,8 +291,8 @@ def paired_sums(bout1, tout1, bout0, tout0, y) -> torch.Tensor:
 
     CUDA tensors: one launch of a hand-written kernel for all chains, the one
     :func:`_sums_path` picks, counted in ``paired_sums.launches`` (at C = 1
-    also in ``launches_c1``, on the small kernel also in
-    ``launches_small``). CPU tensors: :func:`paired_sums_reference`.
+    also in ``paired_sums.launches_c1``, on the small kernel also in
+    ``paired_sums.launches_small``). CPU tensors: :func:`paired_sums_reference`.
     Anything else raises.
     """
     c, b, p, k = _check_inputs(bout1, tout1, bout0, tout0, y)
@@ -324,17 +326,8 @@ def _paired_launch(path, bout1, tout1, bout0, tout0, y) -> torch.Tensor:
                                         c, b, p, k, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"paired_sums {path} kernel launch failed: CUDA error {err}")
-    paired_sums.launches += 1
-    paired_sums.launches_c1 += int(c == 1)   # the unbatched form's launches
-    paired_sums.launches_small += int(path == "small")
-    paired_sums.flops += 2 * 2 * c * b * p * k   # the two products m1, m0
+    _count("paired_sums", c, path, 2 * 2 * c * b * p * k)   # the two products m1, m0
     return out
-
-
-paired_sums.launches = 0
-paired_sums.launches_c1 = 0
-paired_sums.launches_small = 0
-paired_sums.flops = 0   # matmul FLOPs of the launches (core.profiling.count_flops)
 
 
 def y_sums(y: torch.Tensor):

@@ -17,9 +17,9 @@ Function, :class:`FeatureStacks`, does the same arithmetic:
 
 CUDA tensors launch the kernels of ``csrc/field_stack.cu``: one ``pack``
 (the weights into padded bf16 tiles), one ``stack_forward`` for both stacks,
-and one ``layer_backward`` per layer for both stacks, each counted in
-``FeatureStacks.launches``. CPU tensors run the plain version of the
-same arithmetic (:func:`stacks_forward_reference`,
+and one ``layer_backward`` per layer for both stacks, counted in
+``field_stacks.launches`` (their products in ``kernel.flops``). CPU tensors
+run the plain version of the same arithmetic (:func:`stacks_forward_reference`,
 :func:`stacks_backward_reference`). Nothing falls back from one to the other.
 
 Which fields take it is :func:`fusable`'s rule: tanh stacks whose widths fit
@@ -98,12 +98,9 @@ class FeatureStacks:
     plain version any float dtype (f32 keeps its activations exact, so a test
     can hold the written-out backward to autograd's).
 
-    Counters over every plan: ``launches`` (per call 2 forward, then one per
-    layer of the deeper stack) and ``flops`` (the launches' products, 2 per
-    multiply-add; :func:`~vihmc_torch.core.profiling.count_flops` adds them)."""
-
-    launches = 0
-    flops = 0
+    Counters over every plan: ``field_stacks.launches`` (per call 2 forward,
+    then one per layer of the deeper stack) and ``kernel.flops`` (the
+    launches' products, 2 per multiply-add)."""
 
     def __init__(self, cfg: DeepONetConfig, branch_x: torch.Tensor, trunk_in: torch.Tensor,
                  dtype=torch.bfloat16):
@@ -247,8 +244,8 @@ def _forward_launch(plan: FeatureStacks, leaf: torch.Tensor):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _check(lib.vihmc_field_forward(desc.ctypes.data, ctypes.c_void_p(stream)), "forward")
-    FeatureStacks.launches += 2
-    FeatureStacks.flops += sum(st.flops(c) for st in plan.stacks)
+    count("field_stacks.launches", 2)
+    count("kernel.flops", sum(st.flops(c) for st in plan.stacks))
     return feats, saved
 
 
@@ -275,10 +272,10 @@ def _backward_launch(plan: FeatureStacks, saved, cts) -> torch.Tensor:
         gbuf = [torch.empty((c, st.n, WP), dtype=bf, device=dev) for _ in range(2 if deep else 0)]
         slots = torch.empty((c, ns, WP * WP), dtype=torch.float32, device=dev)
         state.append((g, gbuf, slots, wb, acts, pb, ns))
-    bwd_flops = 0
+    bwd_flops, layers = 0, max(len(st.slices) for st in plan.stacks)
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        for i in range(max(len(st.slices) for st in plan.stacks)):
+        for i in range(layers):
             desc = np.zeros(3 + 2 * STEP_WORDS, dtype=np.int64)
             desc[0] = c
             for k, (st, (g, gbuf, slots, wb, acts, pb, ns)) in enumerate(zip(plan.stacks, state)):
@@ -302,8 +299,8 @@ def _backward_launch(plan: FeatureStacks, saved, cts) -> torch.Tensor:
                     kin, _vec(yld, kin), st.n, st.tiles, ns, pb, s.b, s.w, s.d_in, s.d_out)
                 bwd_flops += 2 * c * st.n * s.d_in * s.d_out * (2 if li else 1)
             _check(lib.vihmc_field_backward(desc.ctypes.data, stream), "backward")
-            FeatureStacks.launches += 1
-    FeatureStacks.flops += bwd_flops
+    count("field_stacks.launches", layers)
+    count("kernel.flops", bwd_flops)
     return grad
 
 

@@ -49,7 +49,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vihmc_torch.core.profiling import count, span
+from vihmc_torch.core.profiling import count, detail_span
 from vihmc_torch.models.deeponet import (DeepONetConfig, bc_embedding, deeponet_features,
                                          unravel_deeponet)
 from vihmc_torch.ops.field_stacks import FeatureStacks, fusable
@@ -210,13 +210,13 @@ def make_gram_grad_full(cfg: DeepONetConfig, branch_x, trunk_x, y, tau_var,
     def grad_full(flat: torch.Tensor) -> torch.Tensor:
         with torch.enable_grad():
             leaf = flat.detach().to(torch.float32).requires_grad_(True)
-            with span("vihmc.field.forward"):
+            with detail_span("vihmc.field.forward"):
                 bout, tout, bias = features(leaf)
-            with span("vihmc.field.cotangents"):
+            with detail_span("vihmc.field.cotangents"):
                 with torch.no_grad():
                     cts = _gram_cotangents(bout, tout, bias, yp, y_sum, var, ll_scale, dt,
                                            bufs)
-            with span("vihmc.field.vjp"):
+            with detail_span("vihmc.field.vjp"):
                 (g,) = torch.autograd.grad((bout, tout, bias), leaf, grad_outputs=cts)
         if prior is not None:
             g = g + prior.grad(flat)

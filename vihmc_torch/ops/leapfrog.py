@@ -19,6 +19,7 @@ import ctypes
 
 import torch
 
+from vihmc_torch.core.profiling import count
 from vihmc_torch.ops import cuda_build
 
 
@@ -50,7 +51,7 @@ def fused_leapfrog_update(q, p, g, eps, inv_mass=None):
 
     ``eps`` is a Python float (or a 0-d tensor); ``inv_mass`` None (identity),
     a scalar or ``(D,)``. CUDA tensors: one launch of the kernel, counted in
-    ``fused_leapfrog_update.launches``; CPU tensors:
+    ``leapfrog_update.launches``; CPU tensors:
     :func:`leapfrog_update_reference`. Anything else raises.
     """
     ts = (q, p, g)
@@ -88,8 +89,5 @@ def fused_leapfrog_update(q, p, g, eps, inv_mass=None):
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"leapfrog_update kernel launch failed: CUDA error {err}")
-    fused_leapfrog_update.launches += 1
+    count("leapfrog_update.launches")
     return q_new, p_half
-
-
-fused_leapfrog_update.launches = 0

@@ -27,7 +27,7 @@ import math
 import torch
 
 from vihmc_torch.core.precision import true_f32
-from vihmc_torch.core.profiling import count, span
+from vihmc_torch.core.profiling import count, detail_span, span
 from vihmc_torch.core.ravel import scatter_subspace
 from vihmc_torch.dists.likelihoods import GNLL_EPS, get_likelihood, nll_log_likelihood
 from vihmc_torch.models.bayesian import (bayesian_deeponet_apply, bayesian_fno_apply,
@@ -242,10 +242,10 @@ def make_fused_paired_subspace_delta(cfg: DeepONetConfig, branch_x, trunk_x,
     def delta_fn(q1, q0, aux):
         params1 = unravel_deeponet(cfg, scatter_subspace(aux, q1, idx))
         params0 = unravel_deeponet(cfg, scatter_subspace(aux, q0, idx))
-        with span("vihmc.mh.features"), true_f32():
+        with detail_span("vihmc.mh.features"), true_f32():
             bout1, tout1 = deeponet_features(cfg, params1, branch_x, trunk_x)
             bout0, tout0 = deeponet_features(cfg, params0, branch_x, trunk_x)
-        with span("vihmc.mh.paired_sums"):
+        with detail_span("vihmc.mh.paired_sums"):
             dll, lp1 = fused_paired_delta(
                 bout1.contiguous(), tout1.contiguous(), params1["b"],
                 bout0.contiguous(), tout0.contiguous(), params0["b"], y, tau,
@@ -331,11 +331,11 @@ def make_fno_grad_full(cfg: FNO2dConfig, u0, y, tau_var, compute_dtype=None,
         with torch.enable_grad(), true_f32():
             leaf = flat.detach().to(torch.float32).requires_grad_(True)
             for lo, hi in chunks:
-                with span("vihmc.field.forward"):
+                with detail_span("vihmc.field.forward"):
                     pred = fno_apply_chains(cfg, leaf, a[lo:hi], compute_dtype,
                                             spans=True).flatten(2)
                     ct = (y[lo:hi] - pred.detach()).div_(var)
-                with span("vihmc.field.vjp"):
+                with detail_span("vihmc.field.vjp"):
                     (gc,) = torch.autograd.grad(pred, leaf, grad_outputs=ct)
                 del pred, ct
                 g = gc if g is None else g.add_(gc)
@@ -374,7 +374,7 @@ def make_fno_nll_log_likelihood(cfg: FNO2dConfig, u0, y, tau_var, max_bytes=None
     def full_ll(flat):
         chunks = fno_chunks(cfg, a.shape[0], flat.shape[0], a.shape[1], a.shape[2],
                             max_bytes, grad=False)
-        with span("vihmc.fno.density"), true_f32(), torch.no_grad():
+        with detail_span("vihmc.fno.density"), true_f32(), torch.no_grad():
             (ss,) = _fno_residual_sums(cfg, flat, a, y, chunks, pair=False)
         return (-0.5 / var * ss + const).float()
 
@@ -396,7 +396,7 @@ def make_fno_paired_subspace_delta(cfg: FNO2dConfig, u0, y, tau_var, idx, prior,
         flat = torch.cat([scatter_subspace(aux, q1, idx), scatter_subspace(aux, q0, idx)])
         chunks = fno_chunks(cfg, a.shape[0], flat.shape[0], a.shape[1], a.shape[2],
                             max_bytes, grad=False)
-        with span("vihmc.fno.density"), true_f32(), torch.no_grad():
+        with detail_span("vihmc.fno.density"), true_f32(), torch.no_grad():
             dss, ss1 = _fno_residual_sums(cfg, flat, a, y, chunks, pair=True)
         lp_q1 = prior.log_prob(q1)
         dll = (-0.5 / var * dss + (lp_q1 - prior.log_prob(q0)).double()).float()
