@@ -31,7 +31,12 @@ Phases, each printed with its wall time:
    against float64; the field's fused stacks (``csrc/field_stack.cu``)
    forward and backward against the autograd path they replaced, in turns,
    beside their byte bounds and the plain version's time, their gradient
-   against the plain version's;
+   against the plain version's; the same for the FNO field's fused
+   projection (``csrc/fno_project.cu``) at one function chunk of the FNO
+   cell (C 4, 336 functions), beside its byte, instruction and product
+   bounds, then one bf16 FNO field call at the cell's shapes (three chunks:
+   one forward and one backward launch a chunk) and the f32 density and
+   field (none);
 5. the stage-3 kernels against their plain versions on the card:
    ``merge_sums`` at a ragged shape and at the stage-3 shape (16 chains,
    B = 1000, P = 10,201, K = 100) on real features at the VI mean and one
@@ -239,6 +244,9 @@ from vihmc_torch.ops.gram_merge import (_gram_cotangents, grid_stride_subset,
                                         infer_grid_shape, make_gram_grad_full, pad_queries)
 from vihmc_torch.ops.leapfrog import (fused_leapfrog_update,
                                       leapfrog_update_reference)
+from vihmc_torch.ops.fno_project import (project_backward, project_backward_reference,
+                                         project_forward, project_reference)
+from vihmc_torch.models.fno import FNO2dConfig, _Project, init_fno, unravel_fno
 import vihmc_torch.chains.resume as chains_resume
 import vihmc_torch.pipelines.vi_hmc as vi_hmc
 from vihmc_torch.data.burgers import STAGE12_ASSET, subsample_trunk
@@ -247,9 +255,10 @@ from vihmc_torch.models.mlp import MLPConfig
 from vihmc_torch.data.burgers import load_burgers_mat
 from vihmc_torch.io.artifacts import RunStore
 from vihmc_torch.pipelines import cli, hmc_full, hmc_nuts, hmc_split, sensitivity, vi_train
-from vihmc_torch.pipelines.common import (conditional_warm_start,
+from vihmc_torch.pipelines.common import (conditional_warm_start, fno_chunks,
                                           make_deeponet_nll_log_posterior,
-                                          make_flat_deeponet)
+                                          make_flat_deeponet, make_fno_grad_full,
+                                          make_fno_nll_log_likelihood)
 from vihmc_torch.pipelines.configs import (NNHMCRunConfig, NNVIRunConfig,
                                            OperatorHMCRunConfig, OperatorVIRunConfig,
                                            SensitivityRunConfig,
@@ -344,6 +353,9 @@ KERNELS = {
     # pack + forward + one backward launch per layer, per bf16 Gram field call
     "field_stacks": {"route": "cuda", "source": "vihmc_torch/csrc/field_stack.cu",
                      "replaces": "none: the JAX field's stacks are XLA matmuls"},
+    # forward + backward per function chunk of a bf16 FNO field call
+    "fno_project": {"route": "cuda", "source": "vihmc_torch/csrc/fno_project.cu",
+                    "replaces": "none: the JAX package has no FNO"},
 }
 # the recorder's launch counters (core/profiling.py): each wrapper counts its
 # launches, those at C = 1 and those of the small kernel apart
@@ -354,7 +366,9 @@ COUNTERS = {"paired_sums": "paired_sums.launches",
             "merge_sums_c1": "merge_sums.launches_c1",
             "merge_sums_small": "merge_sums.launches_small",
             "leapfrog_update": "leapfrog_update.launches",
-            "field_stacks": "field_stacks.launches"}
+            "field_stacks": "field_stacks.launches",
+            "fno_project": "fno_project.launches",
+            "fno_project_fused": "fno.project.fused"}
 _COUNTS_AT = {}   # the counters at the last reset_counts()
 
 
@@ -806,6 +820,174 @@ def field_stack_times(cfg, branch_x, trunk_x, flat, reps):
                 + ms["autograd backward"], plain_ms=plain["forward"] + plain["backward"],
                 bound_ms=bound_ms, bound_by="bytes" if bounds["backward"][1] == "bytes"
                 else "operations")
+
+
+# FP32-pipe instructions one hidden value costs in csrc/fno_project.cu,
+# reckoned from its source and libdevice's erff (~28 with both of its
+# branches) and expf (~8): forward the bias, the scale, erff, the GELU's 3,
+# half a bf16 round trip and the w2 FMA; backward erff, expf, the cdf, pdf
+# and gelu' (5), w2 g and dz1 (2), the GELU (2), the rounds of gelu and dz1,
+# the dw2 FMA and the db1 add
+FNO_FWD_INSTR, FNO_BWD_INSTR = 35, 58
+FNO_CHUNK_FUNCTIONS = 336    # one function chunk of the FNO cell at C = 4 (memory_gb 56)
+
+
+def fno_project_bounds(c, w, f, n, p1, p2, s1, s2, n_sm, clock_hz):
+    """``{part: (bytes, model FLOPs, instruction ms)}`` of the fused
+    projection: forward x read and out written, backward x and g read and dx
+    written (f32, once each); the model's products at the real points; the
+    hidden values at every padded point times their instructions over the
+    card's FP32 lanes (128 an SM) at ``clock_hz``."""
+    npad, nreal = n * p1 * p2, n * s1 * s2
+    lanes = n_sm * 128 * clock_hz
+    return {"forward": (4 * c * (w * npad + nreal), 2 * c * nreal * f * (w + 1),
+                        1e3 * c * npad * f * FNO_FWD_INSTR / lanes),
+            "backward": (4 * c * (2 * w * npad + nreal), 2 * c * nreal * f * (2 * w + 1),
+                         1e3 * c * npad * f * FNO_BWD_INSTR / lanes)}
+
+
+def fno_project_times(dev, reps, n=FNO_CHUNK_FUNCTIONS, c=4):
+    """The FNO field's projection at one function chunk of the cell (C 4,
+    336 functions, the published widths, the 110 x 110 padded grid) on the
+    card: the fused kernels (``csrc/fno_project.cu``) forward and backward
+    against the autograd path they replace (``_Project`` in bf16: cuBLAS
+    products around elementwise passes over the hidden), timed in turns
+    (autograd, fused, fused, autograd), beside their byte, product and
+    instruction bounds and the plain version's time; the kernels' output and
+    gradients against the plain version's. Returns the kernel row."""
+    cfg = FNO2dConfig()
+    s, pad = 101, cfg.padding
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    flat = torch.stack([init_fno(cfg, device=dev) for _ in range(c)])
+    p = unravel_fno(cfg, flat)
+    weights = (p["fc1.weight"], p["fc1.bias"], p["fc2.weight"], p["fc2.bias"])
+    w, f = cfg.width, cfg.fc_dim
+    x = torch.randn(c, w, n, s + pad, s + pad, generator=gen, device=dev)
+    g = torch.randn(c, n, s, s, generator=gen, device=dev)
+    xl = x.clone().requires_grad_(True)
+    wl = [t.detach().clone().requires_grad_(True) for t in weights]
+
+    def autograd_forward():
+        with torch.enable_grad():
+            return _Project.apply(xl, *wl, s, s, torch.bfloat16, False)
+
+    held = {}
+
+    def autograd_backward():
+        if "out" not in held:
+            held["out"] = autograd_forward()
+        return torch.autograd.grad(held["out"], [xl, *wl], g, retain_graph=True)
+
+    routes = {"autograd forward": autograd_forward,
+              "fused forward": lambda: project_forward(x, *weights, s, s),
+              "autograd backward": autograd_backward,
+              "fused backward": lambda: project_backward(x, g, *weights, s, s)}
+    times = {k: [] for k in routes}
+    for part in ("forward", "backward"):
+        for kind in ("autograd", "fused", "fused", "autograd"):
+            label = f"{kind} {part}"
+            times[label].append(time_device(label, routes[label], reps))
+        held.clear()
+        torch.cuda.empty_cache()
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    n0 = profiling.counter("fno_project.launches")
+    out = project_forward(x, *weights, s, s)
+    grads = project_backward(x, g, *weights, s, s)
+    again = project_backward(x, g, *weights, s, s)
+    torch.cuda.synchronize()
+    per_call = (profiling.counter("fno_project.launches") - n0) // 3
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          "fused projection: two backward calls differ")
+    check(bool((grads[0][..., s:, :] == 0).all() and (grads[0][..., :, s:] == 0).all()),
+          "fused projection: dx is not 0 at the pad points")
+    del again
+    plain = {"forward": time_device("plain forward",
+                                    lambda: project_reference(x, *weights, s, s), 1, warmup=0)}
+    want_out = project_reference(x, *weights, s, s)
+    errs = {"out": ((out - want_out).norm() / want_out.norm()).item()}
+    del want_out
+    torch.cuda.empty_cache()
+    plain["backward"] = time_device(
+        "plain backward", lambda: project_backward_reference(x, g, *weights, s, s), 1, warmup=0)
+    want = project_backward_reference(x, g, *weights, s, s)
+    for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), grads, want):
+        errs[name] = ((a - b).norm() / b.norm()).item()
+    del want
+    torch.cuda.empty_cache()
+    props = torch.cuda.get_device_properties(dev)
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                           timeout=60, check=True).stdout.strip().splitlines()[0]
+    clock_hz = float(clock) * 1e6
+    bounds = fno_project_bounds(c, w, f, n, s + pad, s + pad, s, s, props.multi_processor_count,
+                                clock_hz)
+    for part in ("forward", "backward"):
+        nbytes, flops, instr_ms = bounds[part]
+        bytes_ms, flop_ms = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_BF16_FLOPS
+        fused_ms = ms["fused " + part]
+        print(f"  fno projection {part} at C={c} n={n} (110 x 110 padded, width {w}, fc_dim "
+              f"{f}): fused {times['fused ' + part][0]:.3f}/{times['fused ' + part][1]:.3f} ms, "
+              f"autograd {times['autograd ' + part][0]:.3f}/{times['autograd ' + part][1]:.3f} "
+              f"ms (in turns, {reps} queued calls each; "
+              f"{ms['autograd ' + part] / fused_ms:.2f}x); bounds: bytes {bytes_ms:.3f} ms "
+              f"({nbytes / 1e9:.2f} GB, {100 * bytes_ms / fused_ms:.1f} % reached), instructions "
+              f"{instr_ms:.3f} ms ({100 * instr_ms / fused_ms:.1f} %; "
+              f"{FNO_FWD_INSTR if part == 'forward' else FNO_BWD_INSTR} a hidden value at "
+              f"{clock} MHz), products {flop_ms:.3f} ms ({flops / 1e12:.3f} TFLOP); plain "
+              f"{plain[part]:.3f} ms")
+    print(f"  fno projection: {per_call} launch a direction; fused vs plain (relative norm): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    check(max(errs.values()) < 1e-3, f"fused projection vs plain: {errs}")
+    profile_line("fused projection forward + backward",
+                 lambda: (project_forward(x, *weights, s, s),
+                          project_backward(x, g, *weights, s, s)), 3)
+    total = ms["fused forward"] + ms["fused backward"]
+    instr_ms = bounds["forward"][2] + bounds["backward"][2]
+    return dict(max_abs_err=max(errs.values()), ms=total, forward_ms=ms["fused forward"],
+                backward_ms=ms["fused backward"], autograd_ms=ms["autograd forward"]
+                + ms["autograd backward"], plain_ms=plain["forward"] + plain["backward"],
+                bound_ms=instr_ms, bound_by="instructions",
+                bytes_bound_ms=1e3 * (bounds["forward"][0] + bounds["backward"][0])
+                / PEAK_BYTES_PER_S)
+
+
+def fno_field_counts(dev) -> dict:
+    """One bf16 FNO field call at the cell's shapes (C 4, 1000 functions on
+    the 101 x 101 grid, ``memory_gb`` 56: three chunks) and the f32 density
+    and field of the same chains: the recorder's counts of each. The bf16 call
+    must run the projection on the kernels, one forward and one backward a
+    chunk; the f32 ones never."""
+    cfg, c, b, s = FNO2dConfig(), 4, 1000, 101
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    u0 = torch.randn(b, s, generator=gen, device=dev)
+    y = torch.randn(b, s * s, generator=gen, device=dev)
+    flat = torch.stack([init_fno(cfg, device=dev) for _ in range(c)])
+    max_bytes = int(56 * 2 ** 30)
+    chunks = len(fno_chunks(cfg, b, c, s, s, max_bytes))
+    reset_counts()
+    k0 = profiling.counter("fno.chunks")
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    make_fno_grad_full(cfg, u0, y, 1.0, torch.bfloat16, max_bytes)(flat)
+    bf16 = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    bf16["chunks"] = profiling.counter("fno.chunks") - k0
+    reset_counts()
+    make_fno_nll_log_likelihood(cfg, u0, y, 1.0, max_bytes)(flat)
+    make_fno_grad_full(cfg, u0, y, 1.0, None, max_bytes)(flat[:1])
+    f32 = read_counts()
+    torch.cuda.empty_cache()
+    print(f"  FNO field at C={c}, {b} functions ({chunks} chunks): bf16 call fno_project "
+          f"{bf16['fno_project']} launches, fno.project.fused {bf16['fno_project_fused']}, "
+          f"peak {peak / 1e9:.2f} GB above its inputs; the f32 density and field: "
+          f"{f32['fno_project']} and {f32['fno_project_fused']}")
+    check(bf16["chunks"] == chunks and bf16["fno_project"] == 2 * chunks
+          and bf16["fno_project_fused"] == 2 * chunks, f"bf16 FNO field counts {bf16}")
+    check(f32["fno_project"] == 0 and f32["fno_project_fused"] == 0,
+          f"f32 FNO paths launched the fused projection: {f32}")
+    return bf16
 
 
 def stage3_kernels(dev, train, arts, reps):
@@ -2631,6 +2813,9 @@ def main(argv=None) -> int:
           + ", ".join(f"{k_} {v:.2f} ms ({100 * v / draw_ms:.1f} %)" for k_, v in parts.items()))
     del problem, delta, field, q0, q1, p0
     torch.cuda.empty_cache()
+    # the FNO field's fused projection beside the field stacks
+    kernel_rows["fno_project"] = fno_project_times(dev, args.timing_reps)
+    fno_counts = fno_field_counts(dev)
     phase("4 row per-draw breakdown", t0)
 
     # ---- phase 5: the stage-3 kernels against their plain versions ----
@@ -2976,10 +3161,11 @@ def main(argv=None) -> int:
                 "merge_sums": s3_counts["merge_sums"],
                 "leapfrog_update": s3_counts["leapfrog_update"],
                 "merge_sums_small": row28["grad_merge_sums_small"],
-                "field_stacks": row_counts["field_stacks"]}
+                "field_stacks": row_counts["field_stacks"],
+                "fno_project": fno_counts["fno_project"]}
     print("  launches per kernel on its main path: paired_sums and its small kernel and the "
-          "fused field stacks in the operator row (phase 3), merge_sums and leapfrog_update "
-          "in stage 3 (phase 6), "
+          "fused field stacks in the operator row (phase 3), the fused FNO projection in one "
+          "bf16 FNO field call (phase 4), merge_sums and leapfrog_update in stage 3 (phase 6), "
           "merge_sums' small kernel in --extras' fused gradient (phase 28 (c)); each counted "
           "by its wrapper where it launches: " + json.dumps(launches))
     print(f"  merge_sums in the stage-3 script (phase 29 (b)): "

@@ -865,3 +865,120 @@ def test_bf16_field_on_the_card_takes_the_fused_stacks(cuda_device):
     make_gram_grad_full(cfg, bx, tx, y, 0.7)(flat)
     torch.cuda.synchronize()
     assert counter("field_stacks.launches") == n0 + 11
+
+
+# -- the FNO2d's fused bf16 projection (csrc/fno_project.cu) --
+
+def _projection_problem(c, w, f, n, device, seed=31, s=101, pad=9):
+    """The last Fourier layer's output ``x`` (C, W, n, s + pad, s + pad) (the
+    pad points hold values, as in the model), a flat (C, D) batch whose
+    slices are the projection's weights (chain stride D, as ``unravel_fno``
+    gives them) at the init's scale, and a cotangent of ``out``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    x = torch.randn(c, w, n, s + pad, s + pad, generator=gen, device=device)
+    leaf = (torch.rand(c, f * w + 2 * f + 4, generator=gen, device=device) * 2 - 1) / w ** 0.5
+    g = torch.randn(c, n, s, s, generator=gen, device=device)
+    return x, leaf, g
+
+
+def _projection_weights(leaf, c, f, w):
+    return (leaf[:, :f * w].view(c, f, w), leaf[:, f * w:f * w + f],
+            leaf[:, f * w + f:f * w + 2 * f].view(c, 1, f),
+            leaf[:, f * w + 2 * f:f * w + 2 * f + 1])
+
+
+def _projection_vjp(fn, x, leaf, g, c, f, w):
+    """``(out, dx, dw1, db1, dw2, db2)`` of ``fn(x, *weights)`` by autograd."""
+    xl, ll = x.clone().requires_grad_(True), leaf.clone().requires_grad_(True)
+    with torch.enable_grad():
+        out = fn(xl, *_projection_weights(ll, c, f, w))
+        dx, dl = torch.autograd.grad(out, (xl, ll), g)
+    return (out.detach(), dx, *(t.detach() for t in _projection_weights(dl, c, f, w)))
+
+
+def _rel(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+@pytest.mark.parametrize("w,f", [(32, 128), (32, 100), (20, 200)])
+def test_fno_project_kernels_match_plain_project(cuda_device, w, f):
+    """The kernels (C 4, 8 functions, the 110 x 110 padded grid) against the
+    plain bf16 ``_Project`` (cuBLAS products) and against the plain version of
+    the kernels' arithmetic: out and all five gradients within bf16-product
+    tolerance (the same roundings; only the f32 sums' order differs, so a
+    rounding to bf16 may land one unit apart); dx exactly 0 at the pad points;
+    the published widths, and an fc_dim and a width that need padding."""
+    from vihmc_torch.models.fno import _Project
+    from vihmc_torch.ops.fno_project import (FusedProject, project_backward_reference,
+                                             project_reference)
+
+    c, n, s = 4, 8, 101
+    x, leaf, g = _projection_problem(c, w, f, n, cuda_device)
+    n0, k0 = counter("fno_project.launches"), counter("fno.project.fused")
+    got = _projection_vjp(lambda *a: FusedProject.apply(*a, s, s, False), x, leaf, g, c, f, w)
+    torch.cuda.synchronize()
+    assert counter("fno_project.launches") - n0 == 2
+    assert counter("fno.project.fused") - k0 == 2
+    plain = _projection_vjp(lambda *a: _Project.apply(*a, s, s, torch.bfloat16, False),
+                            x, leaf, g, c, f, w)
+    weights = _projection_weights(leaf, c, f, w)
+    ref = (project_reference(x, *weights, s, s),
+           *project_backward_reference(x, g, *weights, s, s))
+    names = ("out", "dx", "dw1", "db1", "dw2", "db2")
+    for name, a, p, r in zip(names, got, plain, ref):
+        assert a.shape == p.shape and a.dtype == torch.float32 and torch.isfinite(a).all()
+        assert _rel(a, p) < 1e-3, (name, _rel(a, p))
+        assert _rel(a, r) < 1e-3, (name, _rel(a, r))
+    dx = got[1]
+    assert (dx[..., s:, :] == 0).all() and (dx[..., :, s:] == 0).all()
+
+
+def test_fno_project_kernels_are_deterministic(cuda_device):
+    """Two calls give bit-equal outputs and gradients (the weight gradients
+    are summed in slot order, no float atomics); one chain (the warm start)
+    and a ragged function count take the same kernels."""
+    from vihmc_torch.ops.fno_project import FusedProject
+
+    for c, n in ((4, 8), (1, 3)):
+        x, leaf, g = _projection_problem(c, 32, 128, n, cuda_device, seed=32)
+        fn = lambda *a: FusedProject.apply(*a, 101, 101, False)  # noqa: E731
+        a = _projection_vjp(fn, x, leaf, g, c, 128, 32)
+        b = _projection_vjp(fn, x, leaf, g, c, 128, 32)
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_bf16_fno_field_on_the_card_takes_the_fused_projection(cuda_device):
+    """make_fno_grad_full in bf16 on the card (the published widths, C 2, 24
+    functions in 3 chunks on a 20 x 20 grid) counts ``fno.project.fused`` 2
+    per chunk and one kernel launch each, and agrees with the same field on
+    the CPU (``_Project``) within 1e-2 of each chain's norm; the f32 field,
+    the f32 density and the probe scores launch none."""
+    from vihmc_torch.bench_fno import fno_probe_scores
+    from vihmc_torch.models.fno import FNO2dConfig, fno_field_bytes, init_fno
+    from vihmc_torch.pipelines.common import (fno_chunks, make_fno_grad_full,
+                                              make_fno_nll_log_likelihood)
+
+    cfg, c, b, nt = FNO2dConfig(), 2, 24, 20
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(33)
+    u0 = torch.randn(b, nt, generator=gen, device=cuda_device)
+    y = torch.randn(b, nt * nt, generator=gen, device=cuda_device)
+    flat = torch.stack([init_fno(cfg, device=cuda_device) for _ in range(c)])
+    max_bytes = 8 * c * fno_field_bytes(cfg, nt, nt)
+    assert len(fno_chunks(cfg, b, c, nt, nt, max_bytes)) == 3
+    n0, k0 = counter("fno_project.launches"), counter("fno.project.fused")
+    got = make_fno_grad_full(cfg, u0, y, 0.5, torch.bfloat16, max_bytes)(flat)
+    torch.cuda.synchronize()
+    assert counter("fno.project.fused") - k0 == 6
+    assert counter("fno_project.launches") - n0 == 6
+    want = make_fno_grad_full(cfg, u0.cpu(), y.cpu(), 0.5, torch.bfloat16, max_bytes)(flat.cpu())
+    err = ((got.cpu() - want).norm(dim=1) / want.norm(dim=1)).max().item()
+    assert err < 1e-2, err
+    make_fno_grad_full(cfg, u0, y, 0.5, None, max_bytes)(flat)
+    make_fno_nll_log_likelihood(cfg, u0, y, 0.5, max_bytes)(flat)
+    fno_probe_scores(cfg, flat[0], torch.full_like(flat[0], 0.01), u0, nt, 4, 2, seed=3)
+    torch.cuda.synchronize()
+    assert counter("fno.project.fused") - k0 == 6
+    assert counter("fno_project.launches") - n0 == 6

@@ -40,6 +40,9 @@ and sums in float32: on CUDA as a bf16 product with a float32 result, on the
 CPU as the float32 product of the bf16-rounded operands (exact products,
 float32 sums: the same contract). The transforms and everything elementwise
 stay float32; cuFFT's half-precision transforms take only powers of two.
+A bf16 projection on CUDA runs instead as the fused kernels of
+:mod:`vihmc_torch.ops.fno_project` (``fc1``, GELU and ``fc2`` one launch each
+way, the hidden never in device memory), with ``_Project``'s roundings.
 
 The spectral adjoint. With ``G = rfft2(g)`` of the output's cotangent ``g``
 and ``N = S1 S2`` (padded), the cotangent of the kept modes is ``c_l G / N``,
@@ -69,6 +72,7 @@ import torch
 from torch.nn.functional import gelu
 
 from vihmc_torch.core.profiling import count, detail_span
+from vihmc_torch.ops import fno_project
 
 _NULL = contextlib.nullcontext()
 
@@ -434,8 +438,10 @@ def fno_apply_chains(cfg: FNO2dConfig, flat_c: torch.Tensor, a: torch.Tensor,
         s = _Spectral.apply(x, p[f"conv{lay}.weights1"], p[f"conv{lay}.weights2"], op, spans)
         x = _Pointwise.apply(s, x, p[f"w{lay}.weight"], p[f"w{lay}.bias"],
                              lay < cfg.n_layers - 1, op, spans)
-    return _Project.apply(x, p["fc1.weight"], p["fc1.bias"], p["fc2.weight"], p["fc2.bias"],
-                          s1, s2, op, spans)
+    proj = (x, p["fc1.weight"], p["fc1.bias"], p["fc2.weight"], p["fc2.bias"], s1, s2)
+    if fno_project.fused(op, x):
+        return fno_project.FusedProject.apply(*proj, spans)
+    return _Project.apply(*proj, op, spans)
 
 
 def fno_apply(cfg: FNO2dConfig, flat: torch.Tensor, a: torch.Tensor,

@@ -8,8 +8,8 @@ a shared library under ``vihmc_torch/_build/`` (listed in ``.gitignore``):
 
 ``paired_sums.cu`` and ``merge_sums.cu`` share their tensor-core mainloop,
 ``csrc/split_mma.cuh``, found beside them by ``#include "..."``
-(``field_stack.cu`` takes two small helpers from it); no other include path
-is given (no kernel uses CUTLASS or CuTe). Their tensor
+(``field_stack.cu`` and ``fno_project.cu`` take two small helpers from it);
+no other include path is given (no kernel uses CUTLASS or CuTe). Their tensor
 maps are encoded with ``cuTensorMapEncodeTiled``, reached at run time
 through ``cudaGetDriverEntryPoint``, so nothing links ``libcuda`` beyond
 what the CUDA runtime loads. The library name carries a hash of the flags,
@@ -42,7 +42,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"
 
 #: kernel library name -> its source under csrc/
 SOURCES = {"paired_sums": "paired_sums.cu", "merge_sums": "merge_sums.cu",
-           "leapfrog_update": "leapfrog_update.cu", "field_stack": "field_stack.cu"}
+           "leapfrog_update": "leapfrog_update.cu", "field_stack": "field_stack.cu",
+           "fno_project": "fno_project.cu"}
 
 #: ctypes signatures of each library's C functions
 _SIGNATURES = {
@@ -68,6 +69,12 @@ _SIGNATURES = {
     "field_stack": {
         "vihmc_field_forward": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p]),
         "vihmc_field_backward": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p]),
+    },
+    "fno_project": {
+        "vihmc_fno_project": (ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                             ctypes.c_void_p]),
+        "vihmc_fno_project_occupancy": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
+        "vihmc_fno_project_slot_words": (ctypes.c_int, [ctypes.c_int]),
     },
 }
 

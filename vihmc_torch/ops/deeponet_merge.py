@@ -93,10 +93,12 @@ def _small_blocks(b: int, p: int) -> int:
 _tickets: dict = {}
 
 
-def _small_tickets(dev, stream: int, c: int) -> torch.Tensor:
-    """The small kernels' per-chain counters on (device, stream): zeroed once
-    here, and set back to 0 by the last block of each chain of every launch,
-    so launches on one stream share them in turn."""
+def chain_tickets(dev, stream: int, c: int) -> torch.Tensor:
+    """Per-chain counters on (device, stream) of the kernels whose last block
+    of a chain adds the blocks' slots in order (the small merge kernels here,
+    the FNO projection's backward in ``fno_project``): zeroed once here, and
+    set back to 0 by that last block of every launch, so launches on one
+    stream share them in turn."""
     t = _tickets.get((dev, stream))
     if t is None or t.numel() < c:
         t = torch.zeros(max(c, 64), dtype=torch.int32, device=dev)
@@ -172,7 +174,7 @@ def _merge_launch(path, bout, tout, y) -> torch.Tensor:
             slots = torch.empty((c, nblk * N_MERGE_SUMS), dtype=torch.float64, device=dev)
             err = lib.vihmc_merge_sums_small(
                 bout.data_ptr(), tout.data_ptr(), y.data_ptr(), slots.data_ptr(),
-                _small_tickets(dev, stream, c).data_ptr(), out.data_ptr(), c, b, p, k, nblk,
+                chain_tickets(dev, stream, c).data_ptr(), out.data_ptr(), c, b, p, k, nblk,
                 ctypes.c_void_p(stream))
         else:
             scratch = torch.empty((c, lib.vihmc_merge_sums_scratch(b, p)),
@@ -317,7 +319,7 @@ def _paired_launch(path, bout1, tout1, bout0, tout0, y) -> torch.Tensor:
             nblk = _small_blocks(b, p)
             slots = torch.empty((c, nblk * N_SUMS), dtype=torch.float64, device=dev)
             err = lib.vihmc_paired_sums_small(
-                *feats, slots.data_ptr(), _small_tickets(dev, stream, c).data_ptr(),
+                *feats, slots.data_ptr(), chain_tickets(dev, stream, c).data_ptr(),
                 out.data_ptr(), c, b, p, k, nblk, ctypes.c_void_p(stream))
         else:
             scratch = torch.empty((c, lib.vihmc_paired_sums_scratch(b, p)),
